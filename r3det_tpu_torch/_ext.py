@@ -1,0 +1,136 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+Every ``.cu`` source under ``r3det_tpu_torch/csrc`` is compiled by ONE
+``nvcc`` call into a shared library with a plain C interface, loaded with
+``ctypes`` (pointers and the stream pass as ``c_void_p``). PyTorch's own
+extension builder is not used: a source that includes PyTorch's headers
+takes minutes to compile, a plain C one seconds.
+
+The build runs on first use, into ``r3det_tpu_torch/build/`` (git-ignored),
+and the library's file name carries a hash of the sources and flags, so an
+edited source rebuilds. There is no fallback: a missing ``nvcc`` or a failed
+build raises with the compiler's output.
+
+Flags: ``-gencode arch=compute_90a,code=sm_90a`` (Hopper) and
+``--fmad=false``, so that ``a*b + c`` written in the sources rounds twice,
+as the plain PyTorch versions do (the stem's conv sums run on the tensor
+cores, which the flag does not touch).
+
+Every launch goes through :func:`launch`, which raises on the CUDA error
+code the C entry point returns and counts the launch in :data:`LAUNCHES`.
+"""
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / 'csrc'
+BUILD_DIR = _PKG / 'build'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC')
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points (csrc/*.cu): each returns the cudaError_t of its launch
+_SIGNATURES = {
+    # boxes1, boxes2, valid_count|NULL, out, B, N, M, mode, upper_only,
+    # tile_r, tile_c, stream
+    'rotated_iou': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, feat, rois, out, B, H, W, C, spatial_scale, transpose_quirk,
+    # stream
+    'frm_sample': (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # x12, packed weights (16, 64, 16), scale, bias, out, B, H, W, stream
+    'stem_conv_pool': (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+}
+
+#: kernel name -> number of launches since the last :func:`reset_launches`
+LAUNCHES = {name: 0 for name in _SIGNATURES}
+
+_lib = None
+_lock = threading.Lock()
+
+
+def find_nvcc():
+    """Path of ``nvcc``: ``$CUDA_HOME/bin`` (default /usr/local/cuda), then
+    PATH. Raises when there is none."""
+    home = os.environ.get('CUDA_HOME') or '/usr/local/cuda'
+    cand = Path(home) / 'bin' / 'nvcc'
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    raise RuntimeError(
+        'nvcc not found in $CUDA_HOME/bin or on PATH: the r3det_tpu_torch '
+        'CUDA kernels cannot be built')
+
+
+def _library_path():
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob('*.cu')) + sorted(CSRC.glob('*.cuh')):
+        digest.update(p.name.encode())
+        digest.update(p.read_bytes())
+    return BUILD_DIR / f'libr3det_kernels_{digest.hexdigest()[:16]}.so'
+
+
+def build():
+    """Compile the kernels unless an up-to-date library exists; returns
+    the library's path."""
+    out = _library_path()
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
+    cmd = [nvcc, *NVCC_FLAGS, '-o', str(tmp),
+           *map(str, sorted(CSRC.glob('*.cu')))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f'nvcc failed with code {proc.returncode}:\n'
+                           f'{" ".join(cmd)}\n{proc.stdout}{proc.stderr}')
+    os.replace(tmp, out)
+    return out
+
+
+def lib():
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, f'r3det_{name}')
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            handle.r3det_error_string.argtypes = [ctypes.c_int]
+            handle.r3det_error_string.restype = ctypes.c_char_p
+            _lib = handle
+        return _lib
+
+
+def launch(name, *args):
+    """Call the C entry point ``r3det_<name>``; raise on a launch error,
+    otherwise count the launch."""
+    handle = lib()
+    err = getattr(handle, f'r3det_{name}')(*args)
+    if err != 0:
+        msg = handle.r3det_error_string(err).decode()
+        raise RuntimeError(f'CUDA kernel {name} failed to launch: '
+                           f'error {err} ({msg})')
+    LAUNCHES[name] += 1
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def current_stream(device):
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``."""
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream

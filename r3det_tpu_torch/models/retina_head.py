@@ -1,0 +1,47 @@
+"""Rotated RetinaNet head.
+
+Port of ``r3det_tpu/models/retina_head.py``: ``stacked_convs`` 3x3 conv +
+ReLU on each of the cls and reg branches, then 3x3 prediction convs giving
+``num_anchors * num_classes`` logits and ``num_anchors * 5`` deltas per
+position. The cls bias starts at the focal prior -log((1 - p) / p),
+p = 0.01. Outputs are f32 ``(B, H, W, A*C)`` / ``(B, H, W, A*5)``, the
+anchor layout of ``core/anchors.py``.
+"""
+import math
+
+import torch.nn.functional as F
+from torch import nn
+
+from .conv import Conv2d
+
+
+def focal_bias(prior=0.01):
+    return -math.log((1 - prior) / prior)
+
+
+class RRetinaHead(nn.Module):
+    def __init__(self, num_classes=15, in_channels=256, feat_channels=256,
+                 stacked_convs=4, num_anchors=9):
+        super().__init__()
+        self.stacked_convs = stacked_convs
+        for branch in ('cls', 'reg'):
+            for i in range(stacked_convs):
+                cin = in_channels if i == 0 else feat_channels
+                self.add_module(f'{branch}_conv_{i}',
+                                Conv2d(cin, feat_channels, 3, padding=1))
+        cin = feat_channels if stacked_convs else in_channels
+        self.retina_cls = Conv2d(cin, num_anchors * num_classes, 3, padding=1)
+        self.retina_reg = Conv2d(cin, num_anchors * 5, 3, padding=1)
+        nn.init.constant_(self.retina_cls.bias, focal_bias())
+
+    def forward(self, feats):
+        cls_scores, bbox_preds = [], []
+        for x in feats:
+            cf, rf = x, x
+            for i in range(self.stacked_convs):
+                cf = F.relu(getattr(self, f'cls_conv_{i}')(cf))
+                rf = F.relu(getattr(self, f'reg_conv_{i}')(rf))
+            # predictions in f32 for decode
+            cls_scores.append(self.retina_cls(cf).float().permute(0, 2, 3, 1))
+            bbox_preds.append(self.retina_reg(rf).float().permute(0, 2, 3, 1))
+        return tuple(cls_scores), tuple(bbox_preds)
