@@ -15,8 +15,16 @@ Phases, one line each (any failure raises and the exit code is 1):
    through ``build_detector`` and the port's predict step. The refine
    head's final cls layer is set from the seed so that one batch sends more
    than 2000 live candidates per image to NMS (the full sweep) and the
-   other fewer (the small sweep); every kernel must launch in that run.
-   The same batches then go through the plain versions on the card.
+   other fewer (the small sweep); every kernel of the path must launch in
+   that run. The same batches then go through the plain versions on the
+   card. Then the int8 serving path (``quantize='static'``,
+   ``quantize_head='static'``, ``int8_act``, fused stem) on the same
+   weights, calibrated with ``calibrate`` on the seeded batch: its kernels
+   must launch, it is held to its plain route and to the bf16 path's
+   refine logits, and its patches/s is measured beside the bf16 path's;
+5. opt-in routes, batch 2: bf16 with ``fused_blocks`` and the unfused stem
+   with ``stem_pool_kernel`` (launches K5 and K4), and int8 with
+   ``fused_blocks`` (launches K5 int8), each held to the unfused model.
 
 Prints the kernels' JSON record on the line before the last, and as the
 last line ``{"ok": true, "device": {...}}``. Needs one card; exits non-zero
@@ -37,15 +45,45 @@ IOU_BUDGETS = (4000, 2000)        # NMS candidate budgets: full and small
 FRM_SIZES = (128, 64, 32, 16, 8)  # P3..P7 at 1024^2
 FRM_CHANNELS = 256
 LIVE_TARGETS = {'big': 3000, 'small': 1000}   # live candidates per image
+# R50 identity bottlenecks at 1024^2: (name, (B, H, W, 4F), F)
+BOTTLENECKS = (('C2', (BATCH, 256, 256, 256), 64),
+               ('C3', (BATCH, 128, 128, 512), 128),
+               ('C4', (BATCH, 64, 64, 1024), 256))
+ROUTE_BATCH = 2                   # batch of the opt-in routes
 REPLACES = {
     'rotated_iou': 'r3det_tpu/ops/pallas_iou.py:146',
     'frm_sample': 'r3det_tpu/ops/frm_sample.py:241',
+    # also the bf16 function of stem_conv_pool_pallas (:97) and
+    # stem_conv_pool_pallas_grouped (:192)
     'stem_conv_pool': 'r3det_tpu/ops/stem_pool.py:586',
+    'stem_conv_pool_q8': 'r3det_tpu/ops/stem_pool.py:586',
+    'stem_pool': 'r3det_tpu/ops/stem_pool.py:430',
+    'bottleneck': 'r3det_tpu/ops/bottleneck_fuse.py:206',
+    'bottleneck_q8': 'r3det_tpu/ops/bottleneck_fuse.py:271',
+    # no TPU kernel: the XLA int8 conv of QConv
+    'int8_conv': 'r3det_tpu/models/quant.py:111',
 }
 SOURCES = {
     'rotated_iou': 'r3det_tpu_torch/csrc/rotated_iou.cu',
     'frm_sample': 'r3det_tpu_torch/csrc/frm_sample.cu',
     'stem_conv_pool': 'r3det_tpu_torch/csrc/stem_pool.cu',
+    'stem_conv_pool_q8': 'r3det_tpu_torch/csrc/stem_pool.cu',
+    'stem_pool': 'r3det_tpu_torch/csrc/stem_pool.cu',
+    'bottleneck': 'r3det_tpu_torch/csrc/bottleneck.cu',
+    'bottleneck_q8': 'r3det_tpu_torch/csrc/bottleneck.cu',
+    'int8_conv': 'r3det_tpu_torch/csrc/int8_conv.cu',
+}
+# the run whose launch counts each kernel reports
+PATH_OF = {'rotated_iou': 'bf16', 'frm_sample': 'bf16',
+           'stem_conv_pool': 'bf16', 'stem_conv_pool_q8': 'int8',
+           'stem_pool': 'route_bf16', 'bottleneck': 'route_bf16',
+           'bottleneck_q8': 'route_int8', 'int8_conv': 'int8'}
+# the kernels each run must launch
+PATH_KERNELS = {
+    'bf16': ('rotated_iou', 'frm_sample', 'stem_conv_pool'),
+    'int8': ('rotated_iou', 'frm_sample', 'stem_conv_pool_q8', 'int8_conv'),
+    'route_bf16': ('stem_pool', 'bottleneck'),
+    'route_int8': ('bottleneck_q8', 'stem_conv_pool_q8', 'int8_conv'),
 }
 
 
@@ -206,6 +244,137 @@ def compare_kernels(dev):
     check(bool((diff <= 1e-2 + 1e-2 * want.float().abs()).all()),
           'stem_conv_pool disagrees with its plain version')
     rec['stem_conv_pool'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+    # K3 int8: exact int32 sums, the plain version's epilogue -> one ulp
+    def q8():
+        return K3.stem_conv_pool_cuda(x12, kern, scale, bias, True)
+    got = q8()
+    want = K3.stem_conv_pool_q8_reference(x12, kern, scale, bias)
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    ms = cuda_ms(q8, 20)
+    plain_ms = cuda_ms(
+        lambda: K3.stem_conv_pool_q8_reference(x12, kern, scale, bias), 5)
+    phase('kernel', name='stem_conv_pool_q8', shape=str(tuple(got.shape)),
+          max_abs_err=err, exact_frac=float((diff == 0).float().mean()),
+          tol='1 bf16 ulp', ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}')
+    check(bool((diff <= want.float().abs() * 2 ** -7 + 1e-6).all()),
+          'stem_conv_pool_q8 disagrees with its plain version')
+    rec['stem_conv_pool_q8'] = dict(max_abs_err=err, ms=ms,
+                                    plain_ms=plain_ms)
+
+    # K4 on the plain conv output of the same stem: a max, bit-equal
+    conv = torch.from_numpy(rng.uniform(0, 4, (BATCH, SIZE // 2, SIZE // 2,
+                                               64)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    got = K3.stem_pool_cuda(conv)
+    err = float((got.float() - K3.stem_pool_reference(conv).float())
+                .abs().max())
+    ms = cuda_ms(lambda: K3.stem_pool_cuda(conv), 20)
+    plain_ms = cuda_ms(lambda: K3.stem_pool_reference(conv), 5)
+    phase('kernel', name='stem_pool', shape=str(tuple(got.shape)),
+          max_abs_err=err, tol=0.0, ms=f'{ms:.4f}',
+          plain_ms=f'{plain_ms:.4f}')
+    check(err == 0.0, 'stem_pool disagrees with its plain version')
+    rec['stem_pool'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    del conv
+    rec.update(compare_bottlenecks(dev, rng))
+    rec['int8_conv'] = int8_conv_route(dev, rng)
+    return rec
+
+
+def compare_bottlenecks(dev, rng):
+    """K5 and K5 int8 at R50's identity blocks (C2, C3, C4): each row's ms
+    is the sum of one call at each shape."""
+    import numpy as np
+    import torch
+
+    from r3det_tpu_torch.ops import bottleneck_fuse as K5
+
+    rec = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+           for k in ('bottleneck', 'bottleneck_q8')}
+    for stage, shape, f in BOTTLENECKS:
+        c4 = 4 * f
+        x = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(
+            dev, torch.bfloat16)
+        ws = [torch.from_numpy(rng.normal(0, std, s).astype(np.float32))
+              .to(dev) for s, std in (
+                  ((1, 1, c4, f), c4 ** -0.5), ((f,), 0.1),
+                  ((3, 3, f, f), (9 * f) ** -0.5), ((f,), 0.1),
+                  ((1, 1, f, c4), f ** -0.5), ((c4,), 0.1))]
+        # static ranges of the three conv inputs (x; a1 and a2 are ReLU
+        # outputs of unit-scale convs)
+        amax = [x.float().abs().amax(), torch.tensor(4.0, device=dev),
+                torch.tensor(3.0, device=dev)]
+        for name, kernel, plain, args, tol in (
+                ('bottleneck', K5.fused_bottleneck_cuda,
+                 K5.fused_bottleneck_reference, ws, (0.05, 1e-2)),
+                ('bottleneck_q8', K5.fused_bottleneck_q8_cuda,
+                 K5.fused_bottleneck_q8_reference, ws + amax, (2e-2, 0.0))):
+            got = kernel(x, *args).float()
+            want = plain(x, *args).float()
+            diff = (got - want).abs()
+            err = float(diff.max())
+            ms = cuda_ms(lambda: kernel(x, *args), 10)
+            plain_ms = cuda_ms(lambda: plain(x, *args), 3)
+            phase('kernel', name=name, stage=stage, shape=str(shape), F=f,
+                  max_abs_err=err, exact_frac=float((diff == 0).float().mean()),
+                  tol=f'{tol[0]} + {tol[1]}*|ref|', ms=f'{ms:.4f}',
+                  plain_ms=f'{plain_ms:.4f}')
+            check(bool((diff <= tol[0] + tol[1] * want.abs()).all()),
+                  f'{name} at {stage} disagrees with its plain version')
+            r = rec[name]
+            r['max_abs_err'] = max(r['max_abs_err'], err)
+            r['ms'] += ms
+            r['plain_ms'] += plain_ms
+            del got, want, diff
+        del x, ws
+    torch.cuda.empty_cache()
+    return rec
+
+
+def int8_conv_route(dev, rng):
+    """QConv's int8 conv kernel against its plain version (int8 im2col +
+    torch._int_mm, exact) and a bf16 cuDNN conv of the same shape, at the
+    R50 C2 3x3 conv and a head-tower 3x3 conv on P3 (bf16 input, quantized
+    on load). The row's ms sums the two shapes."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from r3det_tpu_torch.ops import int8_conv as Q
+    rec = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+    for name, (b, h, w, ci, co) in (('C2_conv2', (BATCH, 256, 256, 64, 64)),
+                                    ('head_P3', (BATCH, 128, 128, 256, 256))):
+        x = torch.from_numpy(rng.normal(0, 1, (b, h, w, ci))
+                             .astype(np.float32)).to(dev, torch.bfloat16)
+        wf = torch.from_numpy(rng.normal(0, 0.05, (3, 3, ci, co))
+                              .astype(np.float32)).to(dev)
+        wi, ks = Q.quantize_weights(wf, axes=(0, 1, 2))
+        bias = torch.from_numpy(rng.normal(0, 1, co).astype(np.float32)).to(
+            dev)
+        args = (x, x.float().abs().amax() / 127.0, wi, ks.reshape(-1), bias,
+                (1, 1), (1, 1))
+        got = Q.qconv_cuda(*args)
+        want = Q.qconv_reference(*args, torch.bfloat16)
+        err = float((got.float() - want.float()).abs().max())
+        xb = x.permute(0, 3, 1, 2)
+        wb = wf.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        ms = cuda_ms(lambda: Q.qconv_cuda(*args), 10)
+        plain_ms = cuda_ms(lambda: Q.qconv_reference(*args, torch.bfloat16),
+                           5)
+        bf16_ms = cuda_ms(lambda: F.conv2d(xb, wb, padding=1), 10)
+        phase('kernel', name='int8_conv', stage=name,
+              shape=f'({b},{h},{w},{ci})->{co}', max_abs_err=err, tol=0.0,
+              ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
+              cudnn_bf16_ms=f'{bf16_ms:.4f}')
+        check(err == 0.0, f'int8_conv disagrees with its plain version '
+                          f'({name})')
+        rec['max_abs_err'] = max(rec['max_abs_err'], err)
+        rec['ms'] += ms
+        rec['plain_ms'] += plain_ms
+        del x, got, want, xb
     return rec
 
 
@@ -280,8 +449,53 @@ def _agreement(a, b):
     return found / max(total, 1)
 
 
+def stage_times(model, images, sizes, iters=5):
+    """Mean ms per batch of each stage of the R3Det forward and predict
+    (CUDA events)."""
+    import torch
+
+    from r3det_tpu_torch.models.detectors import (detector_predict,
+                                                  filter_bboxes,
+                                                  level_anchors)
+    cfg = model.cfg
+    names = ('backbone', 'neck', 'bbox_head', 'filter_bboxes', 'frm',
+             'refine_head', 'predict')
+    tot = [0.0] * len(names)
+    with torch.no_grad():
+        for it in range(iters + 1):
+            ev = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(len(names) + 1)]
+            ev[0].record()
+            feats = model.backbone(images)
+            ev[1].record()
+            feats = model.neck(feats)
+            ev[2].record()
+            cls0, reg0 = model.bbox_head(feats)
+            ev[3].record()
+            anchors = level_anchors(cfg, [tuple(c.shape[1:3]) for c in cls0],
+                                    images.device)
+            rois = filter_bboxes(cls0, reg0, anchors, cfg.coder(), cfg)
+            ev[4].record()
+            feats = model.frm_0(feats, rois)
+            ev[5].record()
+            cls, reg = model.refine_head_0(feats)
+            ev[6].record()
+            detector_predict({'s0': (cls0, reg0), 'sr': [(cls, reg)],
+                              'rois': [rois]}, cfg, sizes,
+                             img_shape=(SIZE, SIZE), kernels=model.kernels)
+            ev[7].record()
+            torch.cuda.synchronize()
+            if it == 0:                                   # warm-up
+                continue
+            spans = [(0, 1), (1, 2), (2, 3), (3, 4), (4, 5), (5, 6), (6, 7)]
+            for i, (a, b) in enumerate(spans):
+                tot[i] += ev[a].elapsed_time(ev[b])
+    return {n: tot[i] / iters for i, n in enumerate(names)}
+
+
 def end_to_end(dev, card):
-    """Phase 4. Returns the launch counts of the main-path run."""
+    """Phase 4, bf16. Returns the run's launch counts and what the int8
+    path and the routes reuse."""
     import numpy as np
     import torch
 
@@ -315,9 +529,10 @@ def end_to_end(dev, card):
     results = {br: run(br) for br in LIVE_TARGETS}
     torch.cuda.synchronize()
     launches = dict(_ext.LAUNCHES)
-    phase('launches', **launches)
-    for name, n in launches.items():
-        check(n > 0, f'kernel {name} was not launched on the main path')
+    phase('launches', path='bf16', **launches)
+    for name in PATH_KERNELS['bf16']:
+        check(launches[name] > 0,
+              f'kernel {name} was not launched on the bf16 path')
 
     for branch, (dets, labels, num, (live, taken)) in results.items():
         phase('predict', batch=branch, live=live, branch=taken,
@@ -379,7 +594,167 @@ def end_to_end(dev, card):
               num=kd[2].tolist(), plain_num=pd[2].tolist(), card=card)
         check(min(found, back) >= 0.75,
               f'kernel and plain detections disagree ({branch})')
-    return launches
+    _set_bias(model, biases['big'])
+    phase('stages', path='bf16', batch='big', card=card,
+          **{k: f'{v:.3f}' for k, v in stage_times(model, images,
+                                                   sizes).items()})
+    return dict(launches=launches, model=model, images=images, sizes=sizes,
+                biases=biases, cfg=cfg, step=step)
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _patches_per_s(step, images, iters=5):
+    import torch
+    step(images)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step(images)
+    torch.cuda.synchronize()
+    return images.shape[0] * iters / (time.perf_counter() - t0)
+
+
+def _check_dets(result, cfg, batch, what):
+    import torch
+    dets, labels, num = result[:3]
+    check(tuple(dets.shape) == (batch, cfg.test.max_per_img, 6)
+          and tuple(labels.shape) == (batch, cfg.test.max_per_img)
+          and tuple(num.shape) == (batch,), f'wrong output shapes ({what})')
+    check(bool(torch.isfinite(dets).all()), f'non-finite detections ({what})')
+    check(bool((num > 0).all()), f'an image has no detection ({what})')
+
+
+def _copy_model(cfg, state, dev, **kw):
+    """A detector built with ``kw`` carrying ``state`` (int8 ranges may be
+    absent from it: they start uncalibrated)."""
+    import torch
+
+    from r3det_tpu_torch.models.detectors import build_detector
+    model = build_detector(cfg, dtype=torch.bfloat16, **kw)
+    missing, unexpected = model.load_state_dict(state, strict=False)
+    check(not unexpected and all(k.endswith(('act_absmax', 'in_absmax'))
+                                 for k in missing),
+          f'state dict mismatch: {missing[:3]} {unexpected[:3]}')
+    return model.to(device=dev, memory_format=torch.channels_last)
+
+
+def int8_serving(dev, card, base):
+    """Phase 4, int8: the serving configuration on the bf16 path's weights,
+    calibrated on the seeded batch. Returns the run's launch counts and
+    the model."""
+    import torch
+
+    from r3det_tpu_torch import _ext
+    from r3det_tpu_torch.models.detectors import use_kernels
+    from r3det_tpu_torch.models.quant import calibrate
+    from r3det_tpu_torch.parallel.predict import make_predict_step
+
+    model, images, sizes = base['model'], base['images'], base['sizes']
+    cfg = base['cfg']._replace(quantize='static', quantize_head='static')
+    _set_bias(model, base['biases']['big'])
+    model_q = _copy_model(cfg, model.state_dict(), dev, int8_act=True,
+                          stem_fused_kernel=True)
+    t0 = time.perf_counter()
+    calibrate(model_q, [images])
+    torch.cuda.synchronize()
+    phase('calibrate', seconds=f'{time.perf_counter() - t0:.2f}',
+          ranges=sum(1 for k in model_q.state_dict()
+                     if k.endswith(('act_absmax', 'in_absmax'))))
+    step = make_predict_step(model_q, cfg, sizes, img_shape=(SIZE, SIZE))
+
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    result = step(images, return_branch=True)
+    torch.cuda.synchronize()
+    launches = dict(_ext.LAUNCHES)
+    phase('launches', path='int8', **launches)
+    for name in PATH_KERNELS['int8']:
+        check(launches[name] > 0,
+              f'kernel {name} was not launched on the int8 path')
+    _check_dets(result, cfg, BATCH, 'int8')
+
+    q_logits = _sr_logits(model_q, images)
+    bf_logits = _sr_logits(model, images)
+    speed = _patches_per_s(step, images)
+    bf_speed = _patches_per_s(base['step'], images)
+    use_kernels(model_q, False)
+    plain = step(images)
+    plain_logits = _sr_logits(model_q, images)
+    plain_speed = _patches_per_s(step, images)
+    use_kernels(model_q, True)
+    rel_bf16, rel_plain = _rel(q_logits, bf_logits), _rel(q_logits,
+                                                          plain_logits)
+    found, back = _agreement(result[:3], plain[:3]), \
+        _agreement(plain[:3], result[:3])
+    phase('int8', live=result[3][0], branch=result[3][1],
+          num=result[2].tolist(), sr_logits_rel_to_bf16=f'{rel_bf16:.5f}',
+          sr_logits_rel_to_plain=f'{rel_plain:.5f}', tol=0.05,
+          dets_found_in_plain=f'{found:.4f}',
+          plain_found_in_kernel=f'{back:.4f}',
+          patches_per_s=f'{speed:.2f}', plain_patches_per_s=f'{plain_speed:.2f}',
+          bf16_patches_per_s=f'{bf_speed:.2f}', card=card)
+    check(rel_bf16 <= 0.05, 'int8 refine logits drift from the bf16 path')
+    check(rel_plain <= 0.05, 'int8 kernel route drifts from its plain route')
+    check(min(found, back) >= 0.75, 'int8 kernel and plain detections '
+                                    'disagree')
+    phase('stages', path='int8', batch='big', card=card,
+          **{k: f'{v:.3f}' for k, v in stage_times(model_q, images,
+                                                   sizes).items()})
+    return launches, model_q
+
+
+def opt_in_routes(dev, base, model_q):
+    """Phase 5: the opt-in backbone routes at batch ROUTE_BATCH, each held
+    to the model it varies. Returns {route: launch counts}."""
+    import torch
+
+    from r3det_tpu_torch import _ext
+    from r3det_tpu_torch.parallel.predict import make_predict_step
+
+    from r3det_tpu_torch.models.quant import calibrate
+
+    images = base['images'][:ROUTE_BATCH]
+    out = {}
+    # the fused int8 block reads each conv's calibrated range; with int8_act
+    # conv1 takes the block's pre-quantized input and records none (as in
+    # the JAX package), so this reference calibrates without it
+    ref_q = _copy_model(model_q.cfg, base['model'].state_dict(), dev)
+    calibrate(ref_q, [base['images']])
+    routes = (
+        # bf16: fused blocks (K5), the unfused stem with the pool kernel (K4)
+        ('route_bf16', base['model'], base['cfg'],
+         dict(fused_blocks=True, stem_fused_kernel=False,
+              stem_pool_kernel=True), 0.05),
+        # int8: fused blocks with the calibrated ranges (K5 int8). The
+        # fused block quantizes BN-folded weights by the reciprocal
+        # multiply, so its grids differ from the unfused QConvs': the JAX
+        # package's bound for one block is 0.1 of the largest value.
+        ('route_int8', ref_q, model_q.cfg, dict(fused_blocks=True), 0.1))
+    for route, ref, cfg, kw, tol in routes:
+        model = _copy_model(cfg, ref.state_dict(), dev, **kw)
+        step = make_predict_step(model, cfg, base['sizes'],
+                                 img_shape=(SIZE, SIZE))
+        torch.cuda.synchronize()
+        _ext.reset_launches()
+        result = step(images)
+        torch.cuda.synchronize()
+        launches = dict(_ext.LAUNCHES)
+        phase('launches', path=route, **launches)
+        for name in PATH_KERNELS[route]:
+            check(launches[name] > 0,
+                  f'kernel {name} was not launched on {route}')
+        _check_dets(result, cfg, ROUTE_BATCH, route)
+        rel = _rel(_sr_logits(model, images), _sr_logits(ref, images))
+        phase('route', path=route, sr_logits_rel_to_unfused=f'{rel:.5f}',
+              tol=tol, patches_per_s=f'{_patches_per_s(step, images):.2f}',
+              unfused_patches_per_s=f'{_patches_per_s(make_predict_step(ref, cfg, base["sizes"], img_shape=(SIZE, SIZE)), images):.2f}')
+        check(rel <= tol, f'{route} drifts from the unfused model')
+        out[route] = launches
+        del model
+    return out
 
 
 def main():
@@ -411,9 +786,12 @@ def main():
           library=os.path.relpath(path))
 
     rec = compare_kernels(dev)
-    launches = end_to_end(dev, smi)
+    base = end_to_end(dev, smi)
+    launches = {'bf16': base['launches']}
+    launches['int8'], model_q = int8_serving(dev, smi, base)
+    launches.update(opt_in_routes(dev, base, model_q))
     kernels = [dict(name=k, route='cuda', source=SOURCES[k],
-                    replaces=REPLACES[k], launches=launches[k],
+                    replaces=REPLACES[k], launches=launches[PATH_OF[k]][k],
                     max_abs_err=rec[k]['max_abs_err'], ms=rec[k]['ms'],
                     plain_ms=rec[k]['plain_ms']) for k in SOURCES]
     print(json.dumps({'kernels': kernels}), flush=True)

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-Every ``.cu`` source under ``r3det_tpu_torch/csrc`` is compiled by ONE
-``nvcc`` call into a shared library with a plain C interface, loaded with
-``ctypes`` (pointers and the stream pass as ``c_void_p``). PyTorch's own
-extension builder is not used: a source that includes PyTorch's headers
-takes minutes to compile, a plain C one seconds.
+Every ``.cu`` source under ``r3det_tpu_torch/csrc`` is compiled by its own
+``nvcc`` process, all started together, and the objects are linked into one
+shared library with a plain C interface, loaded with ``ctypes`` (pointers
+and the stream pass as ``c_void_p``). PyTorch's own extension loader
+(``torch.utils.cpp_extension``) is not used: a source that includes
+PyTorch's headers takes minutes to compile, a plain C one seconds.
 
 The build runs on first use, into ``r3det_tpu_torch/build/`` (git-ignored),
 and the library's file name carries a hash of the sources and flags, so an
@@ -31,7 +32,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG / 'build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC')
+              '-O3', '--fmad=false', '-Xcompiler', '-fPIC')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,6 +47,20 @@ _SIGNATURES = {
     'frm_sample': (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     # x12, packed weights (16, 64, 16), scale, bias, out, B, H, W, stream
     'stem_conv_pool': (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x12, int8 weights (4, 2, 64, 32), amax (1,), kscale, scale, bias,
+    # out, B, H, W, stream
+    'stem_conv_pool_q8': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # conv output (B, H, W, 64), out, B, H, W, stream
+    'stem_pool': (_P, _P, _I, _I, _I, _P),
+    # x, w1, b1, w2, b2, w3, b3, out, B, H, W, F, stream
+    'bottleneck': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, inv (3,), w1, s1, b1, w2, s2, b2, w3, s3, b3, out, B, H, W, F,
+    # stream
+    'bottleneck_q8': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                      _I, _I, _P),
+    # x, q_in, ascale (1,), w (Co, kh, kw, Ci), kscale, bias|NULL, out, B,
+    # H, W, Ci, Ho, Wo, Co, kh, kw, sh, sw, ph, pw, stream
+    'int8_conv': (_P, _I, _P, _P, _P, _P, _P) + (_I,) * 13 + (_P,),
 }
 
 #: kernel name -> number of launches since the last :func:`reset_launches`
@@ -78,21 +93,41 @@ def _library_path():
     return BUILD_DIR / f'libr3det_kernels_{digest.hexdigest()[:16]}.so'
 
 
+def _run(cmds):
+    """Run the commands in parallel; raise with the output of the first
+    that fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = None
+    for cmd, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, log)
+    if failed:
+        cmd, code, log = failed
+        raise RuntimeError(f'nvcc failed with code {code}:\n'
+                           f'{" ".join(cmd)}\n{log}')
+
+
 def build():
     """Compile the kernels unless an up-to-date library exists; returns
-    the library's path."""
+    the library's path. One nvcc process per source, all at once, then
+    one link."""
     out = _library_path()
     if out.exists():
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f'{out.stem}.{os.getpid()}'
+    sources = sorted(CSRC.glob('*.cu'))
+    objs = [BUILD_DIR / f'{tag}.{src.stem}.o' for src in sources]
+    _run([[nvcc, *NVCC_FLAGS, '-c', '-o', str(obj), str(src)]
+          for src, obj in zip(sources, objs)])
     tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
-    cmd = [nvcc, *NVCC_FLAGS, '-o', str(tmp),
-           *map(str, sorted(CSRC.glob('*.cu')))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed with code {proc.returncode}:\n'
-                           f'{" ".join(cmd)}\n{proc.stdout}{proc.stderr}')
+    _run([[nvcc, '-shared', '-o', str(tmp), *map(str, objs)]])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)
     return out
 

@@ -11,10 +11,16 @@ Layouts follow the JAX package: images NHWC (B, H, W, 3); head maps
 predict returns (dets (B, max_per_img, 6), labels (B, max_per_img),
 num (B,)).
 
-``kernels`` (default on) routes the stem, the FRM sample and the NMS IoU
-through the CUDA kernels when the tensors are on a card; off, the model
-runs the plain PyTorch versions everywhere (the reference the kernels are
-held to).
+``build_detector`` takes the JAX package's build options: the config's
+``quantize`` (backbone, FPN and FRM branch convs) and ``quantize_head``
+(head towers), each ``False | True | 'static'``, and the keywords
+``int8_act``, ``stem_fused_kernel`` (on by default in the port),
+``stem_pool_kernel`` and ``fused_blocks`` (see ``models/resnet.py``).
+``kernels`` (default on) routes the stem, the stem pool, the fused
+bottlenecks, the int8 convs, the FRM sample and the NMS IoU through the
+CUDA kernels when
+the tensors are on a card; off, the model runs the plain PyTorch versions
+everywhere (the reference the kernels are held to).
 """
 import functools
 from typing import Any, NamedTuple, Optional, Tuple
@@ -116,34 +122,50 @@ R3DET_R50_V1 = DetectorConfig(
 # ---------------------------------------------------------------------------
 
 def _check_supported(cfg):
-    if cfg.quantize or cfg.quantize_head:
-        raise NotImplementedError('int8 serving is not ported yet')
+    if cfg.hbb_anchors:
+        raise NotImplementedError(
+            'horizontal base anchors (DeltaXYWHAHBBoxCoder) are not ported '
+            'yet')
 
 
-class RRetinaNet(nn.Module):
-    """Backbone + FPN + rotated retina head. forward(images NHWC) ->
-    {'s0': (cls_scores, bbox_preds)}."""
+class _Base(nn.Module):
+    """Backbone + FPN + the base rotated retina head."""
 
-    def __init__(self, cfg: DetectorConfig, dtype=torch.bfloat16,
-                 kernels=True):
+    def __init__(self, cfg, dtype, kernels, stem_fused_kernel,
+                 stem_pool_kernel, fused_blocks, int8_act):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
         self.kernels = kernels
-        self.backbone = ResNet(depth=cfg.backbone_depth, dtype=dtype,
-                               kernels=kernels)
-        self.neck = FPN(out_channels=cfg.feat_channels)
+        self.backbone = ResNet(
+            depth=cfg.backbone_depth, dtype=dtype, kernels=kernels,
+            stem_fused_kernel=stem_fused_kernel,
+            stem_pool_kernel=stem_pool_kernel, quantize=cfg.quantize,
+            fused_blocks=fused_blocks, int8_act=int8_act)
+        self.neck = FPN(out_channels=cfg.feat_channels,
+                        quantize=cfg.quantize)
         self.bbox_head = RRetinaHead(
             num_classes=cfg.num_classes, in_channels=cfg.feat_channels,
             feat_channels=cfg.feat_channels, stacked_convs=cfg.stacked_convs,
-            num_anchors=cfg.num_anchors)
+            num_anchors=cfg.num_anchors, quantize=cfg.quantize_head)
+
+
+class RRetinaNet(_Base):
+    """Backbone + FPN + rotated retina head. forward(images NHWC) ->
+    {'s0': (cls_scores, bbox_preds)}."""
+
+    def __init__(self, cfg: DetectorConfig, dtype=torch.bfloat16,
+                 kernels=True, stem_fused_kernel=True, stem_pool_kernel=False,
+                 fused_blocks=False, int8_act=False):
+        super().__init__(cfg, dtype, kernels, stem_fused_kernel,
+                         stem_pool_kernel, fused_blocks, int8_act)
 
     def forward(self, images):
         feats = self.neck(self.backbone(images))
         return {'s0': self.bbox_head(feats)}
 
 
-class R3Det(nn.Module):
+class R3Det(_Base):
     """RRetinaNet base + N x (FRM + refine head).
 
     forward(images NHWC) -> {'s0': (cls, reg), 'sr': [(cls, reg), ...],
@@ -151,28 +173,21 @@ class R3Det(nn.Module):
     """
 
     def __init__(self, cfg: DetectorConfig, dtype=torch.bfloat16,
-                 frm_points=1, frm_transpose_quirk=True, kernels=True):
-        super().__init__()
-        _check_supported(cfg)
-        self.cfg = cfg
-        self.kernels = kernels
-        self.backbone = ResNet(depth=cfg.backbone_depth, dtype=dtype,
-                               kernels=kernels)
-        self.neck = FPN(out_channels=cfg.feat_channels)
-        self.bbox_head = RRetinaHead(
-            num_classes=cfg.num_classes, in_channels=cfg.feat_channels,
-            feat_channels=cfg.feat_channels, stacked_convs=cfg.stacked_convs,
-            num_anchors=cfg.num_anchors)
+                 frm_points=1, frm_transpose_quirk=True, kernels=True,
+                 stem_fused_kernel=True, stem_pool_kernel=False,
+                 fused_blocks=False, int8_act=False):
+        super().__init__(cfg, dtype, kernels, stem_fused_kernel,
+                         stem_pool_kernel, fused_blocks, int8_act)
         for stage in range(cfg.num_refine_stages):
             self.add_module(f'frm_{stage}', FeatureRefineModule(
                 in_channels=cfg.feat_channels, featmap_strides=cfg.strides,
                 points=frm_points, transpose_quirk=frm_transpose_quirk,
-                kernels=kernels))
+                kernels=kernels, quantize=cfg.quantize))
             self.add_module(f'refine_head_{stage}', RRetinaHead(
                 num_classes=cfg.num_classes, in_channels=cfg.feat_channels,
                 feat_channels=cfg.feat_channels,
                 stacked_convs=cfg.refine_stacked_convs or cfg.stacked_convs,
-                num_anchors=1))
+                num_anchors=1, quantize=cfg.quantize_head))
 
     def forward(self, images):
         cfg = self.cfg
@@ -199,6 +214,7 @@ def build_detector(cfg: DetectorConfig, dtype=torch.bfloat16, device=None,
     computing in ``dtype``; f32 parameters."""
     cls = R3Det if cfg.num_refine_stages > 0 else RRetinaNet
     model = cls(cfg, dtype=dtype, **kwargs).eval()
+    use_kernels(model, model.kernels)
     if device is not None:
         model = model.to(device=device, memory_format=torch.channels_last)
     return model

@@ -9,14 +9,16 @@ by default (row <- cx * scale, col <- cy * scale).
 
 points=1 runs through :func:`..ops.frm_sample.frm_sample` (the K2 kernel on
 CUDA tensors when ``kernels`` is on). points=5 has the plain form only, and
-raises on CUDA tensors until it has a kernel.
+raises on CUDA tensors until it has a kernel. ``quantize`` makes the three
+branch convs ``QConv``s; the sample and the residual adds stay in the
+input's dtype.
 """
 import torch
 from torch import nn
 
 from ..ops.frm_sample import (bilinear_sample, frm_sample,
                               frm_sample_reference, sample_coords)
-from .conv import Conv2d
+from .quant import conv_factory
 
 
 def feature_refine_sample(feat, best_bboxes, spatial_scale, points=1,
@@ -55,7 +57,8 @@ class FeatureRefineModule(nn.Module):
     (B, H*W, 5) f32 best boxes in image coordinates."""
 
     def __init__(self, in_channels=256, featmap_strides=(8, 16, 32, 64, 128),
-                 points=1, transpose_quirk=True, kernels=True):
+                 points=1, transpose_quirk=True, kernels=True,
+                 quantize=False):
         super().__init__()
         if points not in (1, 5):
             raise ValueError('points must be 1 or 5')
@@ -64,9 +67,10 @@ class FeatureRefineModule(nn.Module):
         self.transpose_quirk = transpose_quirk
         self.kernels = kernels
         c = in_channels
-        self.conv_5_1 = Conv2d(c, c, (5, 1), padding=(2, 0))
-        self.conv_1_5 = Conv2d(c, c, (1, 5), padding=(0, 2))
-        self.conv_1_1 = Conv2d(c, c, 1)
+        conv = conv_factory(quantize)
+        self.conv_5_1 = conv(c, c, (5, 1), padding=(2, 0))
+        self.conv_1_5 = conv(c, c, (1, 5), padding=(0, 2))
+        self.conv_1_1 = conv(c, c, 1)
 
     def forward(self, feats, rois):
         assert len(feats) == len(self.featmap_strides)

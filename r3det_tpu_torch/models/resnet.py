@@ -1,22 +1,34 @@
 """ResNet backbone (C2..C5), inference only.
 
-Port of ``r3det_tpu/models/resnet.py`` (``FrozenBN``, the plain
-``Bottleneck``, ``space_to_depth_2x``, ``ResNet`` with the folded
-space-to-depth stem). Depths 10, 14 and 50. Activations are NCHW tensors
-in ``torch.channels_last`` memory, i.e. NHWC bytes; the public input is the
+Port of ``r3det_tpu/models/resnet.py`` (``FrozenBN``, ``Bottleneck``,
+``space_to_depth_2x``, ``ResNet`` with the folded space-to-depth stem).
+Depths 10, 14 and 50. Activations are NCHW tensors in
+``torch.channels_last`` memory, i.e. NHWC bytes; the public input is the
 NHWC image. Parameters stay f32 and every layer computes in its input's
 dtype (``dtype`` for the whole trunk), as the flax modules do.
 
 The stem keeps the JAX package's folded ``(4, 4, 12, 64)`` HWIO kernel
-(``conv1.kernel``) and runs through :mod:`..ops.stem_pool` (the K3 kernel
-on CUDA tensors when ``kernels`` is on).
+(``conv1.kernel``) and runs through :mod:`..ops.stem_pool`:
+``stem_fused_kernel`` (the port's default) takes the fused stem, K3 on a
+card; off, the conv and the pool run apart, and ``stem_pool_kernel`` takes
+K4 for the pool. ``quantize`` makes the stem and every bottleneck conv
+int8 (``models/quant.py``); ``fused_blocks`` sends stride-1 identity
+blocks through :mod:`..ops.bottleneck_fuse` (K5); ``int8_act`` stores each
+block input as int8 (serving, with ``quantize='static'``). ``kernels`` off
+takes every plain version.
 """
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.stem_pool import stem_conv_pool, stem_conv_pool_reference
-from .conv import Conv2d
+from ..ops.bottleneck_fuse import (fold_bn, fused_bottleneck,
+                                   fused_bottleneck_q8,
+                                   fused_bottleneck_q8_reference,
+                                   fused_bottleneck_reference)
+from ..ops.int8_conv import quantize_act
+from ..ops.stem_pool import (stem_conv_pool, stem_conv_pool_q8_reference,
+                             stem_conv_pool_reference, stem_conv_pool_unfused)
+from .quant import act_absmax, conv_factory
 
 STAGE_BLOCKS = {10: (1, 1, 1, 1), 14: (2, 1, 1, 1), 50: (3, 4, 6, 3),
                 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
@@ -43,30 +55,88 @@ class FrozenBN(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """1x1 -> 3x3(stride) -> 1x1 bottleneck ('pytorch' style), out = 4F."""
+    """1x1 -> 3x3(stride) -> 1x1 bottleneck ('pytorch' style), out = 4F.
 
-    def __init__(self, inplanes, features, stride=1):
+    ``quantize`` (False | True | 'static') makes the convs ``QConv``s.
+    ``int8_act`` (with 'static') quantizes the block input once with the
+    calibrated ``in_absmax`` and shares the int8 codes between conv1, the
+    downsample conv and the residual. ``fused`` sends the block through
+    the fused bottleneck when it can (stride 1, identity residual,
+    H % 8 == 0, F <= 256): int8 with 'static', bf16 otherwise; the fused
+    block computes in bf16 and casts back to the input's dtype.
+    """
+
+    def __init__(self, inplanes, features, stride=1, quantize=False,
+                 int8_act=False, fused=False, kernels=True):
         super().__init__()
-        self.conv1 = Conv2d(inplanes, features, 1, bias=False)
+        conv = conv_factory(quantize)
+        self.features = features
+        self.stride = stride
+        self.quantize = quantize
+        self.fused = fused
+        self.kernels = kernels
+        self.conv1 = conv(inplanes, features, 1, bias=False)
         self.bn1 = FrozenBN(features)
-        self.conv2 = Conv2d(features, features, 3, stride=stride, padding=1,
-                            bias=False)
+        self.conv2 = conv(features, features, 3, stride=stride, padding=1,
+                          bias=False)
         self.bn2 = FrozenBN(features)
-        self.conv3 = Conv2d(features, features * 4, 1, bias=False)
+        self.conv3 = conv(features, features * 4, 1, bias=False)
         self.bn3 = FrozenBN(features * 4)
         self.has_downsample = inplanes != features * 4 or stride != 1
         if self.has_downsample:
-            self.downsample_conv = Conv2d(inplanes, features * 4, 1,
-                                          stride=stride, bias=False)
+            self.downsample_conv = conv(inplanes, features * 4, 1,
+                                        stride=stride, bias=False)
             self.downsample_bn = FrozenBN(features * 4)
+        self.int8_act = int8_act and quantize == 'static'
+        if self.int8_act:
+            self.calibrating = False
+            self.register_buffer('in_absmax', torch.zeros(()))
+
+    def can_fuse(self, x):
+        return (self.fused and self.stride == 1 and not self.has_downsample
+                and x.shape[2] % 8 == 0 and self.features <= 256)
+
+    def _folded(self, conv, bn):
+        """BN-folded HWIO kernel and bias (f32)."""
+        return fold_bn(conv.weight.permute(2, 3, 1, 0), bn.scale, bn.bias,
+                       bn.mean, bn.var)
+
+    def _fused_forward(self, x):
+        args = [*self._folded(self.conv1, self.bn1),
+                *self._folded(self.conv2, self.bn2),
+                *self._folded(self.conv3, self.bn3)]
+        xs = x.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
+        if self.quantize == 'static':
+            fn = fused_bottleneck_q8 if self.kernels else \
+                fused_bottleneck_q8_reference
+            y = fn(xs, *args, self.conv1.act_absmax, self.conv2.act_absmax,
+                   self.conv3.act_absmax)
+        else:
+            fn = fused_bottleneck if self.kernels else \
+                fused_bottleneck_reference
+            y = fn(xs, *args)
+        return y.to(x.dtype).permute(0, 3, 1, 2)
 
     def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
+        if self.can_fuse(x):
+            return self._fused_forward(x)
+        x_in, residual = x, x
+        if self.int8_act:
+            x32 = x.float().permute(0, 2, 3, 1)
+            absmax = act_absmax(self.in_absmax, x32, self.calibrating, True)
+            ascale = absmax.clamp_min(1e-8) / 127.0
+            xi = quantize_act(x32, ascale)
+            x_in = (xi, ascale)
+            residual = (xi.float() * ascale).to(x.dtype).permute(0, 3, 1, 2)
+
+        def conv(m, v):
+            return m(v, x.dtype) if isinstance(v, tuple) else m(v)
+
+        y = F.relu(self.bn1(conv(self.conv1, x_in)))
         y = F.relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
-        residual = x
         if self.has_downsample:
-            residual = self.downsample_bn(self.downsample_conv(x))
+            residual = self.downsample_bn(conv(self.downsample_conv, x_in))
         return F.relu(y + residual)
 
 
@@ -90,19 +160,25 @@ class ResNet(nn.Module):
     """ResNet trunk: NHWC image (B, H, W, 3) -> (C2, C3, C4, C5), NCHW
     channels_last, in ``dtype``."""
 
-    def __init__(self, depth=50, dtype=torch.float32, kernels=True):
+    def __init__(self, depth=50, dtype=torch.float32, kernels=True,
+                 stem_fused_kernel=True, stem_pool_kernel=False,
+                 quantize=False, fused_blocks=False, int8_act=False):
         super().__init__()
         self.depth = depth
         self.dtype = dtype
         self.kernels = kernels
+        self.stem_fused_kernel = stem_fused_kernel
+        self.stem_pool_kernel = stem_pool_kernel
+        self.quantize = quantize
         self.conv1 = _StemConv()
         self.bn1 = FrozenBN(64)
         inplanes = 64
         for stage, num_blocks in enumerate(STAGE_BLOCKS[depth]):
             for blk in range(num_blocks):
                 stride = 2 if (blk == 0 and stage > 0) else 1
-                self.add_module(f'layer{stage + 1}_{blk}',
-                                Bottleneck(inplanes, WIDTHS[stage], stride))
+                self.add_module(f'layer{stage + 1}_{blk}', Bottleneck(
+                    inplanes, WIDTHS[stage], stride, quantize=quantize,
+                    int8_act=int8_act, fused=fused_blocks, kernels=kernels))
                 inplanes = WIDTHS[stage] * 4
 
     def stem_affine(self):
@@ -110,12 +186,22 @@ class ResNet(nn.Module):
         inv = self.bn1.scale * torch.rsqrt(self.bn1.var + 1e-5)
         return inv, self.bn1.bias - self.bn1.mean * inv
 
-    def forward(self, images):
-        x = space_to_depth_2x(images.to(self.dtype))
+    def stem(self, x12):
         inv, off = self.stem_affine()
-        stem = stem_conv_pool if self.kernels else stem_conv_pool_reference
-        x = stem(x, self.conv1.kernel, inv, off, dtype=self.dtype)
-        x = x.permute(0, 3, 1, 2)                    # NCHW, channels_last
+        args = (x12, self.conv1.kernel, inv, off, self.dtype)
+        q = bool(self.quantize)
+        if not self.stem_fused_kernel:
+            return stem_conv_pool_unfused(
+                *args, quantize=q,
+                pool_kernel=self.stem_pool_kernel and self.kernels)
+        if self.kernels:
+            return stem_conv_pool(*args, quantize=q)
+        ref = stem_conv_pool_q8_reference if q else stem_conv_pool_reference
+        return ref(*args)
+
+    def forward(self, images):
+        x = self.stem(space_to_depth_2x(images.to(self.dtype)))
+        x = x.to(self.dtype).permute(0, 3, 1, 2)     # NCHW, channels_last
         outs = []
         for stage, num_blocks in enumerate(STAGE_BLOCKS[self.depth]):
             for blk in range(num_blocks):

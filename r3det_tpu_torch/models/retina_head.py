@@ -5,7 +5,8 @@ ReLU on each of the cls and reg branches, then 3x3 prediction convs giving
 ``num_anchors * num_classes`` logits and ``num_anchors * 5`` deltas per
 position. The cls bias starts at the focal prior -log((1 - p) / p),
 p = 0.01. Outputs are f32 ``(B, H, W, A*C)`` / ``(B, H, W, A*5)``, the
-anchor layout of ``core/anchors.py``.
+anchor layout of ``core/anchors.py``. ``quantize`` makes the tower convs
+``QConv``s; ``retina_cls`` and ``retina_reg`` stay float.
 """
 import math
 
@@ -13,6 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .conv import Conv2d
+from .quant import conv_factory
 
 
 def focal_bias(prior=0.01):
@@ -21,14 +23,15 @@ def focal_bias(prior=0.01):
 
 class RRetinaHead(nn.Module):
     def __init__(self, num_classes=15, in_channels=256, feat_channels=256,
-                 stacked_convs=4, num_anchors=9):
+                 stacked_convs=4, num_anchors=9, quantize=False):
         super().__init__()
         self.stacked_convs = stacked_convs
+        conv = conv_factory(quantize)
         for branch in ('cls', 'reg'):
             for i in range(stacked_convs):
                 cin = in_channels if i == 0 else feat_channels
                 self.add_module(f'{branch}_conv_{i}',
-                                Conv2d(cin, feat_channels, 3, padding=1))
+                                conv(cin, feat_channels, 3, padding=1))
         cin = feat_channels if stacked_convs else in_channels
         self.retina_cls = Conv2d(cin, num_anchors * num_classes, 3, padding=1)
         self.retina_reg = Conv2d(cin, num_anchors * 5, 3, padding=1)

@@ -1,11 +1,28 @@
-"""Fused ResNet stem: the plain PyTorch form and the CUDA kernel (K3).
+"""ResNet stem: plain PyTorch forms and the CUDA kernels (K3, K3 int8, K4).
 
 The stem runs the folded 7x7/s2 conv as a 4x4/s1 conv over the
 space-to-depth(2) image (``models/resnet.py::space_to_depth_2x``), then
 the folded FrozenBN affine, ReLU, and the 3x3/s2 max-pool with -inf
-padding. Port of ``r3det_tpu/ops/stem_pool.py::stem_conv_pool_reference``
-(the function) and of the TPU kernel ``stem_conv_pool_s2d4_pallas`` (bf16
-variant), whose CUDA counterpart is ``csrc/stem_pool.cu``.
+padding. Port of ``r3det_tpu/ops/stem_pool.py``:
+
+- ``stem_conv_pool_reference`` (the function), and the TPU kernel
+  ``stem_conv_pool_s2d4_pallas`` in both variants: bf16, and
+  ``quantize=True`` (per-output-channel int8 weights, a dynamic
+  per-tensor int8 input scale over the whole batch, int32 sums, one
+  combined dequant x BN factor). Their CUDA counterpart is
+  ``csrc/stem_pool.cu`` (K3). The same kernel serves the TPU kernels
+  ``stem_conv_pool_pallas`` and ``stem_conv_pool_pallas_grouped`` (K6),
+  which compute the bf16 function;
+- ``stem_conv_pool_s2d4``, the unfused route (conv, then the pool), as
+  :func:`stem_conv_pool_unfused`; its ``pool_kernel`` option takes the
+  TPU kernel ``pool_s2d4_pallas`` (K4), here ``csrc/stem_pool.cu``'s pool
+  kernel. The port has no s2d4 fold: the pool reads the plain (B, H, W, 64)
+  conv output and computes the same 3x3/s2 -inf-padded max.
+
+The s2d4 fold quantizes its (3, 3, 48, 256) kernel per output channel, and
+each of its four sub-pixel groups holds all 192 taps of the (4, 4, 12, 64)
+kernel, so its scales are the per-channel scales of the unfolded kernel,
+which is what the port quantizes.
 
 Layouts follow the JAX package: ``x12`` (B, H, W, 12) NHWC, ``kernel``
 (4, 4, 12, 64) HWIO, ``scale``/``bias`` (64,) f32, result (B, H/2, W/2, 64)
@@ -15,15 +32,24 @@ import torch
 import torch.nn.functional as F
 
 from .. import _ext
+from .int8_conv import int8_conv_nhwc, quantize_act, quantize_weights
 
 CIN = 12
 COUT = 64
+STEM_PAD = ((2, 1), (2, 1))     # the folded conv pads 2 before, 1 after
+
+
+def stem_pool_reference(y):
+    """3x3/s2 max-pool with -inf padding of the conv output ``y`` (B, H, W,
+    C) NHWC -> (B, H/2, W/2, C), in ``y``'s dtype."""
+    h, w = y.shape[1:3]
+    out = F.max_pool2d(y.permute(0, 3, 1, 2), 3, stride=2, padding=1)
+    return out[:, :, :h // 2, :w // 2].permute(0, 2, 3, 1).contiguous()
 
 
 def stem_conv_pool_reference(x12, kernel, scale, bias, dtype=torch.bfloat16):
     """conv (f32 accumulation of ``dtype`` operands) + affine + ReLU,
     rounded to ``dtype``, then the -inf-padded 3x3/s2 max-pool."""
-    h, w = x12.shape[1:3]
     x = x12.to(dtype).permute(0, 3, 1, 2)                    # NCHW view
     # the conv pads asymmetrically, 2 before and 1 after
     x = F.pad(x, (2, 1, 2, 1))
@@ -36,12 +62,32 @@ def stem_conv_pool_reference(x12, kernel, scale, bias, dtype=torch.bfloat16):
         y = F.conv2d(x.float(), k.float())
     y = y * scale.reshape(1, -1, 1, 1) + bias.reshape(1, -1, 1, 1)
     y = y.clamp_min(0.0).to(dtype)
-    y = F.max_pool2d(y, 3, stride=2, padding=1)   # pads with -inf
-    return y[:, :, :h // 2, :w // 2].permute(0, 2, 3, 1).contiguous()
+    return stem_pool_reference(y.permute(0, 2, 3, 1))
 
 
-def stem_conv_pool_cuda(x12, kernel, scale, bias):
-    """Launch the K3 kernel (``csrc/stem_pool.cu``): bf16 in and out."""
+def _stem_conv_q8(x12, kernel, dtype):
+    """The int8 stem conv: (int32 sums (B, H, W, 64), ascale, kscale (64,)).
+    ``ascale`` is max|x| over the whole batch (dynamic, on the device)."""
+    x32 = x12.to(dtype).float()
+    ascale = x32.abs().amax().clamp_min(1e-8) / 127.0
+    ki, kscale = quantize_weights(kernel, axes=(0, 1, 2))
+    acc = int8_conv_nhwc(quantize_act(x32, ascale), ki, (1, 1), STEM_PAD)
+    return acc, ascale, kscale.reshape(-1)
+
+
+def stem_conv_pool_q8_reference(x12, kernel, scale, bias,
+                                dtype=torch.bfloat16):
+    """Plain version of the int8 fused stem (K3 int8), in the kernel's
+    arithmetic: ``acc * (scale * (ascale * kscale)) + bias`` with one
+    combined factor, ReLU, rounded to ``dtype``, then the pool."""
+    acc, ascale, kscale = _stem_conv_q8(x12, kernel, dtype)
+    y = acc.float() * (scale * (ascale * kscale)) + bias
+    return stem_pool_reference(y.clamp_min(0.0).to(dtype))
+
+
+def stem_conv_pool_cuda(x12, kernel, scale, bias, quantize=False):
+    """Launch the K3 kernel (``csrc/stem_pool.cu``): bf16 in and out;
+    ``quantize`` takes its int8 variant."""
     if not x12.is_cuda or x12.dtype != torch.bfloat16 or x12.dim() != 4 \
             or x12.shape[-1] != CIN or not x12.is_contiguous():
         raise ValueError(f'x12 must be a contiguous (B, H, W, {CIN}) bfloat16 '
@@ -59,27 +105,89 @@ def stem_conv_pool_cuda(x12, kernel, scale, bias):
             raise ValueError('stem weights must be on the input\'s device')
     if x12.data_ptr() % 8:
         raise ValueError('x12 must be 8-byte aligned')
-    # the kernel's weight layout: [tap = ky*4 + kx][co][ci, zero-padded
-    # from 12 to 16 input channels], bf16
-    wpack = F.pad(kernel.reshape(16, CIN, COUT), (0, 0, 0, 16 - CIN))
-    wpack = wpack.permute(0, 2, 1).to(torch.bfloat16).contiguous()
     scale = scale.to(torch.float32).contiguous()
     bias = bias.to(torch.float32).contiguous()
     out = torch.empty((b, h // 2, w // 2, COUT), dtype=torch.bfloat16,
                       device=x12.device)
+    stream = _ext.current_stream(x12.device)
+    if quantize:
+        # max|x| stays on the device; the kernel derives ascale from it.
+        # Weight codes: [ky][kx pair][co][2 taps x 16 channels, 12 used]
+        amax = x12.abs().amax().float().reshape(1)
+        ki, kscale = quantize_weights(kernel, axes=(0, 1, 2))
+        wpack = F.pad(ki, (0, 0, 0, 16 - CIN)).reshape(4, 2, 2, 16, COUT)
+        wpack = wpack.permute(0, 1, 4, 2, 3).contiguous()
+        kscale = kscale.reshape(-1).contiguous()
+        _ext.launch('stem_conv_pool_q8', x12.data_ptr(), wpack.data_ptr(),
+                    amax.data_ptr(), kscale.data_ptr(), scale.data_ptr(),
+                    bias.data_ptr(), out.data_ptr(), b, h, w, stream)
+        return out
+    # the kernel's weight layout: [tap = ky*4 + kx][co][ci, zero-padded
+    # from 12 to 16 input channels], bf16
+    wpack = F.pad(kernel.reshape(16, CIN, COUT), (0, 0, 0, 16 - CIN))
+    wpack = wpack.permute(0, 2, 1).to(torch.bfloat16).contiguous()
     _ext.launch('stem_conv_pool', x12.data_ptr(), wpack.data_ptr(),
                 scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w,
-                _ext.current_stream(x12.device))
+                stream)
     return out
 
 
-def stem_conv_pool(x12, kernel, scale, bias, dtype=torch.bfloat16):
-    """The stem. CPU tensors take the plain form; CUDA tensors launch the
-    kernel, which computes in bf16 only and raises for another ``dtype``."""
+def stem_conv_pool(x12, kernel, scale, bias, dtype=torch.bfloat16,
+                   quantize=False):
+    """The fused stem (``quantize``: its int8 variant). CPU tensors take the
+    plain form; CUDA tensors launch the kernel, which computes in bf16 only
+    and raises for another ``dtype``."""
     if x12.is_cuda:
         if dtype != torch.bfloat16:
             raise ValueError(f'the CUDA stem kernel computes in bfloat16, '
                              f'not {dtype}')
         return stem_conv_pool_cuda(x12.to(torch.bfloat16).contiguous(),
-                                   kernel, scale, bias)
-    return stem_conv_pool_reference(x12, kernel, scale, bias, dtype)
+                                   kernel, scale, bias, quantize)
+    ref = stem_conv_pool_q8_reference if quantize else \
+        stem_conv_pool_reference
+    return ref(x12, kernel, scale, bias, dtype)
+
+
+def stem_pool_cuda(y):
+    """Launch the K4 pool kernel (``csrc/stem_pool.cu``): bf16 NHWC."""
+    if not y.is_cuda or y.dtype != torch.bfloat16 or y.dim() != 4 \
+            or y.shape[-1] != COUT or not y.is_contiguous():
+        raise ValueError(f'y must be a contiguous (B, H, W, {COUT}) bfloat16 '
+                         f'CUDA tensor, got {y.dtype} {tuple(y.shape)} on '
+                         f'{y.device}')
+    b, h, w, _ = y.shape
+    out = torch.empty((b, h // 2, w // 2, COUT), dtype=torch.bfloat16,
+                      device=y.device)
+    _ext.launch('stem_pool', y.data_ptr(), out.data_ptr(), b, h, w,
+                _ext.current_stream(y.device))
+    return out
+
+
+def stem_pool(y):
+    """The stem's max-pool: the plain form on CPU tensors, the K4 kernel on
+    CUDA tensors (bf16 only)."""
+    return stem_pool_cuda(y) if y.is_cuda else stem_pool_reference(y)
+
+
+def stem_conv_pool_unfused(x12, kernel, scale, bias, dtype=torch.bfloat16,
+                           quantize=False, pool_kernel=False):
+    """The stem as two passes, conv + affine + ReLU then the pool: port of
+    ``stem_conv_pool_s2d4``, in its arithmetic. With ``quantize`` the int32
+    sums round to bf16 in a bf16 model (the JAX route's bf16 conv output)
+    and dequantize with two multiplies, ``acc * (ascale * kscale)`` then
+    ``* scale + bias``. ``pool_kernel`` takes :func:`stem_pool` (K4 on a
+    card) in a bf16 model, the plain pool otherwise."""
+    if quantize:
+        acc, ascale, kscale = _stem_conv_q8(x12, kernel, dtype)
+        if dtype == torch.bfloat16:
+            acc = acc.to(torch.bfloat16)
+        y = acc.float() * (ascale * kscale)
+    else:
+        x = F.pad(x12.to(dtype).float().permute(0, 3, 1, 2), (2, 1, 2, 1))
+        # dtype operands, f32 sums (exact products, as in the reference)
+        y = F.conv2d(x, kernel.to(dtype).float().permute(3, 2, 0, 1))
+        y = y.permute(0, 2, 3, 1)
+    y = (y * scale + bias).clamp_min(0.0).to(dtype).contiguous()
+    if pool_kernel and dtype == torch.bfloat16:
+        return stem_pool(y)
+    return stem_pool_reference(y)

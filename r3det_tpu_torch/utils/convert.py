@@ -10,19 +10,20 @@ mapping is mechanical:
 - the stem's folded ``backbone/conv1/kernel`` (4, 4, 12, 64) stays HWIO as
   ``backbone.conv1.kernel``, the layout the stem kernel reads;
 - ``bias`` and FrozenBN ``scale``/``bias`` are parameters, ``batch_stats``
-  ``mean``/``var`` buffers.
+  ``mean``/``var`` buffers;
+- the int8 ``quant_stats`` (each ``QConv``'s ``act_absmax`` and each int8
+  ``Bottleneck``'s ``in_absmax``, scalars) are buffers of the same name.
 
 :func:`seeded_state_dict` makes a full state dict from a numpy seed, with
 the reference's initialisation (normal(0.01) head and FRM convs, focal
 prior cls bias) and lecun-normal backbone/neck convs, for runs that need
-weights but have no checkpoint.
+weights but have no checkpoint. Its int8 activation ranges are 0, the
+uncalibrated state: :func:`..models.quant.calibrate` fills them.
 """
 import numpy as np
 import torch
 
 from ..models.retina_head import focal_bias
-
-
 
 def _is_stem_kernel(path):
     """The ResNet's own ``conv1/kernel`` (not a bottleneck's conv1)."""
@@ -42,7 +43,7 @@ def _flatten(tree, prefix=()):
 def from_flax(variables):
     """flax variables -> ``state_dict`` of f32 CPU tensors."""
     sd = {}
-    for collection in ('params', 'batch_stats'):
+    for collection in ('params', 'batch_stats', 'quant_stats'):
         for path, leaf in _flatten(variables.get(collection, {})):
             arr = np.asarray(leaf, dtype=np.float32)
             module = '.'.join(path[:-1])
@@ -73,7 +74,7 @@ def seeded_state_dict(model, seed):
             v = np.full(shape, focal_bias())
         elif leaf in ('scale', 'var'):
             v = np.ones(shape)
-        else:                                   # bias, mean
+        else:               # bias, mean; act_absmax, in_absmax uncalibrated
             v = np.zeros(shape)
         sd[name] = torch.from_numpy(v.astype(np.float32))
     return sd

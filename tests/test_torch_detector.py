@@ -156,7 +156,7 @@ def test_kernel_route_switch_is_identical_on_cpu(slice_run):
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        T.build_detector(T_CFG._replace(quantize='static'))
+        T.build_detector(T_CFG._replace(hbb_anchors=True))
     with pytest.raises(NotImplementedError):
         T.detector_predict({'sr': [((), ())], 'rois': [()]},
                            T_CFG._replace(test=T.TestCfg(approx_topk=True)),
@@ -167,6 +167,8 @@ def test_import_leaves_jax_out():
     code = ('import sys\n'
             'import r3det_tpu_torch, r3det_tpu_torch._ext\n'
             'import r3det_tpu_torch.models.detectors\n'
+            'import r3det_tpu_torch.models.quant\n'
+            'import r3det_tpu_torch.ops.bottleneck_fuse\n'
             'import r3det_tpu_torch.parallel.predict\n'
             'import r3det_tpu_torch.utils.convert\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
