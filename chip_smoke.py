@@ -9,7 +9,13 @@ Phases, one line each (any failure raises and the exit code is 1):
 2. build: compiles the CUDA kernels (``r3det_tpu_torch/csrc``) with nvcc;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it (max |diff| within the stated
-   tolerance; both times from CUDA events after warm-up);
+   tolerance; both times from CUDA events after warm-up), beside its bound
+   (``bound_ms``: the larger of the bytes it must move over 3.35 TB/s and
+   its operations over the card's peak for their type) and, where one
+   PyTorch call computes the same function, that call's time
+   (``library_ms``). QConv's int8 conv runs at eight main-path shapes, with
+   the fused epilogue each takes there, beside a bf16 cuDNN conv of the
+   same shape (``cudnn_bf16_ms``, a yardstick the port never calls);
 4. end to end: R3Det* tiny (stacked_convs=2, angle v1), ResNet-50, full
    width, bf16, batch 8 of 1024^2 patches, weights from a numpy seed,
    through ``build_detector`` and the port's predict step. The refine
@@ -20,8 +26,12 @@ Phases, one line each (any failure raises and the exit code is 1):
    card. Then the int8 serving path (``quantize='static'``,
    ``quantize_head='static'``, ``int8_act``, fused stem) on the same
    weights, calibrated with ``calibrate`` on the seeded batch: its kernels
-   must launch, it is held to its plain route and to the bf16 path's
-   refine logits, and its patches/s is measured beside the bf16 path's;
+   must launch (the int8 conv once per QConv, 115 times), its refine
+   logits must equal its plain route's exactly and be near the bf16
+   path's, every detection must be found both ways, and its patches/s is
+   measured beside the bf16 path's. One ``[profile]`` line per path:
+   ``torch.profiler`` over one step of the big batch, the top device
+   kernels and the device's busy share;
 5. opt-in routes, batch 2: bf16 with ``fused_blocks`` and the unfused stem
    with ``stem_pool_kernel`` (launches K5 and K4), and int8 with
    ``fused_blocks`` (launches K5 int8), each held to the unfused model.
@@ -50,6 +60,10 @@ BOTTLENECKS = (('C2', (BATCH, 256, 256, 256), 64),
                ('C3', (BATCH, 128, 128, 512), 128),
                ('C4', (BATCH, 64, 64, 1024), 256))
 ROUTE_BATCH = 2                   # batch of the opt-in routes
+HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
+PEAK_OPS_PER_S = {'bf16': 989e12, 'int8': 1979e12, 'f32': 67e12}
+IOU_OPS_PER_PAIR = 500            # f32 operations of one live box pair (K1)
+INT8_QCONVS = 115                 # QConv launches of one int8 forward
 REPLACES = {
     'rotated_iou': 'r3det_tpu/ops/pallas_iou.py:146',
     'frm_sample': 'r3det_tpu/ops/frm_sample.py:241',
@@ -113,6 +127,26 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
+def bound(nbytes, ops, kind):
+    """The least time the card could take, in ms, and what bounds it: the
+    larger of ``nbytes`` over the memory rate and ``ops`` over the peak
+    rate of ``kind``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def add_bound(rec, nbytes, ops, kind):
+    """Add one call's bound to a kernel's record (rows that sum several
+    shapes sum their bounds; ``bound_by`` names the larger share)."""
+    ms, by = bound(nbytes, ops, kind)
+    rec['bound_ms'] = rec.get('bound_ms', 0.0) + ms
+    share = rec.setdefault('_share', {'bytes': 0.0, 'operations': 0.0})
+    share[by] += ms
+    rec['bound_by'] = max(share, key=share.get)
+    return ms, by
+
+
 # ---------------------------------------------------------------------------
 # phase 3 inputs (numpy seeded, moved to the card)
 # ---------------------------------------------------------------------------
@@ -158,6 +192,7 @@ def compare_kernels(dev):
     """Phase 3: every kernel vs its plain version at main-path shapes."""
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     from r3det_tpu_torch.ops import frm_sample as K2
     from r3det_tpu_torch.ops import rotated_iou as K1
@@ -186,14 +221,20 @@ def compare_kernels(dev):
         ms = cuda_ms(lambda: K1.rotated_iou_cuda(boxes, boxes, **args), 20)
         plain_ms = cuda_ms(
             lambda: K1.rotated_iou_reference(boxes, boxes, **args), 3)
+        # the live upper triangle of each image's valid prefix
+        live = sum(v * (v + 1) // 2 for v in vc.tolist())
+        b_ms, by = bound(2 * boxes.numel() * 4 + BATCH * 4 + got.numel() * 4,
+                         live * IOU_OPS_PER_PAIR, 'f32')
         phase('kernel', name='rotated_iou', shape=f'({BATCH},{k},{k})',
               max_abs_err=err, iof_err=iof_err, self_iou_err=diag,
-              tol=1e-5, ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}')
+              tol=1e-5, ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
+              live_pairs=live, bound_ms=f'{b_ms:.4f}', bound_by=by)
         check(err <= 1e-5 and iof_err <= 1e-5 and diag <= 1e-4,
               f'rotated_iou K={k} disagrees with its plain version')
         if k == IOU_BUDGETS[0]:
             rec['rotated_iou'] = dict(max_abs_err=err, ms=ms,
-                                      plain_ms=plain_ms)
+                                      plain_ms=plain_ms, bound_ms=b_ms,
+                                      bound_by=by)
 
     # K2: bf16, same operation order -> within one bf16 ulp of the value
     tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
@@ -214,9 +255,14 @@ def compare_kernels(dev):
                      20)
         plain_ms = cuda_ms(
             lambda: K2.frm_sample_reference(x, feat, rois, 1 / stride), 5)
+        # x, feat and rois read, the result written; ~12 f32 operations an
+        # output value (4 weighted corners and two adds)
+        b_ms, by = add_bound(tot, 3 * x.numel() * 2 + rois.numel() * 4,
+                             12 * x.numel(), 'f32')
         phase('kernel', name='frm_sample', shape=str(shape),
               max_abs_err=err, exact_frac=float((diff == 0).float().mean()),
-              tol='1 bf16 ulp', ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}')
+              tol='1 bf16 ulp', ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
+              bound_ms=f'{b_ms:.4f}', bound_by=by)
         check(bool((diff <= ulp).all()),
               f'frm_sample at {s}x{s} disagrees with its plain version')
         tot['max_abs_err'] = max(tot['max_abs_err'], err)
@@ -238,12 +284,17 @@ def compare_kernels(dev):
     ms = cuda_ms(lambda: K3.stem_conv_pool_cuda(x12, kern, scale, bias), 20)
     plain_ms = cuda_ms(
         lambda: K3.stem_conv_pool_reference(x12, kern, scale, bias), 5)
+    # the folded 4x4x12 conv at every s2d pixel; image in, pooled map out
+    stem_ops = 2 * x12.shape[0] * x12.shape[1] * x12.shape[2] * 192 * 64
+    stem_bytes = x12.numel() * 2 + kern.numel() * 4 + got.numel() * 2
+    rec['stem_conv_pool'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    b_ms, by = add_bound(rec['stem_conv_pool'], stem_bytes, stem_ops, 'bf16')
     phase('kernel', name='stem_conv_pool', shape=str(tuple(got.shape)),
           max_abs_err=err, exact_frac=float((diff == 0).float().mean()),
-          tol='1e-2 + 1e-2*|ref|', ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}')
+          tol='1e-2 + 1e-2*|ref|', ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
+          bound_ms=f'{b_ms:.4f}', bound_by=by)
     check(bool((diff <= 1e-2 + 1e-2 * want.float().abs()).all()),
           'stem_conv_pool disagrees with its plain version')
-    rec['stem_conv_pool'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
     # K3 int8: exact int32 sums, the plain version's epilogue -> one ulp
     def q8():
@@ -255,13 +306,16 @@ def compare_kernels(dev):
     ms = cuda_ms(q8, 20)
     plain_ms = cuda_ms(
         lambda: K3.stem_conv_pool_q8_reference(x12, kern, scale, bias), 5)
-    phase('kernel', name='stem_conv_pool_q8', shape=str(tuple(got.shape)),
-          max_abs_err=err, exact_frac=float((diff == 0).float().mean()),
-          tol='1 bf16 ulp', ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}')
-    check(bool((diff <= want.float().abs() * 2 ** -7 + 1e-6).all()),
-          'stem_conv_pool_q8 disagrees with its plain version')
     rec['stem_conv_pool_q8'] = dict(max_abs_err=err, ms=ms,
                                     plain_ms=plain_ms)
+    b_ms, by = add_bound(rec['stem_conv_pool_q8'], stem_bytes, stem_ops,
+                         'int8')
+    phase('kernel', name='stem_conv_pool_q8', shape=str(tuple(got.shape)),
+          max_abs_err=err, exact_frac=float((diff == 0).float().mean()),
+          tol='1 bf16 ulp', ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
+          bound_ms=f'{b_ms:.4f}', bound_by=by)
+    check(bool((diff <= want.float().abs() * 2 ** -7 + 1e-6).all()),
+          'stem_conv_pool_q8 disagrees with its plain version')
 
     # K4 on the plain conv output of the same stem: a max, bit-equal
     conv = torch.from_numpy(rng.uniform(0, 4, (BATCH, SIZE // 2, SIZE // 2,
@@ -272,12 +326,22 @@ def compare_kernels(dev):
                 .abs().max())
     ms = cuda_ms(lambda: K3.stem_pool_cuda(conv), 20)
     plain_ms = cuda_ms(lambda: K3.stem_pool_reference(conv), 5)
+    # the library call of the same function: max_pool2d on the
+    # channels_last bf16 map (-inf padding, as the kernel)
+    conv_nchw = conv.permute(0, 3, 1, 2)
+    lib_out = F.max_pool2d(conv_nchw, 3, 2, 1).permute(0, 2, 3, 1)
+    lib_err = float((lib_out.float() - got.float()).abs().max())
+    library_ms = cuda_ms(lambda: F.max_pool2d(conv_nchw, 3, 2, 1), 20)
+    rec['stem_pool'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            library_ms=library_ms)
+    b_ms, by = add_bound(rec['stem_pool'], conv.numel() * 2 + got.numel() * 2,
+                         9 * got.numel(), 'f32')
     phase('kernel', name='stem_pool', shape=str(tuple(got.shape)),
           max_abs_err=err, tol=0.0, ms=f'{ms:.4f}',
-          plain_ms=f'{plain_ms:.4f}')
+          plain_ms=f'{plain_ms:.4f}', library_ms=f'{library_ms:.4f}',
+          library_err=lib_err, bound_ms=f'{b_ms:.4f}', bound_by=by)
     check(err == 0.0, 'stem_pool disagrees with its plain version')
-    rec['stem_pool'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    del conv
+    del conv, conv_nchw, lib_out
     rec.update(compare_bottlenecks(dev, rng))
     rec['int8_conv'] = int8_conv_route(dev, rng)
     return rec
@@ -317,10 +381,18 @@ def compare_bottlenecks(dev, rng):
             err = float(diff.max())
             ms = cuda_ms(lambda: kernel(x, *args), 10)
             plain_ms = cuda_ms(lambda: plain(x, *args), 3)
+            # x in and the block's output out, the weights; three convs,
+            # 17 F^2 multiply-adds a pixel
+            px = x.numel() // c4
+            b_ms, by = add_bound(
+                rec[name], 2 * x.numel() * 2 + sum(w.numel() for w in ws) * 4,
+                2 * px * 17 * f * f, 'int8' if name == 'bottleneck_q8'
+                else 'bf16')
             phase('kernel', name=name, stage=stage, shape=str(shape), F=f,
                   max_abs_err=err, exact_frac=float((diff == 0).float().mean()),
                   tol=f'{tol[0]} + {tol[1]}*|ref|', ms=f'{ms:.4f}',
-                  plain_ms=f'{plain_ms:.4f}')
+                  plain_ms=f'{plain_ms:.4f}', bound_ms=f'{b_ms:.4f}',
+                  bound_by=by)
             check(bool((diff <= tol[0] + tol[1] * want.abs()).all()),
                   f'{name} at {stage} disagrees with its plain version')
             r = rec[name]
@@ -333,48 +405,122 @@ def compare_bottlenecks(dev, rng):
     return rec
 
 
+# QConv's int8 conv at its main-path shapes, with the epilogue each takes
+# on the int8 serving path: (name, (B, H, W, Ci), Co, kernel, stride, int8
+# input, epilogue); a head tower's first conv quantizes the bf16 P3 map,
+# its second takes the first's codes. 'C2_conv2_bf16' is the shape and input that PR 2's
+# kernel was timed at (bf16 in, quantized on load, bias, bf16 out).
+INT8_CONVS = (
+    ('C2_conv1', (BATCH, 256, 256, 256), 64, (1, 1), 1, True,
+     dict(affine=True, relu=True, out=True)),
+    ('C2_conv2', (BATCH, 256, 256, 64), 64, (3, 3), 1, True,
+     dict(affine=True, relu=True, out=True)),
+    ('C2_conv2_bf16', (BATCH, 256, 256, 64), 64, (3, 3), 1, False,
+     dict(bias=True)),
+    ('C2_conv3', (BATCH, 256, 256, 64), 256, (1, 1), 1, True,
+     dict(affine=True, res='int8', relu=True)),
+    ('C3_conv2_s2', (BATCH, 256, 256, 128), 128, (3, 3), 2, True,
+     dict(affine=True, relu=True, out=True)),
+    ('C3_downsample', (BATCH, 256, 256, 256), 512, (1, 1), 2, True,
+     dict(affine=True)),
+    ('C5_conv2', (BATCH, 32, 32, 512), 512, (3, 3), 1, True,
+     dict(affine=True, relu=True, out=True)),
+    ('head_P3', (BATCH, 128, 128, 256), 256, (3, 3), 1, False,
+     dict(bias=True, relu=True, out=True)),
+    ('head_P3_conv1', (BATCH, 128, 128, 256), 256, (3, 3), 1, True,
+     dict(bias=True, relu=True)),
+    ('frm_1x5_P3', (BATCH, 128, 128, 256), 256, (1, 5), 1, False,
+     dict(bias=True)),
+)
+
+
 def int8_conv_route(dev, rng):
-    """QConv's int8 conv kernel against its plain version (int8 im2col +
-    torch._int_mm, exact) and a bf16 cuDNN conv of the same shape, at the
-    R50 C2 3x3 conv and a head-tower 3x3 conv on P3 (bf16 input, quantized
-    on load). The row's ms sums the two shapes."""
+    """QConv's int8 conv kernel with its fused epilogue against its plain
+    version (int8 im2col + torch._int_mm and the unfused PyTorch ops,
+    exact) and a bf16 cuDNN conv of the same shape, at each of INT8_CONVS.
+    The row's ms, plain_ms and bound_ms sum the shapes."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from r3det_tpu_torch.ops import int8_conv as Q
     rec = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
-    for name, (b, h, w, ci, co) in (('C2_conv2', (BATCH, 256, 256, 64, 64)),
-                                    ('head_P3', (BATCH, 128, 128, 256, 256))):
+    for name, (b, h, w, ci), co, (kh, kw), st, int8_in, spec in INT8_CONVS:
         x = torch.from_numpy(rng.normal(0, 1, (b, h, w, ci))
                              .astype(np.float32)).to(dev, torch.bfloat16)
-        wf = torch.from_numpy(rng.normal(0, 0.05, (3, 3, ci, co))
+        ascale = x.float().abs().amax() / 127.0
+        if int8_in:
+            x = Q.quantize_act(x, ascale)
+        wf = torch.from_numpy(rng.normal(0, (kh * kw * ci) ** -0.5,
+                                         (kh, kw, ci, co))
                               .astype(np.float32)).to(dev)
         wi, ks = Q.quantize_weights(wf, axes=(0, 1, 2))
-        bias = torch.from_numpy(rng.normal(0, 1, co).astype(np.float32)).to(
-            dev)
-        args = (x, x.float().abs().amax() / 127.0, wi, ks.reshape(-1), bias,
-                (1, 1), (1, 1))
-        got = Q.qconv_cuda(*args)
-        want = Q.qconv_reference(*args, torch.bfloat16)
+        ks = ks.reshape(-1)
+        packed = Q.pack_weights(wi)
+        bias = torch.from_numpy(rng.normal(0, 0.1, co).astype(np.float32)).to(
+            dev) if spec.get('bias') else None
+        pad = (kh // 2, kw // 2)
+        ho = (h + 2 * pad[0] - kh) // st + 1
+        wo = (w + 2 * pad[1] - kw) // st + 1
+        kw_ = dict(relu=spec.get('relu', False))
+        res_bytes = 0
+        if spec.get('affine'):
+            kw_['affine'] = tuple(
+                torch.from_numpy(rng.uniform(lo, hi, co).astype(np.float32))
+                .to(dev, torch.bfloat16) for lo, hi in ((0.5, 2), (-1, 1)))
+        if spec.get('res'):
+            r = torch.from_numpy(rng.normal(0, 1, (b, ho, wo, co)).astype(
+                np.float32)).to(dev, torch.bfloat16)
+            rs = r.float().abs().amax() / 127.0
+            kw_['residual'] = (Q.quantize_act(r, rs), rs)
+            res_bytes = r.numel()
+            del r
+        if spec.get('out'):
+            kw_['out_scale'] = torch.tensor(4.0 / 127.0, device=dev)
+        args = (x, ascale, wi, ks, bias, (st, st), pad)
+
+        def kernel():
+            return Q.qconv_fused(*args, packed=packed, **kw_)
+
+        def plain():
+            return Q.qconv_fused_reference(*args, **kw_)
+        got, want = kernel(), plain()
+        if spec.get('out'):
+            got, want = got[0], want[0]
+        equal = got.shape == want.shape and torch.equal(got, want)
         err = float((got.float() - want.float()).abs().max())
-        xb = x.permute(0, 3, 1, 2)
+        ms = cuda_ms(kernel, 10)
+        plain_ms = cuda_ms(plain, 3)
+        xb = (x.float() * ascale if int8_in else x).to(
+            torch.bfloat16).permute(0, 3, 1, 2)
         wb = wf.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
             memory_format=torch.channels_last)
-        ms = cuda_ms(lambda: Q.qconv_cuda(*args), 10)
-        plain_ms = cuda_ms(lambda: Q.qconv_reference(*args, torch.bfloat16),
-                           5)
-        bf16_ms = cuda_ms(lambda: F.conv2d(xb, wb, padding=1), 10)
+        cudnn_ms = cuda_ms(lambda: F.conv2d(xb, wb, stride=st, padding=pad),
+                           10)
+        # the input pixels the conv reads, the weights, the residual and
+        # the output, each once
+        rows = len({oy * st - pad[0] + ky for oy in range(ho)
+                    for ky in range(kh)} & set(range(h)))
+        cols = len({ox * st - pad[1] + kx for ox in range(wo)
+                    for kx in range(kw)} & set(range(w)))
+        nbytes = (b * rows * cols * ci * x.element_size() + wi.numel()
+                  + res_bytes + got.numel() * got.element_size())
+        b_ms, by = add_bound(rec, nbytes, 2 * b * ho * wo * co * kh * kw * ci,
+                             'int8')
         phase('kernel', name='int8_conv', stage=name,
-              shape=f'({b},{h},{w},{ci})->{co}', max_abs_err=err, tol=0.0,
-              ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
-              cudnn_bf16_ms=f'{bf16_ms:.4f}')
-        check(err == 0.0, f'int8_conv disagrees with its plain version '
-                          f'({name})')
+              shape=f'({b},{h},{w},{ci})->{co} {kh}x{kw}/s{st}',
+              input='int8' if int8_in else 'bf16',
+              epilogue='+'.join(k for k, v in spec.items() if v) or 'none',
+              out=str(got.dtype).replace('torch.', ''), bit_equal=equal,
+              max_abs_err=err, tol=0.0, ms=f'{ms:.4f}',
+              plain_ms=f'{plain_ms:.4f}', bound_ms=f'{b_ms:.4f}',
+              bound_by=by, cudnn_bf16_ms=f'{cudnn_ms:.4f}')
+        check(equal, f'int8_conv disagrees with its plain version ({name})')
         rec['max_abs_err'] = max(rec['max_abs_err'], err)
         rec['ms'] += ms
         rec['plain_ms'] += plain_ms
-        del x, got, want, xb
+        del x, got, want, xb, args, kw_
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -509,9 +655,8 @@ def end_to_end(dev, card):
 
     cfg = R3DET_R50_V1._replace(
         stacked_convs=2, test=TestCfg(approx_topk=False, nms_candidates=None))
-    model = build_detector(cfg, dtype=torch.bfloat16)
+    model = build_detector(cfg, dtype=torch.bfloat16, device=dev)
     model.load_state_dict(seeded_state_dict(model, SEED))
-    model = model.to(device=dev, memory_format=torch.channels_last)
     rng = np.random.RandomState(SEED)
     images = torch.from_numpy(rng.uniform(-2, 2, (BATCH, SIZE, SIZE, 3))
                               .astype(np.float32)).to(dev)
@@ -598,6 +743,7 @@ def end_to_end(dev, card):
     phase('stages', path='bf16', batch='big', card=card,
           **{k: f'{v:.3f}' for k, v in stage_times(model, images,
                                                    sizes).items()})
+    profile_step(step, images, 'bf16', card)
     return dict(launches=launches, model=model, images=images, sizes=sizes,
                 biases=biases, cfg=cfg, step=step)
 
@@ -617,6 +763,41 @@ def _patches_per_s(step, images, iters=5):
     return images.shape[0] * iters / (time.perf_counter() - t0)
 
 
+def profile_step(step, images, path, card):
+    """One step under torch.profiler: the top 8 device kernels by time,
+    the device's busy share of its span, and the int8 conv's device time.
+    Returns the kernel times by name (ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    step(images)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(images)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(kernels, f'the profiler saw no device kernel ({path})')
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    span = end - spans[0][0]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            (e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    int8_ms = sum(v for k, v in by_name.items() if 'int8_conv' in k)
+    phase('profile', path=path, batch='big',
+          device_span_ms=f'{span / 1e3:.3f}',
+          busy_ms=f'{busy / 1e3:.3f}', busy_share=f'{busy / span:.3f}',
+          int8_conv_ms=f'{int8_ms:.3f}', card=card,
+          top=json.dumps([[k[:60], round(v, 3)] for k, v in top]))
+    return by_name
+
+
 def _check_dets(result, cfg, batch, what):
     import torch
     dets, labels, num = result[:3]
@@ -633,12 +814,12 @@ def _copy_model(cfg, state, dev, **kw):
     import torch
 
     from r3det_tpu_torch.models.detectors import build_detector
-    model = build_detector(cfg, dtype=torch.bfloat16, **kw)
+    model = build_detector(cfg, dtype=torch.bfloat16, device=dev, **kw)
     missing, unexpected = model.load_state_dict(state, strict=False)
     check(not unexpected and all(k.endswith(('act_absmax', 'in_absmax'))
                                  for k in missing),
           f'state dict mismatch: {missing[:3]} {unexpected[:3]}')
-    return model.to(device=dev, memory_format=torch.channels_last)
+    return model
 
 
 def int8_serving(dev, card, base):
@@ -674,6 +855,10 @@ def int8_serving(dev, card, base):
     for name in PATH_KERNELS['int8']:
         check(launches[name] > 0,
               f'kernel {name} was not launched on the int8 path')
+    # one launch per QConv: 16 blocks x 3 + 4 downsamples, 8 FPN convs,
+    # 2 heads x 2 towers x 2 convs x 5 levels, 3 FRM convs x 5 levels
+    check(launches['int8_conv'] == INT8_QCONVS,
+          f'{launches["int8_conv"]} int8 conv launches, not {INT8_QCONVS}')
     _check_dets(result, cfg, BATCH, 'int8')
 
     q_logits = _sr_logits(model_q, images)
@@ -691,18 +876,19 @@ def int8_serving(dev, card, base):
         _agreement(plain[:3], result[:3])
     phase('int8', live=result[3][0], branch=result[3][1],
           num=result[2].tolist(), sr_logits_rel_to_bf16=f'{rel_bf16:.5f}',
-          sr_logits_rel_to_plain=f'{rel_plain:.5f}', tol=0.05,
+          sr_logits_rel_to_plain=rel_plain, tol_bf16=0.05, tol_plain=0.0,
           dets_found_in_plain=f'{found:.4f}',
           plain_found_in_kernel=f'{back:.4f}',
           patches_per_s=f'{speed:.2f}', plain_patches_per_s=f'{plain_speed:.2f}',
           bf16_patches_per_s=f'{bf_speed:.2f}', card=card)
     check(rel_bf16 <= 0.05, 'int8 refine logits drift from the bf16 path')
-    check(rel_plain <= 0.05, 'int8 kernel route drifts from its plain route')
-    check(min(found, back) >= 0.75, 'int8 kernel and plain detections '
-                                    'disagree')
+    # every kernel of the int8 path is exact against its plain version
+    check(rel_plain == 0.0, 'int8 kernel route differs from its plain route')
+    check(found == back == 1.0, 'int8 kernel and plain detections differ')
     phase('stages', path='int8', batch='big', card=card,
           **{k: f'{v:.3f}' for k, v in stage_times(model_q, images,
                                                    sizes).items()})
+    profile_step(step, images, 'int8', card)
     return launches, model_q
 
 
@@ -793,7 +979,10 @@ def main():
     kernels = [dict(name=k, route='cuda', source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches[PATH_OF[k]][k],
                     max_abs_err=rec[k]['max_abs_err'], ms=rec[k]['ms'],
-                    plain_ms=rec[k]['plain_ms']) for k in SOURCES]
+                    plain_ms=rec[k]['plain_ms'], bound_ms=rec[k]['bound_ms'],
+                    bound_by=rec[k]['bound_by'],
+                    library_ms=rec[k].get('library_ms'))
+               for k in SOURCES]
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                              'count': count}}), flush=True)

@@ -58,9 +58,11 @@ _SIGNATURES = {
     # stream
     'bottleneck_q8': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                       _I, _I, _P),
-    # x, q_in, ascale (1,), w (Co, kh, kw, Ci), kscale, bias|NULL, out, B,
-    # H, W, Ci, Ho, Wo, Co, kh, kw, sh, sw, ph, pw, stream
-    'int8_conv': (_P, _I, _P, _P, _P, _P, _P) + (_I,) * 13 + (_P,),
+    # x, q_in, ascale (1,), packed w, bn, ck, kscale, bias|NULL, inv|NULL,
+    # b|NULL, residual|NULL, res_kind, rscale|NULL, relu, out, out_q,
+    # oscale|NULL, B, H, W, Ci, Ho, Wo, Co, kh, kw, sh, sw, ph, pw, stream
+    'int8_conv': (_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P,
+                  _I, _P) + (_I,) * 13 + (_P,),
 }
 
 #: kernel name -> number of launches since the last :func:`reset_launches`

@@ -208,16 +208,22 @@ class R3Det(_Base):
         return out
 
 
-def build_detector(cfg: DetectorConfig, dtype=torch.bfloat16, device=None,
+def build_detector(cfg: DetectorConfig, dtype=torch.bfloat16, device='cuda',
                    **kwargs):
-    """The detector for ``cfg`` on ``device`` (channels_last weights),
-    computing in ``dtype``; f32 parameters."""
+    """The detector for ``cfg`` computing in ``dtype``, f32 parameters:
+    moved to ``device``, the card by default, with channels_last weights.
+    Without a card it raises; ``device='cpu'`` builds it on the CPU as it
+    is constructed."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError("build_detector: no CUDA card; pass "
+                           "device='cpu' to build on the CPU")
     cls = R3Det if cfg.num_refine_stages > 0 else RRetinaNet
     model = cls(cfg, dtype=dtype, **kwargs).eval()
     use_kernels(model, model.kernels)
-    if device is not None:
-        model = model.to(device=device, memory_format=torch.channels_last)
-    return model
+    if device.type == 'cpu':
+        return model
+    return model.to(device=device, memory_format=torch.channels_last)
 
 
 def use_kernels(model: nn.Module, on: bool):

@@ -21,14 +21,19 @@ Port of ``r3det_tpu/models/quant.py``: ``QConv``, ``conv_factory`` and
 
 A ``QConv`` may be handed a pre-quantized ``(int8 NHWC codes, ascale)``
 pair (the int8 activation storage of ``Bottleneck.int8_act``); it then
-needs the output ``dtype``.
+needs the output ``dtype``. :meth:`QConv.fused` is the serving route of a
+bf16 static model: one launch of the kernel that also applies the
+FrozenBN, residual and ReLU that follow the conv and writes the next
+static ``QConv``'s int8 codes (``ops/int8_conv.py::qconv_fused``).
 """
 import functools
 
 import torch
 from torch import nn
 
-from ..ops.int8_conv import qconv, qconv_reference, quantize_weights
+from ..ops.int8_conv import (pack_weights, qconv, qconv_fused,
+                             qconv_fused_reference, qconv_reference,
+                             quantize_weights)
 from .conv import Conv2d
 
 
@@ -67,21 +72,41 @@ class QConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
         self.register_buffer('act_absmax', torch.zeros(()))
         self._codes = (None, None)
+        self._act_scale = (None, None)
 
     def codes(self):
-        """HWIO int8 codes and (Co,) scale of the weight (per output
-        channel over kh, kw, ci)."""
-        w = self.weight
-        key = (w.data_ptr(), w._version, w.device)
+        """The weight's int8 codes, derived once per weight (and bias)
+        version: ``(wi, kscale, bias, packed)`` with ``wi`` HWIO int8,
+        ``kscale`` the (Co,) f32 scale (per output channel over kh, kw,
+        ci), ``bias`` f32 or None, and ``packed`` the kernel's layout of
+        ``wi`` (``pack_weights``) when the weight lies on a card, else
+        None."""
+        w, b = self.weight, self.bias
+        key = (w.data_ptr(), w._version, w.device,
+               None if b is None else (b.data_ptr(), b._version))
         if self._codes[0] != key:
             with torch.no_grad():
                 wi, kscale = quantize_weights(w.permute(2, 3, 1, 0),
                                               axes=(0, 1, 2))
-            self._codes = (key, (wi.contiguous(), kscale.reshape(-1)))
+                wi = wi.contiguous()
+                bias = None if b is None else b.detach().float().contiguous()
+                packed = pack_weights(wi) if wi.is_cuda else None
+            self._codes = (key, (wi, kscale.reshape(-1).contiguous(), bias,
+                                 packed))
         return self._codes[1]
 
+    def act_scale(self):
+        """The calibrated per-tensor input scale, ``max(act_absmax, 1e-8) /
+        127`` (f32 device scalar), as ``forward`` takes it when static;
+        kept until ``act_absmax`` changes."""
+        a = self.act_absmax
+        key = (a.data_ptr(), a._version)
+        if self._act_scale[0] != key:
+            self._act_scale = (key, a.clamp_min(1e-8) / 127.0)
+        return self._act_scale[1]
+
     def forward(self, x, dtype=None):
-        wi, kscale = self.codes()
+        wi, kscale, bias, packed = self.codes()
         if isinstance(x, tuple):
             x, ascale = x                                    # int8 NHWC codes
         else:
@@ -90,10 +115,31 @@ class QConv(nn.Module):
             absmax = act_absmax(self.act_absmax, x, self.calibrating,
                                 self.static_scale)
             ascale = absmax.clamp_min(1e-8) / 127.0
-        fn = qconv if self.kernels else qconv_reference
-        y = fn(x, ascale, wi, kscale, self.bias, self.stride, self.padding,
-               dtype)
+        if self.kernels:
+            y = qconv(x, ascale, wi, kscale, bias, self.stride, self.padding,
+                      dtype, packed=packed)
+        else:
+            y = qconv_reference(x, ascale, wi, kscale, bias, self.stride,
+                                self.padding, dtype)
         return y.permute(0, 3, 1, 2)
+
+    def fused(self, x, *, affine=None, residual=None, relu=False,
+              out_scale=None):
+        """The static bf16 serving route: ``x`` NHWC bf16 (quantized at
+        :meth:`act_scale`) or ``(int8 NHWC codes, ascale)``; then the
+        epilogue of ``qconv_fused`` (FrozenBN ``affine``, ``residual``,
+        ``relu``, int8 codes at ``out_scale``). Returns NHWC bf16, or
+        ``(codes, out_scale)``; one kernel launch on a card (``kernels``
+        on), the plain composition otherwise."""
+        wi, kscale, bias, packed = self.codes()
+        x, ascale = x if isinstance(x, tuple) else (x, self.act_scale())
+        kw = dict(affine=affine, residual=residual, relu=relu,
+                  out_scale=out_scale)
+        if self.kernels:
+            return qconv_fused(x, ascale, wi, kscale, bias, self.stride,
+                               self.padding, packed=packed, **kw)
+        return qconv_fused_reference(x, ascale, wi, kscale, bias,
+                                     self.stride, self.padding, **kw)
 
 
 def conv_factory(quantize):

@@ -14,8 +14,11 @@ card; off, the conv and the pool run apart, and ``stem_pool_kernel`` takes
 K4 for the pool. ``quantize`` makes the stem and every bottleneck conv
 int8 (``models/quant.py``); ``fused_blocks`` sends stride-1 identity
 blocks through :mod:`..ops.bottleneck_fuse` (K5); ``int8_act`` stores each
-block input as int8 (serving, with ``quantize='static'``). ``kernels`` off
-takes every plain version.
+block input as int8 (serving, with ``quantize='static'``). A bf16
+``quantize='static'`` block on a card runs each conv as one launch of the
+int8 conv kernel with its FrozenBN, ReLU, residual and the next conv's
+quantize fused (``Bottleneck.q8_fused_forward``). ``kernels`` off takes
+every plain version.
 """
 import torch
 import torch.nn.functional as F
@@ -46,11 +49,27 @@ class FrozenBN(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer('mean', torch.zeros(features))
         self.register_buffer('var', torch.ones(features))
+        self._affine_cache = (None, None)
+
+    def affine(self, dtype):
+        """``(inv, b)``, (C,) each, computed in f32 and cast to ``dtype``;
+        without autograd, kept until a parameter or buffer changes (the
+        fused int8 route reads it on every call)."""
+        if torch.is_grad_enabled():
+            return self._affine(dtype)
+        key = (dtype, *((t.data_ptr(), t._version) for t in
+                        (self.scale, self.bias, self.mean, self.var)))
+        if self._affine_cache[0] != key:
+            self._affine_cache = (key, self._affine(dtype))
+        return self._affine_cache[1]
+
+    def _affine(self, dtype):
+        r = torch.rsqrt(self.var + self.eps)
+        inv = (self.scale * r).to(dtype)
+        return inv, (self.bias - self.mean * self.scale * r).to(dtype)
 
     def forward(self, x):
-        r = torch.rsqrt(self.var + self.eps)
-        inv = (self.scale * r).to(x.dtype)
-        b = (self.bias - self.mean * self.scale * r).to(x.dtype)
+        inv, b = self.affine(x.dtype)
         return x * inv.view(1, -1, 1, 1) + b.view(1, -1, 1, 1)
 
 
@@ -92,6 +111,42 @@ class Bottleneck(nn.Module):
             self.calibrating = False
             self.register_buffer('in_absmax', torch.zeros(()))
 
+    def q8_fused_route(self, x):
+        """Whether this call takes :meth:`q8_fused_forward`: a bf16
+        ``quantize='static'`` block on a card, kernels on, not
+        calibrating."""
+        return (self.quantize == 'static' and self.kernels and x.is_cuda
+                and x.dtype == torch.bfloat16 and not self.conv1.calibrating)
+
+    def q8_fused_forward(self, x):
+        """The static int8 block with every FrozenBN, ReLU, residual and
+        inter-conv quantize in the epilogue of its conv (``QConv.fused``):
+        conv1 and conv2 write the next conv's int8 codes, the downsample
+        its bf16 BN output, conv3 adds the residual (the block's int8 codes
+        dequantized, under ``int8_act``) and applies the ReLU. The same
+        ops, in the same order, as :meth:`forward`'s unfused route."""
+        src = residual = self._block_codes(x) if self.int8_act else \
+            x.permute(0, 2, 3, 1)                            # NHWC
+        bf16 = torch.bfloat16
+        y = self.conv1.fused(src, affine=self.bn1.affine(bf16), relu=True,
+                             out_scale=self.conv2.act_scale())
+        y = self.conv2.fused(y, affine=self.bn2.affine(bf16), relu=True,
+                             out_scale=self.conv3.act_scale())
+        if self.has_downsample:
+            residual = self.downsample_conv.fused(
+                src, affine=self.downsample_bn.affine(bf16))
+        y = self.conv3.fused(y, affine=self.bn3.affine(bf16),
+                             residual=residual, relu=True)
+        return y.permute(0, 3, 1, 2)
+
+    def _block_codes(self, x):
+        """``int8_act``: the block input's NHWC int8 codes and scale (the
+        running range while calibrating, the calibrated one after)."""
+        x32 = x.float().permute(0, 2, 3, 1)
+        absmax = act_absmax(self.in_absmax, x32, self.calibrating, True)
+        ascale = absmax.clamp_min(1e-8) / 127.0
+        return quantize_act(x32, ascale), ascale
+
     def can_fuse(self, x):
         return (self.fused and self.stride == 1 and not self.has_downsample
                 and x.shape[2] % 8 == 0 and self.features <= 256)
@@ -120,13 +175,11 @@ class Bottleneck(nn.Module):
     def forward(self, x):
         if self.can_fuse(x):
             return self._fused_forward(x)
+        if self.q8_fused_route(x):
+            return self.q8_fused_forward(x)
         x_in, residual = x, x
         if self.int8_act:
-            x32 = x.float().permute(0, 2, 3, 1)
-            absmax = act_absmax(self.in_absmax, x32, self.calibrating, True)
-            ascale = absmax.clamp_min(1e-8) / 127.0
-            xi = quantize_act(x32, ascale)
-            x_in = (xi, ascale)
+            x_in = xi, ascale = self._block_codes(x)
             residual = (xi.float() * ascale).to(x.dtype).permute(0, 3, 1, 2)
 
         def conv(m, v):

@@ -76,7 +76,7 @@ def slice_run(request, jax_model):
     frm = state['intermediates']['frm_0']['__call__'][0]
     want_dets = predict(out)
 
-    model = T.build_detector(T_CFG, dtype=torch.float32)
+    model = T.build_detector(T_CFG, dtype=torch.float32, device='cpu')
     model.load_state_dict(from_flax(v), strict=True)
     captured = {}
     model.frm_0.register_forward_hook(
@@ -156,7 +156,7 @@ def test_kernel_route_switch_is_identical_on_cpu(slice_run):
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        T.build_detector(T_CFG._replace(hbb_anchors=True))
+        T.build_detector(T_CFG._replace(hbb_anchors=True), device='cpu')
     with pytest.raises(NotImplementedError):
         T.detector_predict({'sr': [((), ())], 'rois': [()]},
                            T_CFG._replace(test=T.TestCfg(approx_topk=True)),

@@ -18,6 +18,9 @@ What was found, and the tolerances that follow from it:
   ``tests/test_quant.py``), and calibrated ranges within 2e-2 relative.
 - Detections from the same head outputs are identical; the whole predict
   step keeps the detections stated in ``test_predict_step_agrees``.
+- The serving route of a bf16 model (each conv's FrozenBN, residual, ReLU
+  and the next conv's quantize in one fused op) equals the unfused modules
+  exactly: on the CPU it runs the fused op's plain version.
 """
 import jax
 import jax.numpy as jnp
@@ -28,6 +31,8 @@ import torch
 from r3det_tpu.models import detectors as J
 from r3det_tpu_torch.models import detectors as T
 from r3det_tpu_torch.models.quant import calibrate
+from r3det_tpu_torch.models.resnet import Bottleneck
+from r3det_tpu_torch.models.retina_head import RRetinaHead
 from r3det_tpu_torch.parallel.predict import make_predict_step
 from r3det_tpu_torch.utils.convert import from_flax
 
@@ -94,7 +99,8 @@ def jax_run():
 
 
 def port_model(variables, **kw):
-    model = T.build_detector(T_CFG, dtype=torch.float32, int8_act=True, **kw)
+    model = T.build_detector(T_CFG, dtype=torch.float32, int8_act=True,
+                             device='cpu', **kw)
     model.load_state_dict(from_flax(variables), strict=True)
     return model
 
@@ -239,3 +245,80 @@ def test_predict_step_agrees(jax_run):
         found += int(same.any(1).sum())
         total += n
     assert found >= 0.5 * total, (found, total)
+
+
+def force_fused_routes(model, on):
+    """Send every int8 Bottleneck and head tower through its fused route
+    (on) or back to the route its conditions pick (off): on the CPU the
+    fused route runs its plain version."""
+    for m in model.modules():
+        for cls, route in ((Bottleneck, 'q8_fused_route'),
+                           (RRetinaHead, 'fused_route')):
+            if isinstance(m, cls):
+                if on:
+                    setattr(m, route, lambda x: True)
+                else:
+                    m.__dict__.pop(route, None)
+
+
+@pytest.fixture(scope='module')
+def bf16_run(jax_run):
+    """The calibrated int8 serving model in bf16 on the CPU, its unfused
+    outputs and each fused-route module's inputs."""
+    model = T.build_detector(T_CFG, dtype=torch.bfloat16, int8_act=True,
+                             device='cpu')
+    model.load_state_dict(from_flax(jax_run['calibrated']), strict=True)
+    names = ('backbone.layer1_0', 'backbone.layer1_1', 'backbone.layer2_0',
+             'bbox_head', 'refine_head_0')
+    inputs = {}
+    hooks = [model.get_submodule(n).register_forward_pre_hook(
+        lambda m, a, n=n: inputs.setdefault(n, a)) for n in names]
+    with torch.no_grad():
+        out = model(t(jax_run['images']))
+    for h in hooks:
+        h.remove()
+    return model, out, inputs
+
+
+@pytest.mark.parametrize('name', ['backbone.layer1_0', 'backbone.layer1_1',
+                                  'backbone.layer2_0', 'bbox_head',
+                                  'refine_head_0'])
+def test_fused_route_matches_unfused_module(bf16_run, name):
+    """A downsample block, an int8_act identity block, a strided block and
+    both heads: the fused route's plain version equals the module's
+    unfused output bit for bit. The route is off on CPU tensors."""
+    model, _, inputs = bf16_run
+    module = model.get_submodule(name)
+    args = inputs[name]
+    x = args[0] if isinstance(module, Bottleneck) else args[0][0]
+    route = module.q8_fused_route if isinstance(module, Bottleneck) \
+        else module.fused_route
+    assert x.dtype == torch.bfloat16 and not route(x)
+    with torch.no_grad():
+        want = module(*args)
+        force_fused_routes(module, True)
+        try:
+            got = module(*args)
+        finally:
+            force_fused_routes(module, False)
+    flat = (lambda o: list(o[0]) + list(o[1])) if isinstance(
+        module, RRetinaHead) else (lambda o: [o])
+    for g, w in zip(flat(got), flat(want)):
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+def test_fused_model_matches_unfused_model(bf16_run, jax_run):
+    """The whole bf16 int8 serving model with every fused route: the same
+    head maps and rois as the unfused model, exactly."""
+    model, want, _ = bf16_run
+    force_fused_routes(model, True)
+    try:
+        with torch.no_grad():
+            got = model(t(jax_run['images']))
+    finally:
+        force_fused_routes(model, False)
+    for key in ('s0', 'sr', 'rois'):
+        g, w = got[key], want[key]
+        g, w = (g[0], w[0]) if key == 'sr' else (g, w)
+        for a, b in zip(jax.tree.leaves(g), jax.tree.leaves(w)):
+            assert torch.equal(a, b)

@@ -157,6 +157,20 @@ def test_bottleneck_q8_kernel_matches_plain(cuda, f):
     torch.testing.assert_close(got, want, rtol=0, atol=2e-2)
 
 
+def qconv_args(rng, shape, kernel, co, int8_in, bias, dev):
+    x = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    ascale = x.float().abs().amax() / 127.0
+    if int8_in:
+        x = Q.quantize_act(x, ascale)
+    w = torch.from_numpy(rng.normal(0, 0.1, kernel + (shape[3], co))
+                         .astype(np.float32)).to(dev)
+    wi, ks = Q.quantize_weights(w, axes=(0, 1, 2))
+    b = torch.from_numpy(rng.normal(0, 1, co).astype(np.float32)).to(
+        dev) if bias else None
+    return x, ascale, wi, ks.reshape(-1), b
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize('shape,kernel,stride,pad,co,int8_in,bias', [
     ((2, 17, 13, 64), (3, 3), (1, 1), (1, 1), 64, False, True),
@@ -164,27 +178,85 @@ def test_bottleneck_q8_kernel_matches_plain(cuda, f):
     ((2, 9, 11, 256), (1, 5), (1, 1), (0, 2), 256, False, True),
     ((2, 9, 11, 256), (5, 1), (1, 1), (2, 0), 256, False, True),
     ((1, 10, 10, 32), (3, 3), (2, 2), (1, 1), 64, True, True),
+    ((2, 16, 16, 256), (1, 1), (1, 1), (0, 0), 64, True, False),
+    ((1, 8, 8, 512), (1, 1), (1, 1), (0, 0), 2048, False, False),
+    ((2, 13, 11, 128), (3, 3), (2, 2), (1, 1), 128, True, False),
+    ((1, 9, 7, 1024), (1, 1), (2, 2), (0, 0), 2048, True, False),
+    ((1, 20, 12, 256), (3, 3), (1, 1), (1, 1), 256, False, True),
+    ((1, 20, 18, 256), (3, 3), (2, 2), (1, 1), 256, False, False),
 ])
 def test_int8_conv_kernel_matches_plain(cuda, shape, kernel, stride, pad, co,
                                         int8_in, bias):
     """QConv's int8 conv kernel: exact int32 sums and the plain version's
-    dequant order, so bit-equal, for bf16 and int8 (pre-quantized) input."""
+    dequant order, so bit-equal, for bf16 and int8 (pre-quantized) input;
+    1x1, 3x3, 1x5 and 5x1, strides 1 and 2, and output sizes that leave
+    ragged 16 x 8 pixel tiles. The last case's bf16 halo is too large for
+    the kernel's staging buffer and is quantized through registers."""
     rng = np.random.RandomState(co + shape[1])
-    x = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(
-        cuda, torch.bfloat16)
-    ascale = x.float().abs().amax() / 127.0
-    if int8_in:
-        x = Q.quantize_act(x, ascale)
-    w = torch.from_numpy(rng.normal(0, 0.1, kernel + (shape[3], co))
-                         .astype(np.float32)).to(cuda)
-    wi, ks = Q.quantize_weights(w, axes=(0, 1, 2))
-    b = torch.from_numpy(rng.normal(0, 1, co).astype(np.float32)).to(
-        cuda) if bias else None
-    args = (x, ascale, wi, ks.reshape(-1), b, stride, pad)
+    args = qconv_args(rng, shape, kernel, co, int8_in, bias, cuda) + (
+        stride, pad)
     before = _ext.LAUNCHES['int8_conv']
     got = Q.qconv(*args, torch.bfloat16)
     want = Q.qconv_reference(*args, torch.bfloat16)
     assert _ext.LAUNCHES['int8_conv'] == before + 1
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+# (name, kernel, Ci -> Co, epilogue): the fused routes of Bottleneck and
+# RRetinaHead
+EPILOGUES = {
+    'affine_relu_int8': ((1, 1), 256, 64, dict(affine=True, relu=True,
+                                                out=True)),
+    'affine_bf16': ((1, 1), 256, 256, dict(affine=True)),
+    'affine_res_relu': ((1, 1), 64, 256, dict(affine=True, res='bf16',
+                                               relu=True)),
+    'affine_res8_relu': ((1, 1), 64, 256, dict(affine=True, res='int8',
+                                                relu=True)),
+    'relu_int8': ((3, 3), 256, 256, dict(relu=True, out=True, bias=True)),
+    'relu_bf16': ((3, 3), 64, 64, dict(relu=True, bias=True)),
+}
+
+
+def fused_args(rng, kernel, ci, co, spec, dev, hw=(13, 11)):
+    shape = (2,) + hw + (ci,)
+    x, ascale, wi, ks, b = qconv_args(rng, shape, kernel, co, False,
+                                      spec.get('bias', False), dev)
+    kw = dict(relu=spec.get('relu', False))
+    if spec.get('affine'):
+        kw['affine'] = tuple(torch.from_numpy(rng.uniform(lo, hi, co).astype(
+            np.float32)).to(dev, torch.bfloat16) for lo, hi in ((0.5, 2),
+                                                                 (-1, 1)))
+    if spec.get('res'):
+        r = torch.from_numpy(rng.normal(0, 1, shape[:3] + (co,)).astype(
+            np.float32)).to(dev, torch.bfloat16)
+        if spec['res'] == 'int8':
+            rs = r.float().abs().amax() / 127.0
+            r = (Q.quantize_act(r, rs), rs)
+        kw['residual'] = r
+    if spec.get('out'):
+        kw['out_scale'] = torch.tensor(3.0 / 127.0, device=dev)
+    pad = (kernel[0] // 2, kernel[1] // 2)
+    return (x, ascale, wi, ks, b, (1, 1), pad), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name', list(EPILOGUES))
+def test_int8_conv_fused_epilogue_matches_plain(cuda, name):
+    """The fused epilogue (FrozenBN, residual, ReLU, int8 codes for the
+    next conv) repeats every rounding of the unfused ops: bit-equal, one
+    launch a call."""
+    kernel, ci, co, spec = EPILOGUES[name]
+    args, kw = fused_args(np.random.RandomState(len(name)), kernel, ci, co,
+                          spec, cuda)
+    before = _ext.LAUNCHES['int8_conv']
+    got = Q.qconv_fused(*args, **kw)
+    assert _ext.LAUNCHES['int8_conv'] == before + 1
+    want = Q.qconv_fused_reference(*args, **kw)
+    if spec.get('out'):
+        (got, gs), (want, ws) = got, want
+        assert got.dtype == torch.int8 and gs is ws
+    else:
+        assert got.dtype == torch.bfloat16
     assert got.shape == want.shape and torch.equal(got, want)
 
 
@@ -201,3 +273,18 @@ def test_wrappers_raise_on_unsupported_cuda_inputs(cuda):
     x, ws = bottleneck_args(np.random.RandomState(0), 32, cuda)
     with pytest.raises(ValueError):                        # F = 32
         K5.fused_bottleneck(x, *ws)
+    args, kw = fused_args(np.random.RandomState(1), (1, 1), 64, 256,
+                          EPILOGUES['affine_res_relu'][3], cuda)
+    bad = (
+        dict(kw, residual=kw['residual'].float()),           # f32 residual
+        dict(kw, residual=kw['residual'][:, :8].contiguous()),  # wrong shape
+        dict(kw, affine=tuple(t.float() for t in kw['affine'])),
+    )
+    for b in bad:
+        with pytest.raises(ValueError):
+            Q.qconv_fused(*args, **b)
+    with pytest.raises(ValueError):                        # Co = 32
+        Q.qconv_fused(args[0], *args[1:2], args[2][..., :32],
+                      args[3][:32], None, *args[5:])
+    with pytest.raises(ValueError):                        # f32 input
+        Q.qconv_fused(args[0].float(), *args[1:], **kw)
