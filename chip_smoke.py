@@ -9,7 +9,9 @@ Phases, one line each (any failure raises and the exit code is 1):
 2. build: compiles the CUDA kernels (``r3det_tpu_torch/csrc``) with nvcc;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it (max |diff| within the stated
-   tolerance; both times from CUDA events after warm-up), beside its bound
+   tolerance; both times from CUDA events after warm-up; the stem kernel
+   on weights packed once, beside ``wrapper_ms``, the call that packs
+   them each time), beside its bound
    (``bound_ms``: the larger of the bytes it must move over 3.35 TB/s and
    its operations over the card's peak for their type) and, where one
    PyTorch call computes the same function, that call's time
@@ -31,7 +33,10 @@ Phases, one line each (any failure raises and the exit code is 1):
    path's, every detection must be found both ways, and its patches/s is
    measured beside the bf16 path's. One ``[profile]`` line per path:
    ``torch.profiler`` over one step of the big batch, the top device
-   kernels and the device's busy share;
+   kernels and the device's busy share. The stem kernel must run once a
+   predict step in both. Then the same weights in an f32 model at batch
+   1: only NMS's IoU kernel may launch, and its outputs must equal its
+   plain route's;
 5. opt-in routes, batch 2: bf16 with ``fused_blocks`` and the unfused stem
    with ``stem_pool_kernel`` (launches K5 and K4), and int8 with
    ``fused_blocks`` (launches K5 int8), each held to the unfused model.
@@ -98,6 +103,8 @@ PATH_KERNELS = {
     'int8': ('rotated_iou', 'frm_sample', 'stem_conv_pool_q8', 'int8_conv'),
     'route_bf16': ('stem_pool', 'bottleneck'),
     'route_int8': ('bottleneck_q8', 'stem_conv_pool_q8', 'int8_conv'),
+    # an f32 model: every route takes its plain form but NMS's IoU (f32)
+    'f32': ('rotated_iou',),
 }
 
 
@@ -270,52 +277,52 @@ def compare_kernels(dev):
         tot['plain_ms'] += plain_ms
     rec['frm_sample'] = tot
 
-    # K3: bf16 out, f32 sums in another order -> atol 1e-2 + rtol 1e-2
+    # K3, bf16 and int8: the kernel alone, on weights packed once (as the
+    # model packs them) and, in int8, max|x| taken once; wrapper_ms times
+    # the whole call with the packing (and max|x|) in it, for comparison
+    # with timings taken that way
     x12 = torch.from_numpy(rng.uniform(-2, 2, (BATCH, SIZE // 2, SIZE // 2, 12))
                            .astype(np.float32)).to(dev, torch.bfloat16)
     kern = torch.from_numpy(rng.normal(0, 0.1, (4, 4, 12, 64))
                             .astype(np.float32)).to(dev)
     scale = torch.from_numpy(rng.uniform(0.5, 2, 64).astype(np.float32)).to(dev)
     bias = torch.from_numpy(rng.uniform(-1, 1, 64).astype(np.float32)).to(dev)
-    got = K3.stem_conv_pool_cuda(x12, kern, scale, bias)
-    want = K3.stem_conv_pool_reference(x12, kern, scale, bias)
-    diff = (got.float() - want.float()).abs()
-    err = float(diff.max())
-    ms = cuda_ms(lambda: K3.stem_conv_pool_cuda(x12, kern, scale, bias), 20)
-    plain_ms = cuda_ms(
-        lambda: K3.stem_conv_pool_reference(x12, kern, scale, bias), 5)
+    amax = K3.abs_max(x12)
+    amax_ms = cuda_ms(lambda: K3.abs_max(x12), 20)
     # the folded 4x4x12 conv at every s2d pixel; image in, pooled map out
     stem_ops = 2 * x12.shape[0] * x12.shape[1] * x12.shape[2] * 192 * 64
-    stem_bytes = x12.numel() * 2 + kern.numel() * 4 + got.numel() * 2
-    rec['stem_conv_pool'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    b_ms, by = add_bound(rec['stem_conv_pool'], stem_bytes, stem_ops, 'bf16')
-    phase('kernel', name='stem_conv_pool', shape=str(tuple(got.shape)),
-          max_abs_err=err, exact_frac=float((diff == 0).float().mean()),
-          tol='1e-2 + 1e-2*|ref|', ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
-          bound_ms=f'{b_ms:.4f}', bound_by=by)
-    check(bool((diff <= 1e-2 + 1e-2 * want.float().abs()).all()),
-          'stem_conv_pool disagrees with its plain version')
-
-    # K3 int8: exact int32 sums, the plain version's epilogue -> one ulp
-    def q8():
-        return K3.stem_conv_pool_cuda(x12, kern, scale, bias, True)
-    got = q8()
-    want = K3.stem_conv_pool_q8_reference(x12, kern, scale, bias)
-    diff = (got.float() - want.float()).abs()
-    err = float(diff.max())
-    ms = cuda_ms(q8, 20)
-    plain_ms = cuda_ms(
-        lambda: K3.stem_conv_pool_q8_reference(x12, kern, scale, bias), 5)
-    rec['stem_conv_pool_q8'] = dict(max_abs_err=err, ms=ms,
-                                    plain_ms=plain_ms)
-    b_ms, by = add_bound(rec['stem_conv_pool_q8'], stem_bytes, stem_ops,
-                         'int8')
-    phase('kernel', name='stem_conv_pool_q8', shape=str(tuple(got.shape)),
-          max_abs_err=err, exact_frac=float((diff == 0).float().mean()),
-          tol='1 bf16 ulp', ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
-          bound_ms=f'{b_ms:.4f}', bound_by=by)
-    check(bool((diff <= want.float().abs() * 2 ** -7 + 1e-6).all()),
-          'stem_conv_pool_q8 disagrees with its plain version')
+    for name, q8 in (('stem_conv_pool', False), ('stem_conv_pool_q8', True)):
+        pack = K3.pack_stem(kern, scale, bias, quantize=q8)
+        plain = K3.stem_conv_pool_q8_reference if q8 else \
+            K3.stem_conv_pool_reference
+        got = K3.stem_conv_pool_cuda(x12, pack, amax if q8 else None)
+        want = plain(x12, kern, scale, bias)
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        ms = cuda_ms(lambda: K3.stem_conv_pool_cuda(
+            x12, pack, amax if q8 else None), 50)
+        wrapper_ms = cuda_ms(lambda: K3.stem_conv_pool(
+            x12, kern, scale, bias, quantize=q8), 20)
+        plain_ms = cuda_ms(lambda: plain(x12, kern, scale, bias), 5)
+        stem_bytes = x12.numel() * 2 + kern.numel() * 4 + got.numel() * 2
+        rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        b_ms, by = add_bound(rec[name], stem_bytes, stem_ops,
+                             'int8' if q8 else 'bf16')
+        extra = dict(amax_ms=f'{amax_ms:.4f}') if q8 else {}
+        phase('kernel', name=name, shape=str(tuple(got.shape)),
+              max_abs_err=err, exact_frac=float((diff == 0).float().mean()),
+              tol=0.0 if q8 else '1e-2 + 1e-2*|ref|', ms=f'{ms:.4f}',
+              wrapper_ms=f'{wrapper_ms:.4f}', **extra,
+              plain_ms=f'{plain_ms:.4f}', bound_ms=f'{b_ms:.4f}',
+              bound_by=by)
+        if q8:
+            # exact int32 sums and the plain version's epilogue in its order
+            check(err == 0.0, f'{name} disagrees with its plain version')
+        else:
+            # f32 sums in another order -> atol 1e-2 + rtol 1e-2
+            check(bool((diff <= 1e-2 + 1e-2 * want.float().abs()).all()),
+                  f'{name} disagrees with its plain version')
+        del got, want, diff
 
     # K4 on the plain conv output of the same stem: a max, bit-equal
     conv = torch.from_numpy(rng.uniform(0, 4, (BATCH, SIZE // 2, SIZE // 2,
@@ -678,6 +685,8 @@ def end_to_end(dev, card):
     for name in PATH_KERNELS['bf16']:
         check(launches[name] > 0,
               f'kernel {name} was not launched on the bf16 path')
+    check(launches['stem_conv_pool'] == len(LIVE_TARGETS),
+          'the stem kernel did not run once a predict step (bf16)')
 
     for branch, (dets, labels, num, (live, taken)) in results.items():
         phase('predict', batch=branch, live=live, branch=taken,
@@ -859,6 +868,8 @@ def int8_serving(dev, card, base):
     # 2 heads x 2 towers x 2 convs x 5 levels, 3 FRM convs x 5 levels
     check(launches['int8_conv'] == INT8_QCONVS,
           f'{launches["int8_conv"]} int8 conv launches, not {INT8_QCONVS}')
+    check(launches['stem_conv_pool_q8'] == 1,
+          'the int8 stem kernel did not run once a predict step')
     _check_dets(result, cfg, BATCH, 'int8')
 
     q_logits = _sr_logits(model_q, images)
@@ -890,6 +901,50 @@ def int8_serving(dev, card, base):
                                                    sizes).items()})
     profile_step(step, images, 'int8', card)
     return launches, model_q
+
+
+def f32_model(dev, card, base):
+    """Phase 4, f32: the bf16 path's weights in an f32 model with default
+    options, batch 1. The stem, int8 conv and FRM routes take their plain
+    forms (their kernels compute in bf16), so only NMS's IoU kernel runs;
+    forward and predict must equal the model's after use_kernels(False).
+    Returns the run's launch counts."""
+    import torch
+
+    from r3det_tpu_torch import _ext
+    from r3det_tpu_torch.models.detectors import build_detector, use_kernels
+    from r3det_tpu_torch.parallel.predict import make_predict_step
+
+    cfg, images = base['cfg'], base['images'][:1]
+    model = build_detector(cfg, dtype=torch.float32, device=dev)
+    model.load_state_dict(base['model'].state_dict())
+    step = make_predict_step(model, cfg, base['sizes'],
+                             img_shape=(SIZE, SIZE))
+
+    def run():
+        return _sr_logits(model, images), step(images)
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    logits, dets = run()
+    torch.cuda.synchronize()
+    launches = dict(_ext.LAUNCHES)
+    phase('launches', path='f32', **launches)
+    check(all((n > 0) == (k in PATH_KERNELS['f32'])
+              for k, n in launches.items()),
+          'the f32 model launched a bf16 kernel, or not the IoU kernel')
+    _check_dets(dets, cfg, 1, 'f32')
+    use_kernels(model, False)
+    plain_logits, plain_dets = run()
+    use_kernels(model, True)
+    same = torch.equal(logits, plain_logits) and all(
+        torch.equal(a, b) for a, b in zip(dets, plain_dets))
+    phase('f32', batch=1, dtype=str(logits.dtype).replace('torch.', ''),
+          num=dets[2].tolist(), equal_to_plain=same, card=card)
+    check(logits.dtype == torch.float32 and same,
+          'the f32 model differs from its plain route')
+    del model
+    torch.cuda.empty_cache()
+    return launches
 
 
 def opt_in_routes(dev, base, model_q):
@@ -975,6 +1030,7 @@ def main():
     base = end_to_end(dev, smi)
     launches = {'bf16': base['launches']}
     launches['int8'], model_q = int8_serving(dev, smi, base)
+    launches['f32'] = f32_model(dev, smi, base)
     launches.update(opt_in_routes(dev, base, model_q))
     kernels = [dict(name=k, route='cuda', source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches[PATH_OF[k]][k],

@@ -21,6 +21,7 @@ Every launch goes through :func:`launch`, which raises on the CUDA error
 code the C entry point returns and counts the launch in :data:`LAUNCHES`.
 """
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -45,11 +46,12 @@ _SIGNATURES = {
     # x, feat, rois, out, B, H, W, C, spatial_scale, transpose_quirk,
     # stream
     'frm_sample': (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
-    # x12, packed weights (16, 64, 16), scale, bias, out, B, H, W, stream
-    'stem_conv_pool': (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # x12, int8 weights (4, 2, 64, 32), amax (1,), kscale, scale, bias,
-    # out, B, H, W, stream
-    'stem_conv_pool_q8': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x12, packed weights (4, 64, 56), scale, bias, out, B, H, W, SMs,
+    # stream
+    'stem_conv_pool': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x12, int8 weights (4, 64, 80), amax (1,), kscale, scale, bias,
+    # out, B, H, W, SMs, stream
+    'stem_conv_pool_q8': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # conv output (B, H, W, 64), out, B, H, W, stream
     'stem_pool': (_P, _P, _I, _I, _I, _P),
     # x, w1, b1, w2, b2, w3, b3, out, B, H, W, F, stream
@@ -171,3 +173,11 @@ def current_stream(device):
     """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``."""
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device):
+    """The number of streaming multiprocessors of ``device`` (persistent
+    kernels launch a fixed number of blocks per SM)."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -8,10 +8,11 @@ conv branch, bilinearly sampled at each position's best-box centre
 by default (row <- cx * scale, col <- cy * scale).
 
 points=1 runs through :func:`..ops.frm_sample.frm_sample` (the K2 kernel on
-CUDA tensors when ``kernels`` is on). points=5 has the plain form only, and
-raises on CUDA tensors until it has a kernel. ``quantize`` makes the three
-branch convs ``QConv``s; the sample and the residual adds stay in the
-input's dtype.
+bf16 CUDA tensors when ``kernels`` is on; an f32 model takes the plain
+form, ``FeatureRefineModule.sample_route``). points=5 has the plain form
+only, and raises on CUDA tensors until it has a kernel. ``quantize`` makes
+the three branch convs ``QConv``s; the sample and the residual adds stay
+in the input's dtype.
 """
 import torch
 from torch import nn
@@ -72,6 +73,11 @@ class FeatureRefineModule(nn.Module):
         self.conv_1_5 = conv(c, c, (1, 5), padding=(0, 2))
         self.conv_1_1 = conv(c, c, 1)
 
+    def sample_route(self, feat):
+        """Whether the points=1 sample takes :func:`frm_sample` (K2): bf16
+        features on a card, kernels on."""
+        return self.kernels and feat.is_cuda and feat.dtype == torch.bfloat16
+
     def forward(self, feats, rois):
         assert len(feats) == len(self.featmap_strides)
         out = []
@@ -81,7 +87,8 @@ class FeatureRefineModule(nn.Module):
             fs = feat.permute(0, 2, 3, 1)
             scale = 1.0 / stride
             if self.points == 1:
-                fn = frm_sample if self.kernels else frm_sample_reference
+                fn = frm_sample if self.sample_route(fs) else \
+                    frm_sample_reference
                 y = fn(xs.contiguous(), fs.contiguous(), roi.contiguous(),
                        scale, self.transpose_quirk)
             elif x.is_cuda:

@@ -16,8 +16,9 @@ Port of ``r3det_tpu/models/quant.py``: ``QConv``, ``conv_factory`` and
   ``acc * (ascale * kscale) [+ bias]``. A bf16 model rounds the int32 sums
   to bf16 before that dequant, as the JAX package's bf16 conv output does;
   an f32 model keeps them exact. ``ops/int8_conv.py::qconv`` runs it: the
-  int8 conv kernel on a card (``kernels`` on, bf16), its plain form
-  (im2col + ``torch._int_mm``) otherwise.
+  int8 conv kernel on a card (``kernels`` on, bf16 output:
+  ``QConv.kernel_route``), its plain form (im2col + ``torch._int_mm``)
+  otherwise, an f32 model's on a card too.
 
 A ``QConv`` may be handed a pre-quantized ``(int8 NHWC codes, ascale)``
 pair (the int8 activation storage of ``Bottleneck.int8_act``); it then
@@ -105,6 +106,12 @@ class QConv(nn.Module):
             self._act_scale = (key, a.clamp_min(1e-8) / 127.0)
         return self._act_scale[1]
 
+    def kernel_route(self, x, dtype):
+        """Whether :meth:`forward` takes :func:`qconv` (the int8 conv
+        kernel): a card, kernels on, bf16 output (the kernel writes bf16
+        only; an f32 model takes the plain form)."""
+        return self.kernels and x.is_cuda and dtype == torch.bfloat16
+
     def forward(self, x, dtype=None):
         wi, kscale, bias, packed = self.codes()
         if isinstance(x, tuple):
@@ -115,7 +122,7 @@ class QConv(nn.Module):
             absmax = act_absmax(self.act_absmax, x, self.calibrating,
                                 self.static_scale)
             ascale = absmax.clamp_min(1e-8) / 127.0
-        if self.kernels:
+        if self.kernel_route(x, dtype):
             y = qconv(x, ascale, wi, kscale, bias, self.stride, self.padding,
                       dtype, packed=packed)
         else:

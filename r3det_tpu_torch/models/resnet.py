@@ -9,9 +9,10 @@ dtype (``dtype`` for the whole trunk), as the flax modules do.
 
 The stem keeps the JAX package's folded ``(4, 4, 12, 64)`` HWIO kernel
 (``conv1.kernel``) and runs through :mod:`..ops.stem_pool`:
-``stem_fused_kernel`` (the port's default) takes the fused stem, K3 on a
-card; off, the conv and the pool run apart, and ``stem_pool_kernel`` takes
-K4 for the pool. ``quantize`` makes the stem and every bottleneck conv
+``stem_fused_kernel`` (the port's default) takes the fused stem, K3 in a
+bf16 model on a card (on weights packed once, ``ResNet.stem_pack``); off,
+the conv and the pool run apart, and ``stem_pool_kernel`` takes K4 for the
+pool. ``quantize`` makes the stem and every bottleneck conv
 int8 (``models/quant.py``); ``fused_blocks`` sends stride-1 identity
 blocks through :mod:`..ops.bottleneck_fuse` (K5); ``int8_act`` stores each
 block input as int8 (serving, with ``quantize='static'``). A bf16
@@ -29,7 +30,8 @@ from ..ops.bottleneck_fuse import (fold_bn, fused_bottleneck,
                                    fused_bottleneck_q8_reference,
                                    fused_bottleneck_reference)
 from ..ops.int8_conv import quantize_act
-from ..ops.stem_pool import (stem_conv_pool, stem_conv_pool_q8_reference,
+from ..ops.stem_pool import (pack_stem, stem_conv_pool_cuda,
+                             stem_conv_pool_q8_reference,
                              stem_conv_pool_reference, stem_conv_pool_unfused)
 from .quant import act_absmax, conv_factory
 
@@ -225,6 +227,7 @@ class ResNet(nn.Module):
         self.quantize = quantize
         self.conv1 = _StemConv()
         self.bn1 = FrozenBN(64)
+        self._stem_pack = (None, None)
         inplanes = 64
         for stage, num_blocks in enumerate(STAGE_BLOCKS[depth]):
             for blk in range(num_blocks):
@@ -239,7 +242,31 @@ class ResNet(nn.Module):
         inv = self.bn1.scale * torch.rsqrt(self.bn1.var + 1e-5)
         return inv, self.bn1.bias - self.bn1.mean * inv
 
+    def stem_kernel_route(self, x12):
+        """Whether the fused stem takes its kernel (K3): a bf16 model on a
+        card, kernels on (the kernel computes in bf16 only; an f32 model
+        takes the plain form)."""
+        return (self.kernels and x12.is_cuda
+                and self.dtype == torch.bfloat16)
+
+    def stem_pack(self):
+        """The K3 kernel's operands (``pack_stem``: packed weights, folded
+        affine), made once per version of the stem kernel and FrozenBN, as
+        ``QConv.codes`` keeps its codes."""
+        ts = (self.conv1.kernel, self.bn1.scale, self.bn1.bias,
+              self.bn1.mean, self.bn1.var)
+        key = (bool(self.quantize), self.conv1.kernel.device,
+               *((t.data_ptr(), t._version) for t in ts))
+        if self._stem_pack[0] != key:
+            with torch.no_grad():
+                pack = pack_stem(self.conv1.kernel, *self.stem_affine(),
+                                 quantize=bool(self.quantize))
+            self._stem_pack = (key, pack)
+        return self._stem_pack[1]
+
     def stem(self, x12):
+        if self.stem_fused_kernel and self.stem_kernel_route(x12):
+            return stem_conv_pool_cuda(x12.contiguous(), self.stem_pack())
         inv, off = self.stem_affine()
         args = (x12, self.conv1.kernel, inv, off, self.dtype)
         q = bool(self.quantize)
@@ -247,8 +274,6 @@ class ResNet(nn.Module):
             return stem_conv_pool_unfused(
                 *args, quantize=q,
                 pool_kernel=self.stem_pool_kernel and self.kernels)
-        if self.kernels:
-            return stem_conv_pool(*args, quantize=q)
         ref = stem_conv_pool_q8_reference if q else stem_conv_pool_reference
         return ref(*args)
 

@@ -28,6 +28,8 @@ Layouts follow the JAX package: ``x12`` (B, H, W, 12) NHWC, ``kernel``
 (4, 4, 12, 64) HWIO, ``scale``/``bias`` (64,) f32, result (B, H/2, W/2, 64)
 NHWC.
 """
+from typing import NamedTuple, Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -85,9 +87,60 @@ def stem_conv_pool_q8_reference(x12, kernel, scale, bias,
     return stem_pool_reference(y.clamp_min(0.0).to(dtype))
 
 
-def stem_conv_pool_cuda(x12, kernel, scale, bias, quantize=False):
-    """Launch the K3 kernel (``csrc/stem_pool.cu``): bf16 in and out;
-    ``quantize`` takes its int8 variant."""
+class StemPack(NamedTuple):
+    """The K3 kernel's operands, made once per weight version by
+    :func:`pack_stem`:
+
+    - ``weights``: bf16 (4, 64, 56), ``[ky][co][kx * 12 + ci]`` (one kernel
+      row is K = 48 contiguous values, as 4 pixels of 12 channels lie in an
+      NHWC row), zero past 48; or, int8, the per-output-channel codes
+      (4, 64, 80), ``[ky][co][kx * 16 + ci]``, zero for ci >= 12 and past
+      64. The padded row strides keep the kernel's fragment loads free of
+      shared-memory bank conflicts;
+    - ``kscale``: the codes' (64,) f32 scales (int8), else None;
+    - ``scale``, ``bias``: the folded affine, (64,) f32.
+    """
+    weights: torch.Tensor
+    kscale: Optional[torch.Tensor]
+    scale: torch.Tensor
+    bias: torch.Tensor
+
+
+BF16_ROW = 56      # bf16 values per packed (ky, co) row: 48 used
+Q8_ROW = 80        # int8 codes per packed (ky, co) row: 4 x 16, 48 used
+
+
+def pack_stem(kernel, scale, bias, quantize=False):
+    """Pack the (4, 4, 12, 64) HWIO stem kernel and its folded affine for
+    the K3 kernel (:class:`StemPack`), on the kernel's device."""
+    if tuple(kernel.shape) != (4, 4, CIN, COUT) \
+            or tuple(scale.shape) != (COUT,) or tuple(bias.shape) != (COUT,):
+        raise ValueError('kernel must be (4, 4, 12, 64), scale and bias (64,)')
+    kscale = None
+    if quantize:
+        ki, kscale = quantize_weights(kernel, axes=(0, 1, 2))
+        w = F.pad(ki, (0, 0, 0, 16 - CIN)).reshape(4, 4 * 16, COUT)
+        w = F.pad(w.permute(0, 2, 1), (0, Q8_ROW - 4 * 16))
+        kscale = kscale.reshape(-1).float().contiguous()
+    else:
+        w = kernel.to(torch.bfloat16).reshape(4, 4 * CIN, COUT)
+        w = F.pad(w.permute(0, 2, 1), (0, BF16_ROW - 4 * CIN))
+    return StemPack(w.contiguous(), kscale, scale.float().contiguous(),
+                    bias.float().contiguous())
+
+
+def abs_max(x):
+    """max|x| as a (1,) f32 tensor, in one read of ``x`` (no ``abs()``
+    temporary); exact, so equal to ``x.abs().amax()``."""
+    lo, hi = torch.aminmax(x)
+    return torch.maximum(hi, -lo).float().reshape(1)
+
+
+def stem_conv_pool_cuda(x12, pack, amax=None):
+    """Launch the K3 kernel (``csrc/stem_pool.cu``) on ``pack``
+    (:func:`pack_stem`): bf16 in and out; an int8 ``pack`` takes the int8
+    variant, which quantizes ``x12`` by ``amax`` = max|x12| ((1,) f32,
+    computed here when not given)."""
     if not x12.is_cuda or x12.dtype != torch.bfloat16 or x12.dim() != 4 \
             or x12.shape[-1] != CIN or not x12.is_contiguous():
         raise ValueError(f'x12 must be a contiguous (B, H, W, {CIN}) bfloat16 '
@@ -97,52 +150,54 @@ def stem_conv_pool_cuda(x12, kernel, scale, bias, quantize=False):
     if h % 2 or w % 2:
         raise ValueError(f'stem input height and width must be even, got '
                          f'{h}x{w}')
-    if tuple(kernel.shape) != (4, 4, CIN, COUT) \
-            or tuple(scale.shape) != (COUT,) or tuple(bias.shape) != (COUT,):
-        raise ValueError('kernel must be (4, 4, 12, 64), scale and bias (64,)')
-    for t in (kernel, scale, bias):
-        if t.device != x12.device:
-            raise ValueError('stem weights must be on the input\'s device')
-    if x12.data_ptr() % 8:
-        raise ValueError('x12 must be 8-byte aligned')
-    scale = scale.to(torch.float32).contiguous()
-    bias = bias.to(torch.float32).contiguous()
+    q8 = pack.kscale is not None
+    shape = (4, COUT, Q8_ROW if q8 else BF16_ROW)
+    if tuple(pack.weights.shape) != shape or pack.weights.dtype != (
+            torch.int8 if q8 else torch.bfloat16):
+        raise ValueError(f'packed stem weights must be {shape}, from '
+                         f'pack_stem')
+    for t in pack:
+        if t is not None and (t.device != x12.device
+                              or not t.is_contiguous()):
+            raise ValueError('packed stem operands must be contiguous on '
+                             'the input\'s device')
+    if x12.data_ptr() % 16:
+        raise ValueError('x12 must be 16-byte aligned')
     out = torch.empty((b, h // 2, w // 2, COUT), dtype=torch.bfloat16,
                       device=x12.device)
     stream = _ext.current_stream(x12.device)
-    if quantize:
-        # max|x| stays on the device; the kernel derives ascale from it.
-        # Weight codes: [ky][kx pair][co][2 taps x 16 channels, 12 used]
-        amax = x12.abs().amax().float().reshape(1)
-        ki, kscale = quantize_weights(kernel, axes=(0, 1, 2))
-        wpack = F.pad(ki, (0, 0, 0, 16 - CIN)).reshape(4, 2, 2, 16, COUT)
-        wpack = wpack.permute(0, 1, 4, 2, 3).contiguous()
-        kscale = kscale.reshape(-1).contiguous()
-        _ext.launch('stem_conv_pool_q8', x12.data_ptr(), wpack.data_ptr(),
-                    amax.data_ptr(), kscale.data_ptr(), scale.data_ptr(),
-                    bias.data_ptr(), out.data_ptr(), b, h, w, stream)
-        return out
-    # the kernel's weight layout: [tap = ky*4 + kx][co][ci, zero-padded
-    # from 12 to 16 input channels], bf16
-    wpack = F.pad(kernel.reshape(16, CIN, COUT), (0, 0, 0, 16 - CIN))
-    wpack = wpack.permute(0, 2, 1).to(torch.bfloat16).contiguous()
-    _ext.launch('stem_conv_pool', x12.data_ptr(), wpack.data_ptr(),
-                scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w,
-                stream)
+    sms = _ext.sm_count(x12.device)
+    if q8:
+        # max|x| stays on the device; the kernel derives ascale from it
+        amax = abs_max(x12) if amax is None else amax
+        if amax.dtype != torch.float32 or amax.numel() != 1 \
+                or amax.device != x12.device:
+            raise ValueError('amax must be one float32 value on the '
+                             'input\'s device')
+        _ext.launch('stem_conv_pool_q8', x12.data_ptr(),
+                    pack.weights.data_ptr(), amax.data_ptr(),
+                    pack.kscale.data_ptr(), pack.scale.data_ptr(),
+                    pack.bias.data_ptr(), out.data_ptr(), b, h, w, sms,
+                    stream)
+    else:
+        _ext.launch('stem_conv_pool', x12.data_ptr(), pack.weights.data_ptr(),
+                    pack.scale.data_ptr(), pack.bias.data_ptr(),
+                    out.data_ptr(), b, h, w, sms, stream)
     return out
 
 
 def stem_conv_pool(x12, kernel, scale, bias, dtype=torch.bfloat16,
                    quantize=False):
     """The fused stem (``quantize``: its int8 variant). CPU tensors take the
-    plain form; CUDA tensors launch the kernel, which computes in bf16 only
-    and raises for another ``dtype``."""
+    plain form; CUDA tensors pack the weights and launch the kernel, which
+    computes in bf16 only and raises for another ``dtype`` (a model packs
+    once: ``ResNet.stem_pack``)."""
     if x12.is_cuda:
         if dtype != torch.bfloat16:
             raise ValueError(f'the CUDA stem kernel computes in bfloat16, '
                              f'not {dtype}')
         return stem_conv_pool_cuda(x12.to(torch.bfloat16).contiguous(),
-                                   kernel, scale, bias, quantize)
+                                   pack_stem(kernel, scale, bias, quantize))
     ref = stem_conv_pool_q8_reference if quantize else \
         stem_conv_pool_reference
     return ref(x12, kernel, scale, bias, dtype)

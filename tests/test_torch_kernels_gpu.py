@@ -13,11 +13,16 @@ import pytest
 import torch
 
 from r3det_tpu_torch import _ext
+from r3det_tpu_torch.models.detectors import (DetectorConfig, TestCfg,
+                                              build_detector, use_kernels)
+from r3det_tpu_torch.models.resnet import ResNet
 from r3det_tpu_torch.ops import bottleneck_fuse as K5
 from r3det_tpu_torch.ops import frm_sample as K2
 from r3det_tpu_torch.ops import int8_conv as Q
 from r3det_tpu_torch.ops import rotated_iou as K1
 from r3det_tpu_torch.ops import stem_pool as K3
+from r3det_tpu_torch.parallel.predict import make_predict_step
+from r3det_tpu_torch.utils.convert import seeded_state_dict
 
 
 @pytest.fixture
@@ -75,36 +80,148 @@ def test_frm_sample_kernel_matches_plain(cuda):
         K2.frm_sample(x.float(), feat.float(), rois, 1 / stride)
 
 
-@pytest.mark.gpu
-def test_stem_kernel_matches_plain(cuda):
-    rng = np.random.RandomState(5)
-    x = torch.from_numpy(rng.uniform(-2, 2, (2, 64, 48, 12))
-                         .astype(np.float32)).to(cuda, torch.bfloat16)
-    k, s, b = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (
+def stem_args(seed, shape, dev):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.uniform(-2, 2, shape).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    k, s, b = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
         rng.normal(0, 0.1, (4, 4, 12, 64)), rng.uniform(0.5, 2, 64),
         rng.uniform(-1, 1, 64)))
-    got = K3.stem_conv_pool(x, k, s, b).float()
-    want = K3.stem_conv_pool_reference(x, k, s, b).float()
+    return x, k, s, b
+
+
+def check_stem(got, want, quantize):
+    """K3 bf16: f32 sums in another order round a few bf16 outputs the
+    other way: 1e-2 + 1e-2 relative. K3 int8: exact int32 sums and the
+    plain version's epilogue, in its order: bit-equal."""
+    assert got.shape == want.shape
+    if quantize:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                                   atol=1e-2)
+
+
+def stem_kernel_vs_plain(dev, quantize):
+    x, k, s, b = stem_args(5 + quantize, (2, 64, 48, 12), dev)
+    name = 'stem_conv_pool_q8' if quantize else 'stem_conv_pool'
+    before = _ext.LAUNCHES[name]
+    got = K3.stem_conv_pool(x, k, s, b, quantize=quantize)
+    assert _ext.LAUNCHES[name] == before + 1
+    ref = K3.stem_conv_pool_q8_reference if quantize else \
+        K3.stem_conv_pool_reference
     assert tuple(got.shape) == (2, 32, 24, 64)
-    torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+    check_stem(got, ref(x, k, s, b), quantize)
+
+
+@pytest.mark.gpu
+def test_stem_kernel_matches_plain(cuda):
+    stem_kernel_vs_plain(cuda, False)
 
 
 @pytest.mark.gpu
 def test_stem_q8_kernel_matches_plain(cuda):
-    """K3 int8: exact int32 sums and the plain version's epilogue order, so
-    within one bf16 ulp (the f32 factor is formed once per channel)."""
-    rng = np.random.RandomState(6)
-    x = torch.from_numpy(rng.uniform(-2, 2, (2, 64, 48, 12))
-                         .astype(np.float32)).to(cuda, torch.bfloat16)
-    k, s, b = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (
-        rng.normal(0, 0.1, (4, 4, 12, 64)), rng.uniform(0.5, 2, 64),
-        rng.uniform(-1, 1, 64)))
-    before = _ext.LAUNCHES['stem_conv_pool_q8']
-    got = K3.stem_conv_pool(x, k, s, b, quantize=True).float()
-    want = K3.stem_conv_pool_q8_reference(x, k, s, b).float()
-    assert _ext.LAUNCHES['stem_conv_pool_q8'] == before + 1
-    assert tuple(got.shape) == (2, 32, 24, 64)
-    assert bool(((got - want).abs() <= want.abs() * 2 ** -7 + 1e-6).all())
+    stem_kernel_vs_plain(cuda, True)
+
+
+# the persistent grid at shapes that stress it: more tiles (4 x 16 pooled
+# outputs) than resident blocks, fewer, batch 1, and sizes that are no
+# multiple of the tile
+STEM_SHAPES = {'more_tiles': (3, 128, 256, 12), 'fewer_tiles': (2, 24, 40, 12),
+               'batch1': (1, 64, 64, 12), 'tiny': (1, 2, 2, 12),
+               'ragged': (2, 34, 50, 12), 'ragged_b1': (1, 34, 50, 12)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('quantize', [False, True])
+@pytest.mark.parametrize('case', list(STEM_SHAPES))
+def test_stem_kernel_persistent_grid(cuda, case, quantize):
+    shape = STEM_SHAPES[case]
+    x, k, s, b = stem_args(len(case), shape, cuda)
+    pack = K3.pack_stem(k, s, b, quantize)
+    tiles = (-(-shape[1] // 8)) * (-(-shape[2] // 32)) * shape[0]
+    blocks = 2 * _ext.sm_count(cuda)
+    assert (tiles > blocks) == (case == 'more_tiles')
+    got = K3.stem_conv_pool_cuda(x, pack)
+    ref = K3.stem_conv_pool_q8_reference if quantize else \
+        K3.stem_conv_pool_reference
+    assert tuple(got.shape) == (shape[0], shape[1] // 2, shape[2] // 2, 64)
+    check_stem(got, ref(x, k, s, b), quantize)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('quantize', [False, True])
+def test_stem_pack_rebuilt_after_weight_update(cuda, quantize):
+    """The model packs the stem once per weight version: an in-place update
+    of the stem kernel and of its FrozenBN reaches the kernel."""
+    model = ResNet(depth=10, dtype=torch.bfloat16, quantize=quantize).to(
+        cuda)
+    x, k, s, b = stem_args(9, (2, 40, 36, 12), cuda)
+    with torch.no_grad():
+        model.conv1.kernel.copy_(k)
+        model.bn1.scale.copy_(s)
+        model.bn1.bias.copy_(b)
+    ref = K3.stem_conv_pool_q8_reference if quantize else \
+        K3.stem_conv_pool_reference
+    name = 'stem_conv_pool_q8' if quantize else 'stem_conv_pool'
+    for update in (None, lambda: model.conv1.kernel.mul_(-1.5),
+                   lambda: model.bn1.mean.fill_(0.25)):
+        if update is not None:
+            with torch.no_grad():
+                update()
+        before = _ext.LAUNCHES[name]
+        with torch.no_grad():
+            got = model.stem(x)
+            want = ref(x, model.conv1.kernel, *model.stem_affine())
+        assert _ext.LAUNCHES[name] == before + 1
+        check_stem(got, want, quantize)
+
+
+@pytest.mark.gpu
+def test_f32_detector_runs_on_card(cuda):
+    """An f32 R3Det with default options on the card: every kernel route
+    takes its plain form (only NMS's IoU kernel, f32, runs), and forward
+    and predict equal the same model's after use_kernels(model, False)."""
+    cfg = DetectorConfig(num_classes=3, stacked_convs=2, feat_channels=32,
+                         backbone_depth=10, num_refine_stages=1,
+                         test=TestCfg(nms_pre=64, max_per_img=16))
+    model = build_detector(cfg, dtype=torch.float32, device=cuda)
+    model.load_state_dict(seeded_state_dict(model, 0))
+    with torch.no_grad():               # scores above score_thr: detections
+        model.refine_head_0.retina_cls.bias.fill_(0.0)
+    rng = np.random.RandomState(3)
+    images = torch.from_numpy(rng.uniform(-1, 1, (2, 64, 64, 3)).astype(
+        np.float32)).to(cuda)
+    sizes = ((8, 8), (4, 4), (2, 2), (1, 1), (1, 1))
+    step = make_predict_step(model, cfg, sizes, img_shape=(64, 64))
+
+    def run():
+        with torch.no_grad():
+            out = model(images)
+        return out, step(images)
+    _ext.reset_launches()
+    out, dets = run()
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES['stem_conv_pool'] == 0
+    assert _ext.LAUNCHES['frm_sample'] == 0
+    use_kernels(model, False)
+    try:
+        plain_out, plain_dets = run()
+    finally:
+        use_kernels(model, True)
+    for a, b in zip(flatten(out), flatten(plain_out)):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+    for a, b in zip(dets, plain_dets):
+        assert torch.equal(a, b)
+    assert int(dets[2].sum()) > 0
+
+
+def flatten(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = [tree[k] for k in sorted(tree)]
+    return [t for v in tree for t in flatten(v)]
 
 
 @pytest.mark.gpu

@@ -147,7 +147,8 @@ def test_stem_plain_matches_s2d4_pallas_bf16():
 def test_stem_cuda_wrapper_rejects_cpu_tensors():
     x, k, s, b = stem_inputs(np.random.RandomState(1), (1, 8, 8, 12))
     with pytest.raises(ValueError):
-        K3.stem_conv_pool_cuda(t(x).to(torch.bfloat16), t(k), t(s), t(b))
+        K3.stem_conv_pool_cuda(t(x).to(torch.bfloat16),
+                               K3.pack_stem(t(k), t(s), t(b)))
 
 
 # ---------------------------------------------------------------------------
