@@ -9,7 +9,9 @@ Phases, one line each (any failure raises and the exit code is 1):
 2. build: compiles the CUDA kernels (``r3det_tpu_torch/csrc``) with nvcc;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it (max |diff| within the stated
-   tolerance; both times from CUDA events after warm-up; the stem kernel
+   tolerance, 0 for K1, which also prints the pairs its far-pair cull
+   leaves to integrate, ``near_pairs``; both times from CUDA events after
+   warm-up; the stem kernel
    on weights packed once, beside ``wrapper_ms``, the call that packs
    them each time), beside its bound
    (``bound_ms``: the larger of the bytes it must move over 3.35 TB/s and
@@ -25,7 +27,9 @@ Phases, one line each (any failure raises and the exit code is 1):
    than 2000 live candidates per image to NMS (the full sweep) and the
    other fewer (the small sweep); every kernel of the path must launch in
    that run. The same batches then go through the plain versions on the
-   card. Then the int8 serving path (``quantize='static'``,
+   card, and K1 alone runs on the big batch's own NMS candidates
+   (``shape=main_path``: bit-equal, timed, with their near-pair share).
+   Then the int8 serving path (``quantize='static'``,
    ``quantize_head='static'``, ``int8_act``, fused stem) on the same
    weights, calibrated with ``calibrate`` on the seeded batch: its kernels
    must launch (the int8 conv once per QConv, 115 times), its refine
@@ -67,7 +71,8 @@ BOTTLENECKS = (('C2', (BATCH, 256, 256, 256), 64),
 ROUTE_BATCH = 2                   # batch of the opt-in routes
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
 PEAK_OPS_PER_S = {'bf16': 989e12, 'int8': 1979e12, 'f32': 67e12}
-IOU_OPS_PER_PAIR = 500            # f32 operations of one live box pair (K1)
+IOU_OPS_PER_PAIR = 500            # f32 operations of one pair's integral (K1)
+CULL_OPS_PER_PAIR = 15            # f32 operations of K1's far-pair test
 INT8_QCONVS = 115                 # QConv launches of one int8 forward
 REPLACES = {
     'rotated_iou': 'r3det_tpu/ops/pallas_iou.py:146',
@@ -154,6 +159,70 @@ def add_bound(rec, nbytes, ops, kind):
     return ms, by
 
 
+def iou_work(boxes, vc, out):
+    """K1's work on one NMS-shaped call (self-IoU, ``upper_only``, valid
+    counts ``vc``): the live upper-triangle pairs, the pairs its cull
+    tests (those of the tiles the zero-fill rules keep), the near pairs it
+    integrates, and its bound: the boxes read and ``out`` written, against
+    IOU_OPS_PER_PAIR a near pair and CULL_OPS_PER_PAIR a tested one.
+    ``bound_all_pairs_ms`` counts the integral for every live pair (the
+    bound before the cull)."""
+    from r3det_tpu_torch.ops import rotated_iou as K1
+    n = boxes.shape[1]
+    kept = ~K1._skip_mask(n, n, True, vc, boxes.device)
+    tested = int(kept.sum())
+    near = int((kept & ~K1.far_pairs(boxes, boxes)).sum())
+    live = sum(v * (v + 1) // 2 for v in vc.tolist())
+    nbytes = 2 * boxes.numel() * 4 + vc.numel() * 4 + out.numel() * 4
+    b_ms, by = bound(nbytes, near * IOU_OPS_PER_PAIR
+                     + tested * CULL_OPS_PER_PAIR, 'f32')
+    all_ms, _ = bound(nbytes, live * IOU_OPS_PER_PAIR, 'f32')
+    return dict(live_pairs=live, tested_pairs=tested, near_pairs=near,
+                near_share=near / max(tested, 1), bound_ms=b_ms,
+                bound_by=by, bound_all_pairs_ms=all_ms)
+
+
+def iou_main_path(k_boxes, vc, card):
+    """K1 on the NMS candidates of a main-path predict step, against its
+    plain version (bit-equal), timed, with its near-pair share."""
+    import torch
+
+    from r3det_tpu_torch.ops import rotated_iou as K1
+    args = dict(upper_only=True, valid_count=vc)
+    got = K1.rotated_iou_cuda(k_boxes, k_boxes, **args)
+    want = K1.rotated_iou_reference(k_boxes, k_boxes, **args)
+    err = float((got - want).abs().max())
+    ms = cuda_ms(lambda: K1.rotated_iou_cuda(k_boxes, k_boxes, **args), 20)
+    plain_ms = cuda_ms(
+        lambda: K1.rotated_iou_reference(k_boxes, k_boxes, **args), 3)
+    work = iou_work(k_boxes, vc, got)
+    phase('kernel', name='rotated_iou', shape='main_path',
+          candidates=str(tuple(k_boxes.shape)), valid=vc.tolist(),
+          max_abs_err=err, tol=0.0, ms=f'{ms:.4f}',
+          plain_ms=f'{plain_ms:.4f}', card=card,
+          **{n: f'{v:.4f}' if isinstance(v, float) else v
+             for n, v in work.items()})
+    check(err == 0.0 and torch.equal(got, want),
+          'rotated_iou disagrees with its plain version on the main path')
+
+
+def nms_iou_inputs(fn):
+    """Run ``fn()`` with NMS's IoU call recorded; returns its result and
+    the (boxes, valid_count) of each K1 call it made."""
+    from r3det_tpu_torch.ops import nms
+    seen = []
+    real = nms.rotated_iou
+
+    def spy(boxes1, boxes2, **kw):
+        seen.append((boxes1, kw['valid_count']))
+        return real(boxes1, boxes2, **kw)
+    nms.rotated_iou = spy
+    try:
+        return fn(), seen
+    finally:
+        nms.rotated_iou = real
+
+
 # ---------------------------------------------------------------------------
 # phase 3 inputs (numpy seeded, moved to the card)
 # ---------------------------------------------------------------------------
@@ -208,7 +277,8 @@ def compare_kernels(dev):
     rng = np.random.RandomState(SEED)
     rec = {}
 
-    # K1: f32, exact formula, same operation order -> 1e-5
+    # K1: f32, the plain version's operations (and exact 0 for the pairs
+    # it culls) -> bit-equal
     for k in IOU_BUDGETS:
         boxes = torch.from_numpy(iou_boxes(rng, BATCH, k)).to(dev)
         vc = torch.from_numpy(rng.randint(k // 4, k + 1, BATCH)
@@ -225,23 +295,25 @@ def compare_kernels(dev):
         iof_err = float((iof - K1.rotated_iou_reference(
             boxes[:1], boxes[:1], mode='iof')).abs().max())
         diag = float((torch.diagonal(full, dim1=1, dim2=2) - 1).abs().max())
+        del full, full_want, iof, want
         ms = cuda_ms(lambda: K1.rotated_iou_cuda(boxes, boxes, **args), 20)
         plain_ms = cuda_ms(
             lambda: K1.rotated_iou_reference(boxes, boxes, **args), 3)
-        # the live upper triangle of each image's valid prefix
-        live = sum(v * (v + 1) // 2 for v in vc.tolist())
-        b_ms, by = bound(2 * boxes.numel() * 4 + BATCH * 4 + got.numel() * 4,
-                         live * IOU_OPS_PER_PAIR, 'f32')
+        work = iou_work(boxes, vc, got)
         phase('kernel', name='rotated_iou', shape=f'({BATCH},{k},{k})',
               max_abs_err=err, iof_err=iof_err, self_iou_err=diag,
-              tol=1e-5, ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
-              live_pairs=live, bound_ms=f'{b_ms:.4f}', bound_by=by)
-        check(err <= 1e-5 and iof_err <= 1e-5 and diag <= 1e-4,
+              tol=0.0, ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
+              **{n: f'{v:.4f}' if isinstance(v, float) else v
+                 for n, v in work.items()})
+        check(err == 0.0 and iof_err == 0.0 and diag <= 1e-4,
               f'rotated_iou K={k} disagrees with its plain version')
         if k == IOU_BUDGETS[0]:
             rec['rotated_iou'] = dict(max_abs_err=err, ms=ms,
-                                      plain_ms=plain_ms, bound_ms=b_ms,
-                                      bound_by=by)
+                                      plain_ms=plain_ms,
+                                      bound_ms=work['bound_ms'],
+                                      bound_by=work['bound_by'])
+        del boxes, got
+    torch.cuda.empty_cache()
 
     # K2: bf16, same operation order -> within one bf16 ulp of the value
     tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
@@ -705,12 +777,17 @@ def end_to_end(dev, card):
         _set_bias(model, biases[branch])
         with torch.no_grad():
             out = model(images)
-        k = detector_predict(out, cfg, sizes, img_shape=(SIZE, SIZE))
+        k, seen = nms_iou_inputs(lambda: detector_predict(
+            out, cfg, sizes, img_shape=(SIZE, SIZE)))
         p = detector_predict(out, cfg, sizes, img_shape=(SIZE, SIZE),
                              kernels=False)
         same = all(torch.equal(u, v) for u, v in zip(k, p))
         phase('nms_parity', batch=branch, identical=same)
         check(same, f'NMS with K1 differs from the plain IoU ({branch})')
+        if branch == 'big':
+            check(len(seen) == 1, f'NMS called K1 {len(seen)} times')
+            iou_main_path(*seen[0], card)
+        del out, k, p, seen
 
     # speed, then the plain versions on the card
     def rate(branch, iters=5):
@@ -774,7 +851,8 @@ def _patches_per_s(step, images, iters=5):
 
 def profile_step(step, images, path, card):
     """One step under torch.profiler: the top 8 device kernels by time,
-    the device's busy share of its span, and the int8 conv's device time.
+    the device's busy share of its span, and the int8 conv's and K1's
+    device times.
     Returns the kernel times by name (ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -799,10 +877,12 @@ def profile_step(step, images, path, card):
             (e.time_range.end - e.time_range.start) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     int8_ms = sum(v for k, v in by_name.items() if 'int8_conv' in k)
+    iou_ms = sum(v for k, v in by_name.items() if 'rotated_iou' in k)
     phase('profile', path=path, batch='big',
           device_span_ms=f'{span / 1e3:.3f}',
           busy_ms=f'{busy / 1e3:.3f}', busy_share=f'{busy / span:.3f}',
-          int8_conv_ms=f'{int8_ms:.3f}', card=card,
+          int8_conv_ms=f'{int8_ms:.3f}', rotated_iou_ms=f'{iou_ms:.3f}',
+          card=card,
           top=json.dumps([[k[:60], round(v, 3)] for k, v in top]))
     return by_name
 

@@ -27,6 +27,7 @@ TILE_R = 8          # pair-tile rows for small problems
 TILE_R_LARGE = 64   # pair-tile rows from 256 rows on (the TPU kernel's rule)
 TILE_C = 128        # pair-tile columns
 ROW_CHUNK = 256     # rows per chunk of the plain form's plane temporaries
+CULL_MARGIN = 1.0 + 2.0 ** -10   # K1's relative margin on d^2 (exact in f32)
 
 
 def _corner_planes(cx, cy, w, h, t):
@@ -189,6 +190,34 @@ def rotated_iou(boxes1, boxes2, mode='iou', upper_only=False,
         return rotated_iou_cuda(boxes1, boxes2, mode, upper_only, valid_count)
     return rotated_iou_reference(boxes1, boxes2, mode, upper_only,
                                  valid_count)
+
+
+def _circumradius(boxes):
+    """0.5 * sqrt(w^2 + h^2) per box, f32; NaN where any of the box's five
+    values is NaN or inf."""
+    w, h = boxes[..., 2], boxes[..., 3]
+    r = 0.5 * torch.sqrt(w * w + h * h)
+    return torch.where(torch.isfinite(boxes).all(-1), r,
+                       torch.full_like(r, float('nan')))
+
+
+def far_pairs(boxes1, boxes2):
+    """K1's cull predicate, plain form: ``(..., N, 5) x (..., M, 5) ->
+    (..., N, M)`` bool, True where the kernel stores 0 without the integral.
+
+    Far means ``d^2 > (r1 + r2)^2 * CULL_MARGIN`` with ``d^2`` finite, on
+    the raw centres, in f32 and in the kernel's order of operations
+    (``csrc/rotated_iou.cu``, pass 2). A box with a NaN or inf value has a
+    NaN radius, so its pairs are never far.
+    """
+    boxes1 = boxes1.float()
+    boxes2 = boxes2.float()
+    dx = boxes2[..., None, :, 0] - boxes1[..., :, None, 0]
+    dy = boxes2[..., None, :, 1] - boxes1[..., :, None, 1]
+    d2 = dx * dx + dy * dy
+    sr = _circumradius(boxes1)[..., :, None] + \
+        _circumradius(boxes2)[..., None, :]
+    return (d2 > sr * sr * CULL_MARGIN) & (d2 < float('inf'))
 
 
 def negate_theta(boxes):

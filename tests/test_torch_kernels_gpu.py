@@ -42,6 +42,43 @@ def boxes(rng, b, n):
     return torch.from_numpy(out.astype(np.float32))
 
 
+def corner_pairs(rng, n):
+    """n box pairs placed corner to corner, their circumcircles (1 + eps)
+    x (r1 + r2) apart: eps from 1e-7 to 1e-3 and around K1's cull margin,
+    random and near-axis angles, slivers (a side of 1e-3 or 1e3). Returns
+    two (n, 5) f32 arrays; pair k is (a[k], b[k])."""
+    sides = np.array([1e-3, 1e3, 4.0, 160.0])
+    w, h = (np.where(rng.uniform(size=(2, n)) < 0.3,
+                     rng.choice(sides, (2, n)), rng.uniform(4, 160, (2, n)))
+            for _ in range(2))
+    axis = np.array([0.0, 1e-7, -1e-7, math.pi / 2, math.pi / 2 - 1e-6,
+                     -math.pi / 2 + 1e-7, math.pi / 4])
+    t = np.where(rng.uniform(size=n) < 0.5, rng.choice(axis, n),
+                 rng.uniform(-math.pi, math.pi, n))
+    eps = rng.permutation(np.concatenate([
+        np.geomspace(1e-7, 1e-3, n - n // 4),
+        rng.uniform(4.8e-4, 5.0e-4, n // 4)]))     # d^2 margin is 2^-10
+    sx, sy = np.array([-1, 1, 1, -1]), np.array([-1, -1, 1, 1])
+    ka, kb = rng.randint(4, size=(2, n))
+    # a's corner ka points along phi; b's corner kb points back at it
+    phi = t + np.arctan2(sy[ka] * h[0], sx[ka] * w[0])
+    dist = (1 + eps) * 0.5 * (np.hypot(w[0], h[0]) + np.hypot(w[1], h[1]))
+    ca = rng.uniform(0, 1024, (2, n))
+    a = np.stack([ca[0], ca[1], w[0], h[0], t], -1)
+    b = np.stack([ca[0] + dist * np.cos(phi), ca[1] + dist * np.sin(phi),
+                  w[1], h[1],
+                  phi + math.pi - np.arctan2(sy[kb] * h[1], sx[kb] * w[1])],
+                 -1)
+    swap = rng.uniform(size=(n, 1)) < 0.5       # the near-axis box on b
+    return (np.where(swap, b, a).astype(np.float32),
+            np.where(swap, a, b).astype(np.float32))
+
+
+def assert_iou_exact(got, want):
+    """K1 against its plain version: every bit, NaN where it is NaN."""
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize('n,m', [(70, 90), (300, 300)])
 def test_rotated_iou_kernel_matches_plain(cuda, n, m):
@@ -53,8 +90,72 @@ def test_rotated_iou_kernel_matches_plain(cuda, n, m):
                      ((b1, b1), dict(upper_only=True, valid_count=vc))):
         got = K1.rotated_iou(*args, **kw)
         want = K1.rotated_iou_reference(*args, **kw)
-        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+        assert torch.equal(got, want)
     assert _ext.LAUNCHES['rotated_iou'] == before + 3
+
+
+def iou_case(case, rng):
+    """(boxes1, boxes2, valid_count or None) on the CPU for one case of
+    test_rotated_iou_kernel_exact."""
+    if case == 'corner_pairs':
+        a, b = corner_pairs(rng, 1500)
+        x = torch.from_numpy(np.concatenate([a, b]))[None]
+        return x, x, None
+    if case.startswith('ragged'):
+        n, m = {'ragged_7x129': (7, 129), 'ragged_257x255': (257, 255),
+                'ragged_300x333': (300, 333)}[case]
+        return boxes(rng, 2, n), boxes(rng, 2, m), None
+    if case == 'all_far':          # a 40-pixel grid of boxes of side <= 20
+        g = np.arange(300) * 40.0
+        x = np.stack([g % 800, g // 800 * 40, rng.uniform(1, 20, 300),
+                      rng.uniform(1, 20, 300),
+                      rng.uniform(-math.pi, math.pi, 300)], -1)
+        x = torch.from_numpy(x.astype(np.float32))[None]
+        return x, x, None
+    if case == 'all_near':         # one box, repeated
+        x = boxes(rng, 1, 2)[:, :1].repeat(2, 300, 1)
+        return x, x, torch.tensor([300, 150], dtype=torch.int32)
+    if case == 'vcount_0':
+        x = boxes(rng, 2, 300)
+        return x, x, torch.tensor([0, 0], dtype=torch.int32)
+    assert case == 'nan_rows'      # a NaN centre and a NaN angle
+    x = boxes(rng, 1, 300)
+    x[0, 3, 0] = float('nan')
+    x[0, 100, 4] = float('nan')
+    return x, x, None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('case', ['corner_pairs', 'ragged_7x129',
+                                  'ragged_257x255', 'ragged_300x333',
+                                  'all_far', 'all_near', 'vcount_0',
+                                  'nan_rows'])
+def test_rotated_iou_kernel_exact(cuda, case):
+    """K1 bit-equal to its plain version in both modes, dense and with the
+    NMS zero-fill rules, on scenes that stress the far-pair cull."""
+    b1, b2, vc = iou_case(case, np.random.RandomState(7))
+    b1, b2 = b1.to(cuda), b2.to(cuda)
+    vc = torch.full((b1.shape[0],), b1.shape[1], dtype=torch.int32) \
+        if vc is None else vc
+    calls = [((b1, b2), dict(mode=mode)) for mode in ('iou', 'iof')]
+    if b1.shape == b2.shape:
+        calls.append(((b1, b1), dict(upper_only=True,
+                                     valid_count=vc.to(cuda))))
+    before = _ext.LAUNCHES['rotated_iou']
+    for args, kw in calls:
+        got = K1.rotated_iou(*args, **kw)
+        want = K1.rotated_iou_reference(*args, **kw)
+        assert_iou_exact(got, want)
+        far = K1.far_pairs(*args)
+        if case == 'all_far':
+            assert bool(far[:, ~torch.eye(300, dtype=torch.bool,
+                                          device=cuda)].all())
+        if case == 'all_near':
+            assert not bool(far.any())
+        if case == 'nan_rows':
+            assert bool(want[0, 3].isnan().all())
+            assert not bool(far[0, [3, 100]].any())
+    assert _ext.LAUNCHES['rotated_iou'] == before + len(calls)
 
 
 @pytest.mark.gpu

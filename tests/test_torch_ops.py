@@ -26,6 +26,7 @@ from r3det_tpu_torch.ops import frm_sample as K2
 from r3det_tpu_torch.ops import nms
 from r3det_tpu_torch.ops import rotated_iou as K1
 from r3det_tpu_torch.ops import stem_pool as K3
+from test_torch_kernels_gpu import corner_pairs  # JAX-free scene generator
 
 torch.set_num_threads(2)
 
@@ -101,6 +102,86 @@ def test_rotated_iou_cuda_wrapper_rejects_cpu_tensors(iou_boxes):
     b = t(iou_boxes[0])[None]
     with pytest.raises(ValueError):
         K1.rotated_iou_cuda(b, b)
+
+
+# K1's far-pair cull: wherever its predicate holds, the plain form and the
+# Pallas kernel give exactly 0, so the kernel may store 0 without the
+# integral
+
+def cull_scene(scene):
+    """(boxes1, boxes2) for the cull tests: rand_boxes scenes, dense, or
+    corner-to-corner pairs just past and just inside the margin, as (P, 1,
+    5) x (P, 1, 5) so that only the pairs themselves are computed."""
+    if scene == 'corner_pairs':
+        a, b = corner_pairs(np.random.RandomState(11), 3000)
+        return t(a)[:, None], t(b)[:, None]
+    x = t(rand_boxes(np.random.RandomState(int(scene[-1])), 300,
+                     scale=600.0))
+    return x, x
+
+
+@pytest.mark.parametrize('mode', ['iou', 'iof'])
+@pytest.mark.parametrize('scene', ['rand_0', 'rand_1', 'rand_2',
+                                   'corner_pairs'])
+def test_far_pairs_plain_iou_is_zero(scene, mode):
+    b1, b2 = cull_scene(scene)
+    far = K1.far_pairs(b1, b2)
+    iou = K1.rotated_iou_pairwise(b1, b2, mode=mode)
+    assert far.shape == iou.shape
+    assert bool(far.any()) and bool((~far).any())
+    assert bool((iou[far] == 0).all())
+
+
+@pytest.mark.parametrize('scene', ['rand_0', 'corner_pairs'])
+def test_far_pairs_jax_iou_is_zero(scene):
+    """The JAX package's IoU on the pairs the cull removes, dense: its jnp
+    form exactly 0 everywhere, its Pallas kernel (interpret mode) exactly 0
+    but on boxes with parallel edges. Jit-compiled on the CPU the Pallas
+    body rounds otherwise than op by op, and there it can leave a
+    spurious span between disjoint boxes (e.g. two boxes at pi/4 whose
+    centres are 328 apart, radii 69 and 83: IoU 0.048; the same formula
+    evaluated eagerly gives 0)."""
+    if scene == 'corner_pairs':
+        a, b = corner_pairs(np.random.RandomState(12), 512)
+    else:
+        a = b = rand_boxes(np.random.RandomState(0), 300, scale=600.0)
+    far = K1.far_pairs(t(a), t(b)).numpy()
+    jn = np.asarray(j_iou(jnp.asarray(a), jnp.asarray(b), backend='jnp'))
+    pallas = np.asarray(rotated_iou_pallas(jnp.asarray(a), jnp.asarray(b),
+                                           interpret=True))
+    assert far.any() and (jn[far] == 0).all()
+    dt = np.mod(a[:, None, 4] - b[None, :, 4], np.float32(math.pi / 2))
+    parallel = np.minimum(dt, math.pi / 2 - dt) < 1e-4
+    assert (pallas[far & ~parallel] == 0).all()
+    assert (far & (pallas != 0)).sum() <= 1e-4 * far.sum()
+    if scene == 'corner_pairs':   # the pairs sit on both sides of the margin
+        assert np.diag(far).any() and not np.diag(far).all()
+
+
+@pytest.mark.parametrize('value', [math.nan, math.inf, -math.inf])
+@pytest.mark.parametrize('field', range(5))
+def test_far_pairs_never_culls_non_finite(field, value):
+    x = np.zeros((6, 5), np.float32)
+    x[:, 0] = np.arange(6) * 1000.0            # six boxes far apart
+    x[:, 2:4] = 10.0
+    x[2, field] = value
+    far = K1.far_pairs(t(x), t(x)).numpy()
+    assert not far[2].any() and not far[:, 2].any()
+    rest = np.delete(np.arange(6), 2)
+    assert (far[np.ix_(rest, rest)] == ~np.eye(5, dtype=bool)).all()
+
+
+def test_far_pairs_share_on_candidate_scene():
+    """Candidate-like boxes (uniform over 1024^2, sides 4-160): ~96% of
+    pairs are culled."""
+    rng = np.random.RandomState(0)
+    k = 1500
+    x = np.stack([rng.uniform(0, 1024, k), rng.uniform(0, 1024, k),
+                  rng.uniform(4, 160, k), rng.uniform(4, 160, k),
+                  rng.uniform(-math.pi / 2, math.pi / 2, k)],
+                 -1).astype(np.float32)
+    share = float(K1.far_pairs(t(x), t(x)).float().mean())
+    assert 0.94 <= share <= 0.97
 
 
 # ---------------------------------------------------------------------------
