@@ -10,10 +10,10 @@ Phases, one line each (any failure raises and the exit code is 1):
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it (max |diff| within the stated
    tolerance, 0 for K1, which also prints the pairs its far-pair cull
-   leaves to integrate, ``near_pairs``; both times from CUDA events after
-   warm-up; the stem kernel
-   on weights packed once, beside ``wrapper_ms``, the call that packs
-   them each time), beside its bound
+   leaves to integrate, ``near_pairs``, and for K2, one launch for the five
+   levels with points 1 and 5; both times from CUDA events after
+   warm-up; the stem kernel on weights packed once and K2 on arguments
+   built once, each beside ``wrapper_ms``, the whole call), beside its bound
    (``bound_ms``: the larger of the bytes it must move over 3.35 TB/s and
    its operations over the card's peak for their type) and, where one
    PyTorch call computes the same function, that call's time
@@ -37,10 +37,12 @@ Phases, one line each (any failure raises and the exit code is 1):
    path's, every detection must be found both ways, and its patches/s is
    measured beside the bf16 path's. One ``[profile]`` line per path:
    ``torch.profiler`` over one step of the big batch, the top device
-   kernels and the device's busy share. The stem kernel must run once a
-   predict step in both. Then the same weights in an f32 model at batch
-   1: only NMS's IoU kernel may launch, and its outputs must equal its
-   plain route's;
+   kernels and the device's busy share. The stem kernel and K2 must run
+   once a predict step in both. Then the same weights in an f32 model at
+   batch 1: only NMS's IoU kernel may launch, and its outputs must equal
+   its plain route's; and in bf16 with ``frm_points=5`` at batch 2 (the
+   ``[frm5]`` line): K2 once a forward, outputs equal to the FRM's plain
+   route;
 5. opt-in routes, batch 2: bf16 with ``fused_blocks`` and the unfused stem
    with ``stem_pool_kernel`` (launches K5 and K4), and int8 with
    ``fused_blocks`` (launches K5 int8), each held to the unfused model.
@@ -264,12 +266,41 @@ def frm_rois(rng, b, h, w, stride):
     return rois.reshape(b, h * w, 5).astype(np.float32)
 
 
+def frm_inputs(rng, dev):
+    """K2's main-path inputs: the five levels' (x, feat, rois, scales) of
+    BATCH images, bf16 x and feat of FRM_CHANNELS."""
+    import numpy as np
+    import torch
+    xs, feats, rois, scales = [], [], [], []
+    for s in FRM_SIZES:
+        stride = SIZE // s
+        shape = (BATCH, s, s, FRM_CHANNELS)
+        for out in (xs, feats):
+            out.append(torch.from_numpy(rng.randn(*shape).astype(
+                np.float32)).to(dev, torch.bfloat16))
+        rois.append(torch.from_numpy(frm_rois(rng, BATCH, s, s, stride)).to(
+            dev))
+        scales.append(1.0 / stride)
+    return xs, feats, rois, scales
+
+
+def frm_work(xs, rois, points):
+    """K2's bound on these inputs: x, feat and rois read, out written;
+    per output value, points x (4 products, 3 sums, a rounding) and the
+    points - 1 running sums and two residual adds, each with its rounding
+    (f32)."""
+    values = sum(x.numel() for x in xs)
+    nbytes = 3 * values * 2 + sum(r.numel() for r in rois) * 4
+    return nbytes, values * (8 * points + 2 * (points - 1) + 4)
+
+
 def compare_kernels(dev):
     """Phase 3: every kernel vs its plain version at main-path shapes."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
+    from r3det_tpu_torch import _ext
     from r3det_tpu_torch.ops import frm_sample as K2
     from r3det_tpu_torch.ops import rotated_iou as K1
     from r3det_tpu_torch.ops import stem_pool as K3
@@ -315,39 +346,41 @@ def compare_kernels(dev):
         del boxes, got
     torch.cuda.empty_cache()
 
-    # K2: bf16, same operation order -> within one bf16 ulp of the value
-    tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
-    for s in FRM_SIZES:
-        stride = SIZE // s
-        shape = (BATCH, s, s, FRM_CHANNELS)
-        x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
-            dev, torch.bfloat16)
-        feat = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
-            dev, torch.bfloat16)
-        rois = torch.from_numpy(frm_rois(rng, BATCH, s, s, stride)).to(dev)
-        got = K2.frm_sample_cuda(x, feat, rois, 1.0 / stride)
-        want = K2.frm_sample_reference(x, feat, rois, 1.0 / stride)
-        diff = (got.float() - want.float()).abs()
-        ulp = want.float().abs() * 2.0 ** -7 + 1e-6
-        err = float(diff.max())
-        ms = cuda_ms(lambda: K2.frm_sample_cuda(x, feat, rois, 1 / stride),
-                     20)
-        plain_ms = cuda_ms(
-            lambda: K2.frm_sample_reference(x, feat, rois, 1 / stride), 5)
-        # x, feat and rois read, the result written; ~12 f32 operations an
-        # output value (4 weighted corners and two adds)
-        b_ms, by = add_bound(tot, 3 * x.numel() * 2 + rois.numel() * 4,
-                             12 * x.numel(), 'f32')
-        phase('kernel', name='frm_sample', shape=str(shape),
-              max_abs_err=err, exact_frac=float((diff == 0).float().mean()),
-              tol='1 bf16 ulp', ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
+    # K2: every level in one launch, bf16, the plain form's operations in
+    # its order (the cos/sin of the angles by PyTorch) -> bit-equal
+    xs, feats, rois, scales = frm_inputs(rng, dev)
+    for points in (1, 5):
+        got = K2.frm_sample_levels_cuda(xs, feats, rois, scales, points)
+        want = K2.frm_sample_levels_reference(xs, feats, rois, scales, points)
+        err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+        equal = all(torch.equal(g, w) for g, w in zip(got, want))
+        del got, want
+        # the kernel alone (its arguments built once; points=5's cos/sin
+        # taken once), and the whole call (checks, outputs, cos/sin)
+        outs = [torch.empty_like(f) for f in feats]
+        largs = K2.levels_args(xs, feats, rois, outs, scales,
+                               K2.angle_trig(rois) if points == 5 else None,
+                               points, True)
+        ms = cuda_ms(lambda: _ext.launch('frm_sample_levels', *largs), 20)
+        wrapper_ms = cuda_ms(lambda: K2.frm_sample_levels_cuda(
+            xs, feats, rois, scales, points), 20)
+        plain_ms = cuda_ms(lambda: K2.frm_sample_levels_reference(
+            xs, feats, rois, scales, points), 5)
+        del outs, largs
+        r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        b_ms, by = add_bound(r, *frm_work(xs, rois, points), 'f32')
+        phase('kernel', name='frm_sample', points=points,
+              levels=str([tuple(f.shape) for f in feats]), launches_a_call=1,
+              bit_equal=equal, max_abs_err=err, tol=0.0, ms=f'{ms:.4f}',
+              wrapper_ms=f'{wrapper_ms:.4f}', plain_ms=f'{plain_ms:.4f}',
               bound_ms=f'{b_ms:.4f}', bound_by=by)
-        check(bool((diff <= ulp).all()),
-              f'frm_sample at {s}x{s} disagrees with its plain version')
-        tot['max_abs_err'] = max(tot['max_abs_err'], err)
-        tot['ms'] += ms
-        tot['plain_ms'] += plain_ms
-    rec['frm_sample'] = tot
+        check(equal and err == 0.0,
+              f'frm_sample points={points} disagrees with its plain version')
+        if points == 1:
+            rec['frm_sample'] = r
+    del xs, feats, rois
+    torch.cuda.empty_cache()
 
     # K3, bf16 and int8: the kernel alone, on weights packed once (as the
     # model packs them) and, in int8, max|x| taken once; wrapper_ms times
@@ -759,6 +792,8 @@ def end_to_end(dev, card):
               f'kernel {name} was not launched on the bf16 path')
     check(launches['stem_conv_pool'] == len(LIVE_TARGETS),
           'the stem kernel did not run once a predict step (bf16)')
+    check(launches['frm_sample'] == len(LIVE_TARGETS) * cfg.num_refine_stages,
+          'K2 did not run once a refine stage a predict step (bf16)')
 
     for branch, (dets, labels, num, (live, taken)) in results.items():
         phase('predict', batch=branch, live=live, branch=taken,
@@ -950,6 +985,8 @@ def int8_serving(dev, card, base):
           f'{launches["int8_conv"]} int8 conv launches, not {INT8_QCONVS}')
     check(launches['stem_conv_pool_q8'] == 1,
           'the int8 stem kernel did not run once a predict step')
+    check(launches['frm_sample'] == cfg.num_refine_stages,
+          'K2 did not run once a refine stage a predict step (int8)')
     _check_dets(result, cfg, BATCH, 'int8')
 
     q_logits = _sr_logits(model_q, images)
@@ -1022,6 +1059,50 @@ def f32_model(dev, card, base):
           num=dets[2].tolist(), equal_to_plain=same, card=card)
     check(logits.dtype == torch.float32 and same,
           'the f32 model differs from its plain route')
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def frm5_model(dev, card, base):
+    """Phase 4, points=5: the bf16 path's weights in R3Det* with
+    ``frm_points=5``, batch ROUTE_BATCH. Its FRM takes K2, one launch a
+    forward for the five levels, and its refine logits and detections must
+    equal the same model's with the FRM on its plain form. Returns the
+    run's launch counts."""
+    import torch
+
+    from r3det_tpu_torch import _ext
+    from r3det_tpu_torch.models.frm import FeatureRefineModule
+    from r3det_tpu_torch.parallel.predict import make_predict_step
+
+    cfg, images = base['cfg'], base['images'][:ROUTE_BATCH]
+    model = _copy_model(cfg, base['model'].state_dict(), dev, frm_points=5)
+    step = make_predict_step(model, cfg, base['sizes'],
+                             img_shape=(SIZE, SIZE))
+
+    def run():
+        return _sr_logits(model, images), step(images)
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    logits, dets = run()
+    torch.cuda.synchronize()
+    launches = dict(_ext.LAUNCHES)
+    phase('launches', path='frm5', **launches)
+    # two forward passes: the logits' and the predict step's
+    check(launches['frm_sample'] == 2 * cfg.num_refine_stages,
+          f'K2 ran {launches["frm_sample"]} times in two points=5 forwards')
+    _check_dets(dets, cfg, ROUTE_BATCH, 'frm5')
+    frms = [m for m in model.modules() if isinstance(m, FeatureRefineModule)]
+    for m in frms:
+        m.kernels = False
+    plain_logits, plain_dets = run()
+    same = torch.equal(logits, plain_logits) and all(
+        torch.equal(a, b) for a, b in zip(dets, plain_dets))
+    phase('frm5', batch=ROUTE_BATCH, points=frms[0].points,
+          frm_launches=launches['frm_sample'], num=dets[2].tolist(),
+          equal_to_plain=same, card=card)
+    check(same, 'the points=5 FRM differs from its plain route')
     del model
     torch.cuda.empty_cache()
     return launches
@@ -1111,6 +1192,7 @@ def main():
     launches = {'bf16': base['launches']}
     launches['int8'], model_q = int8_serving(dev, smi, base)
     launches['f32'] = f32_model(dev, smi, base)
+    launches['frm5'] = frm5_model(dev, smi, base)
     launches.update(opt_in_routes(dev, base, model_q))
     kernels = [dict(name=k, route='cuda', source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches[PATH_OF[k]][k],

@@ -44,8 +44,13 @@ _SIGNATURES = {
     # tile_r, tile_c, stream
     'rotated_iou': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, feat, rois, out, B, H, W, C, spatial_scale, transpose_quirk,
-    # stream
+    # stream (one level, points=1)
     'frm_sample': (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # L, then host arrays of the L levels' x, feat, rois, out pointers, H,
+    # W (int) and spatial_scale (float), trig (2, cells) f32 | NULL, B, C,
+    # points, transpose_quirk, stream
+    'frm_sample_levels': (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _P),
     # x12, packed weights (4, 64, 56), scale, bias, out, B, H, W, SMs,
     # stream
     'stem_conv_pool': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -67,8 +72,11 @@ _SIGNATURES = {
                   _I, _P) + (_I,) * 13 + (_P,),
 }
 
+# entry points that launch another entry's kernel, counted under its name
+_KERNEL_OF = {'frm_sample_levels': 'frm_sample'}
+
 #: kernel name -> number of launches since the last :func:`reset_launches`
-LAUNCHES = {name: 0 for name in _SIGNATURES}
+LAUNCHES = {name: 0 for name in _SIGNATURES if name not in _KERNEL_OF}
 
 _lib = None
 _lock = threading.Lock()
@@ -154,14 +162,14 @@ def lib():
 
 def launch(name, *args):
     """Call the C entry point ``r3det_<name>``; raise on a launch error,
-    otherwise count the launch."""
+    otherwise count the launch (under its kernel's name)."""
     handle = lib()
     err = getattr(handle, f'r3det_{name}')(*args)
     if err != 0:
         msg = handle.r3det_error_string(err).decode()
         raise RuntimeError(f'CUDA kernel {name} failed to launch: '
                            f'error {err} ({msg})')
-    LAUNCHES[name] += 1
+    LAUNCHES[_KERNEL_OF.get(name, name)] += 1
 
 
 def reset_launches():

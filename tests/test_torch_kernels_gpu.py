@@ -158,6 +158,15 @@ def test_rotated_iou_kernel_exact(cuda, case):
     assert _ext.LAUNCHES['rotated_iou'] == before + len(calls)
 
 
+def misaligned(t):
+    """A contiguous copy of ``t`` that starts 2 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 @pytest.mark.gpu
 def test_frm_sample_kernel_matches_plain(cuda):
     rng = np.random.RandomState(2)
@@ -174,11 +183,117 @@ def test_frm_sample_kernel_matches_plain(cuda):
         cuda, torch.bfloat16)
     for quirk in (True, False):
         # same operation order and roundings as the plain form: bit-equal
+        before = _ext.LAUNCHES['frm_sample']
         got = K2.frm_sample(x, feat, rois, 1 / stride, quirk)
+        assert _ext.LAUNCHES['frm_sample'] == before + 1
         want = K2.frm_sample_reference(x, feat, rois, 1 / stride, quirk)
         assert torch.equal(got, want)
-    with pytest.raises(ValueError):
-        K2.frm_sample(x.float(), feat.float(), rois, 1 / stride)
+    # f32, a channel count that is no multiple of 8, a misaligned view:
+    # both wrappers raise
+    x12 = x[..., :12].contiguous()
+    for args in ((x.float(), feat.float()), (x12, x12),
+                 (misaligned(x), feat), (x, misaligned(feat))):
+        with pytest.raises(ValueError):
+            K2.frm_sample(*args, rois, 1 / stride)
+        with pytest.raises(ValueError):
+            K2.frm_sample_levels([args[0]], [args[1]], [rois], [1 / stride])
+    with pytest.raises(ValueError):                         # points=3
+        K2.frm_sample_levels([x], [feat], [rois], [1 / stride], 3)
+
+
+def frm_edge_coords(rng, n, h, w, stride):
+    """n image coordinates on an h x w level: on exact cell edges (sample
+    coordinates -1, 0, integers, h - 1, h, w - 1, w), just inside and
+    outside the (-1, h) and (-1, w) bounds, and far off."""
+    edges = [-1.0, -1.0 + 2 ** -10, -1.0 - 2 ** -10, 0.0, 1.0]
+    for size in (h, w):
+        edges += [size / 2, size - 1.0, size - 2 ** -10, size,
+                  size + 2 ** -10, -3.0 * size, 4.0 * size]
+    return rng.choice(np.array(edges), n) * stride
+
+
+def frm_levels(rng, b, sizes, c, dev, dtype=torch.bfloat16):
+    """Five levels of FRM inputs (x, feat, rois, scales), rois as
+    filter_bboxes gives them (centres within two cells of their own cell,
+    5% far off), a tenth of them on the edges of frm_edge_coords, some
+    boxes larger than the map, and angles of exactly 0 and +-pi/2."""
+    xs, feats, rois, scales = [], [], [], []
+    for (h, w), stride in zip(sizes, (8, 16, 32, 64, 128)):
+        n = h * w
+        jj, ii = np.meshgrid(np.arange(w), np.arange(h))
+        cx = (jj * stride).reshape(-1) + rng.uniform(-2, 2, (b, n)) * stride
+        cy = (ii * stride).reshape(-1) + rng.uniform(-2, 2, (b, n)) * stride
+        far = rng.uniform(size=(b, n)) < 0.05
+        cx = np.where(far, rng.uniform(-2 * w, 3 * w, (b, n)) * stride, cx)
+        cy = np.where(far, rng.uniform(-2 * h, 3 * h, (b, n)) * stride, cy)
+        for coord in (cx, cy):
+            edge = rng.uniform(size=(b, n)) < 0.1
+            coord[edge] = frm_edge_coords(rng, int(edge.sum()), h, w, stride)
+        big = rng.uniform(size=(b, n)) < 0.05
+        bw = np.where(big, 8 * w * stride, rng.uniform(8, 128, (b, n)))
+        bh = np.where(big, 8 * h * stride, rng.uniform(8, 128, (b, n)))
+        ang = rng.uniform(-1.6, 1.6, (b, n))
+        ang[rng.uniform(size=(b, n)) < 0.1] = 0.0
+        ang[rng.uniform(size=(b, n)) < 0.05] = math.pi / 2
+        ang[rng.uniform(size=(b, n)) < 0.05] = -math.pi / 2
+        rois.append(torch.from_numpy(np.stack([cx, cy, bw, bh, ang], -1)
+                                     .astype(np.float32)).to(dev))
+        for out in (xs, feats):
+            out.append(torch.from_numpy(rng.randn(b, h, w, c).astype(
+                np.float32)).to(dev, dtype))
+        scales.append(1.0 / stride)
+    return xs, feats, rois, scales
+
+
+# the five main-path levels of a 1024^2 patch (P3..P7, 256 channels), and
+# ragged maps (no multiple of the 8 x 8 cell tile) with 264 channels (a
+# second, partial 256-channel pass)
+FRM_CASES = {'main': (((128, 128), (64, 64), (32, 32), (16, 16), (8, 8)),
+                      256),
+             'ragged': (((20, 13), (10, 7), (5, 4), (3, 2), (1, 1)), 264)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('quirk', [True, False])
+@pytest.mark.parametrize('points', [1, 5])
+@pytest.mark.parametrize('case', list(FRM_CASES))
+def test_frm_sample_levels_kernel_exact(cuda, case, points, quirk):
+    """K2, all five levels in one launch, bit-equal to the plain form."""
+    sizes, c = FRM_CASES[case]
+    args = frm_levels(np.random.RandomState(len(case) + 2 * points + quirk),
+                      2, sizes, c, cuda)
+    before = _ext.LAUNCHES['frm_sample']
+    got = K2.frm_sample_levels(*args, points, quirk)
+    assert _ext.LAUNCHES['frm_sample'] == before + 1
+    want = K2.frm_sample_levels_reference(*args, points, quirk)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_r3det_frm_points5_runs_on_card(cuda):
+    """A bf16 R3Det with frm_points=5: its FRM takes K2 (one launch for
+    the five levels) and equals the same model with the FRM's kernels off
+    (the plain form), every output bit for bit."""
+    cfg = DetectorConfig(num_classes=3, stacked_convs=2, feat_channels=32,
+                         backbone_depth=10, num_refine_stages=1,
+                         test=TestCfg(nms_pre=64, max_per_img=16))
+    model = build_detector(cfg, dtype=torch.bfloat16, device=cuda,
+                           frm_points=5)
+    model.load_state_dict(seeded_state_dict(model, 0))
+    rng = np.random.RandomState(4)
+    images = torch.from_numpy(rng.uniform(-1, 1, (2, 64, 64, 3)).astype(
+        np.float32)).to(cuda)
+    before = _ext.LAUNCHES['frm_sample']
+    with torch.no_grad():
+        out = model(images)
+    assert _ext.LAUNCHES['frm_sample'] == before + 1
+    model.frm_0.kernels = False
+    with torch.no_grad():
+        plain = model(images)
+    assert _ext.LAUNCHES['frm_sample'] == before + 1
+    for a, b in zip(flatten(out), flatten(plain)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 def stem_args(seed, shape, dev):

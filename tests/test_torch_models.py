@@ -20,6 +20,7 @@ from r3det_tpu.models.retina_head import RRetinaHead as JHead
 from r3det_tpu_torch.core import coders
 from r3det_tpu_torch.core.anchors import RAnchorGenerator
 from r3det_tpu_torch.models.fpn import FPN
+from r3det_tpu_torch.models import frm as frm_module
 from r3det_tpu_torch.models.frm import FeatureRefineModule
 from r3det_tpu_torch.models.resnet import ResNet
 from r3det_tpu_torch.models.retina_head import RRetinaHead
@@ -167,6 +168,44 @@ def test_frm_module_matches_flax(pyramid, points):
         got = tm([nchw(f) for f in feats], [t(r) for r in rois])
     for g, w in zip(got, want):
         assert_close(nhwc(g), w)
+
+
+@pytest.mark.parametrize('points', [1, 5])
+def test_frm_module_samples_all_levels_in_one_call(pyramid, points,
+                                                   monkeypatch):
+    """On the kernel route the FRM makes one frm_sample_levels call for
+    its five levels (forced here on the CPU, where that call takes the
+    plain form) and gives what its plain route gives."""
+    feats = [nchw(f) for f in pyramid[2]]
+    rng = np.random.RandomState(points)
+    rois = [t(np.concatenate([rng.uniform(0, 64, (2, f.shape[1] * f.shape[2],
+                                                  2)),
+                              rng.uniform(8, 32, (2, f.shape[1] * f.shape[2],
+                                                  2)),
+                              rng.uniform(-1.5, 1.5, (2, f.shape[1]
+                                                      * f.shape[2], 1))],
+                             -1).astype(np.float32)) for f in pyramid[2]]
+    tm = FeatureRefineModule(in_channels=32, points=points).eval()
+    tm.load_state_dict(seeded_state_dict(tm, points))
+    calls = []
+
+    def spy(*args):
+        calls.append(args)
+        return frm_module.frm_sample_levels_reference(*args)
+    monkeypatch.setattr(frm_module, 'frm_sample_levels', spy)
+    monkeypatch.setattr(FeatureRefineModule, 'sample_route',
+                        lambda self, feat: True)
+    with torch.no_grad():
+        got = tm(feats, rois)
+    monkeypatch.undo()
+    tm.kernels = False
+    with torch.no_grad():
+        want = tm(feats, rois)
+    assert len(calls) == 1 and len(calls[0][0]) == 5
+    assert calls[0][3:] == ([1 / s for s in (8, 16, 32, 64, 128)], points,
+                            True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_seeded_state_dict_is_deterministic_and_complete():

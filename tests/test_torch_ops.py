@@ -21,12 +21,12 @@ from r3det_tpu.ops.rotated_iou import rotated_iou_pairwise as j_iou
 from r3det_tpu.ops.stem_pool import (stem_conv_pool_reference as j_stem,
                                      stem_conv_pool_s2d4_pallas)
 from r3det_tpu_torch import _ext
-from r3det_tpu_torch.models.frm import feature_refine_sample
 from r3det_tpu_torch.ops import frm_sample as K2
 from r3det_tpu_torch.ops import nms
 from r3det_tpu_torch.ops import rotated_iou as K1
 from r3det_tpu_torch.ops import stem_pool as K3
-from test_torch_kernels_gpu import corner_pairs  # JAX-free scene generator
+# JAX-free scene generators
+from test_torch_kernels_gpu import corner_pairs, frm_levels, misaligned
 
 torch.set_num_threads(2)
 
@@ -287,8 +287,8 @@ def test_frm_sample_matches_feature_refine_sample(quirk):
     # points=5, the plain form only
     want5 = np.asarray(j_frs(jnp.asarray(feat), jnp.asarray(rois),
                              1.0 / stride, 5, quirk))
-    got5 = feature_refine_sample(t(feat), t(rois), 1.0 / stride, 5,
-                                 quirk).numpy()
+    got5 = K2.feature_refine_sample(t(feat), t(rois), 1.0 / stride, 5,
+                                    quirk).numpy()
     np.testing.assert_allclose(got5, want5, rtol=0, atol=2e-5)
 
 
@@ -296,6 +296,65 @@ def test_frm_sample_cuda_wrapper_rejects_cpu_tensors():
     x = torch.zeros(1, 4, 4, 8)
     with pytest.raises(ValueError):
         K2.frm_sample_cuda(x, x, torch.zeros(1, 16, 5), 0.125)
+
+
+# five small levels: 16 x 16 .. 1 x 1 (strides 8 .. 128), 32 channels
+FRM_SIZES = ((16, 16), (8, 8), (4, 4), (2, 2), (1, 1))
+
+
+@pytest.mark.parametrize('quirk', [True, False])
+@pytest.mark.parametrize('points', [1, 5])
+def test_frm_sample_levels_reference_matches_jax(points, quirk):
+    """The plain form of the levels op against the JAX package's
+    feature_refine_sample, a level at a time, on rois near their cells,
+    far off, on exact cell edges and on the (-1, H) bounds, with boxes
+    larger than the map (f32: atol 1e-5, 2e-5 for the five-point sum)."""
+    xs, feats, rois, scales = frm_levels(np.random.RandomState(points + quirk),
+                                         2, FRM_SIZES, 32, 'cpu',
+                                         torch.float32)
+    got = K2.frm_sample_levels(xs, feats, rois, scales, points, quirk)
+    assert len(got) == len(FRM_SIZES)
+    for g, x, f, r, s in zip(got, xs, feats, rois, scales):
+        want = x.numpy() + np.asarray(j_frs(jnp.asarray(f.numpy()),
+                                            jnp.asarray(r.numpy()), s,
+                                            points, quirk))
+        np.testing.assert_allclose(g.numpy(), want, rtol=0,
+                                   atol=1e-5 if points == 1 else 2e-5)
+
+
+def frm_wrapper_case(case):
+    """(xs, feats, rois, scales, points) of one level on the CPU, made
+    wrong in one way (``case``), for frm_sample_levels_cuda."""
+    xs, feats, rois, scales = frm_levels(np.random.RandomState(5), 1,
+                                         ((8, 8),), 16, 'cpu')
+    points = 1
+    if case == 'f32':
+        xs, feats = [xs[0].float()], [feats[0].float()]
+    elif case == 'channels':
+        xs, feats = [xs[0][..., :12].contiguous()], \
+            [feats[0][..., :12].contiguous()]
+    elif case == 'misaligned':
+        feats = [misaligned(feats[0])]
+    elif case == 'rois':
+        rois = [rois[0].double()]
+    elif case == 'points':
+        points = 3
+    elif case == 'levels':
+        xs, feats, rois, scales = (v * 9 for v in (xs, feats, rois, scales))
+    return xs, feats, rois, scales, points
+
+
+# each wrong input and the words of the ValueError it raises; 'cpu' is a
+# right input on the CPU, which the kernel does not take
+FRM_WRAPPER_CASES = {'cpu': 'CUDA', 'f32': 'bfloat16',
+                     'channels': 'multiple of 8', 'misaligned': '16-byte',
+                     'rois': 'rois', 'points': 'points', 'levels': 'levels'}
+
+
+@pytest.mark.parametrize('case', list(FRM_WRAPPER_CASES))
+def test_frm_sample_levels_cuda_wrapper_checks(case):
+    with pytest.raises(ValueError, match=FRM_WRAPPER_CASES[case]):
+        K2.frm_sample_levels_cuda(*frm_wrapper_case(case))
 
 
 # ---------------------------------------------------------------------------

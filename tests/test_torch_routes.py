@@ -61,6 +61,16 @@ def test_route_off_without_kernels(module):
         assert not m.sample_route(x)
 
 
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_frm_route_covers_points_5(dtype):
+    """The five-point FRM takes the kernel on the same terms as points=1."""
+    m = FeatureRefineModule(in_channels=8, points=5)
+    assert m.sample_route(flags(True, dtype)) == (dtype == torch.bfloat16)
+    assert not m.sample_route(flags(False, dtype))
+    m.kernels = False
+    assert not m.sample_route(flags(True, torch.bfloat16))
+
+
 def stem_inputs(seed, shape=(2, 18, 22, 12)):
     rng = np.random.RandomState(seed)
     t = lambda a: torch.from_numpy(a.astype(np.float32))  # noqa: E731
