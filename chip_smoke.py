@@ -17,7 +17,11 @@ Phases, one line each (any failure raises and the exit code is 1):
    (``bound_ms``: the larger of the bytes it must move over 3.35 TB/s and
    its operations over the card's peak for their type) and, where one
    PyTorch call computes the same function, that call's time
-   (``library_ms``). QConv's int8 conv runs at eight main-path shapes, with
+   (``library_ms``). K5 and K5 int8 run at R50's identity blocks (C2, C3,
+   C4) on weights packed once (``pack_ms`` apart), int8 bit-equal, each
+   beside the block it replaces unfused (``unfused_ms``: bf16
+   ``Bottleneck.forward``, int8 ``Bottleneck.q8_fused_forward``). QConv's
+   int8 conv runs at eight main-path shapes, with
    the fused epilogue each takes there, beside a bf16 cuDNN conv of the
    same shape (``cudnn_bf16_ms``, a yardstick the port never calls);
 4. end to end: R3Det* tiny (stacked_convs=2, angle v1), ResNet-50, full
@@ -459,16 +463,52 @@ def compare_kernels(dev):
     return rec
 
 
-def compare_bottlenecks(dev, rng):
-    """K5 and K5 int8 at R50's identity blocks (C2, C3, C4): each row's ms
-    is the sum of one call at each shape."""
+def unfused_block(f, quantize, amax, dev, rng):
+    """The identity block K5 replaces, unfused, with numpy-seeded weights:
+    bf16 ``Bottleneck.forward`` (cuDNN bf16 convs, FrozenBN, ReLU, the
+    residual add), or with ``quantize='static'`` the int8 serving path's
+    ``Bottleneck.q8_fused_forward`` (three int8 conv launches), calibrated
+    to ``amax``. Returns the call on an NHWC bf16 input."""
     import numpy as np
     import torch
 
+    from r3det_tpu_torch.models.resnet import Bottleneck
+
+    m = Bottleneck(4 * f, f, quantize=quantize).eval()
+    with torch.no_grad():
+        for name, t in m.state_dict().items():
+            if name.endswith('weight'):
+                v = rng.normal(0, t[0].numel() ** -0.5, t.shape)
+            elif name.endswith(('var', 'scale')):
+                v = rng.uniform(0.5, 1.5, t.shape)
+            else:
+                v = rng.normal(0, 0.1, t.shape)
+            t.copy_(torch.from_numpy(np.asarray(v, np.float32)))
+        if quantize:
+            for c, a in zip((m.conv1, m.conv2, m.conv3), amax):
+                c.act_absmax.copy_(a)
+    m = m.to(dev)
+    fn = m.q8_fused_forward if quantize else m.forward
+
+    def call(x):
+        with torch.no_grad():
+            return fn(x.permute(0, 3, 1, 2))
+    return call
+
+
+def compare_bottlenecks(dev, rng):
+    """K5 and K5 int8 at R50's identity blocks (C2, C3, C4): each row's ms
+    is the sum of one call at each shape, on weights packed once
+    (``pack_bottleneck``, timed on its own as ``pack_ms``); ``unfused_ms``
+    is the block it replaces, unfused, at the same shape."""
+    import numpy as np
+    import torch
+
+    from r3det_tpu_torch import _ext
     from r3det_tpu_torch.ops import bottleneck_fuse as K5
 
-    rec = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
-           for k in ('bottleneck', 'bottleneck_q8')}
+    rec = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, unfused_ms=0.0,
+                   pack_ms=0.0) for k in ('bottleneck', 'bottleneck_q8')}
     for stage, shape, f in BOTTLENECKS:
         c4 = 4 * f
         x = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(
@@ -482,37 +522,61 @@ def compare_bottlenecks(dev, rng):
         # outputs of unit-scale convs)
         amax = [x.float().abs().amax(), torch.tensor(4.0, device=dev),
                 torch.tensor(3.0, device=dev)]
-        for name, kernel, plain, args, tol in (
-                ('bottleneck', K5.fused_bottleneck_cuda,
-                 K5.fused_bottleneck_reference, ws, (0.05, 1e-2)),
-                ('bottleneck_q8', K5.fused_bottleneck_q8_cuda,
-                 K5.fused_bottleneck_q8_reference, ws + amax, (2e-2, 0.0))):
-            got = kernel(x, *args).float()
-            want = plain(x, *args).float()
+        # bf16 within the JAX package's bound; int8 bit-equal
+        for name, plain, extra, tol in (
+                ('bottleneck', K5.fused_bottleneck_reference, [],
+                 (0.05, 1e-2)),
+                ('bottleneck_q8', K5.fused_bottleneck_q8_reference, amax,
+                 (0.0, 0.0))):
+            pack = K5.pack_bottleneck(*ws, *extra)
+            before = _ext.LAUNCHES[name]
+            got = K5.fused_bottleneck_packed(x, pack).float()
+            torch.cuda.synchronize()
+            check(_ext.LAUNCHES[name] == before + 1,
+                  f'{name}: one launch a call')
+            want = plain(x, *ws, *extra).float()
             diff = (got - want).abs()
             err = float(diff.max())
-            ms = cuda_ms(lambda: kernel(x, *args), 10)
-            plain_ms = cuda_ms(lambda: plain(x, *args), 3)
-            # x in and the block's output out, the weights; three convs,
-            # 17 F^2 multiply-adds a pixel
-            px = x.numel() // c4
-            b_ms, by = add_bound(
-                rec[name], 2 * x.numel() * 2 + sum(w.numel() for w in ws) * 4,
-                2 * px * 17 * f * f, 'int8' if name == 'bottleneck_q8'
-                else 'bf16')
-            phase('kernel', name=name, stage=stage, shape=str(shape), F=f,
-                  max_abs_err=err, exact_frac=float((diff == 0).float().mean()),
-                  tol=f'{tol[0]} + {tol[1]}*|ref|', ms=f'{ms:.4f}',
-                  plain_ms=f'{plain_ms:.4f}', bound_ms=f'{b_ms:.4f}',
-                  bound_by=by)
+            exact = float((diff == 0).float().mean())
             check(bool((diff <= tol[0] + tol[1] * want.abs()).all()),
                   f'{name} at {stage} disagrees with its plain version')
+            if name == 'bottleneck':
+                check(exact >= 0.98, f'{name} at {stage}: exact share '
+                                     f'{exact} below 0.98')
+            del got, want, diff
+            ms = cuda_ms(lambda: K5.fused_bottleneck_packed(x, pack), 20)
+            pack_ms = cuda_ms(lambda: K5.pack_bottleneck(*ws, *extra), 3)
+            plain_ms = cuda_ms(lambda: plain(x, *ws, *extra), 3)
+            block = unfused_block(f, 'static' if extra else False, amax, dev,
+                                  rng)
+            unfused_ms = cuda_ms(lambda: block(x), 10)
+            # x in and the block's output out, the packed weights (2 bytes
+            # bf16, 1 byte int8) and the f32 biases and scales; three convs,
+            # 17 F^2 multiply-adds a pixel
+            px = x.numel() // c4
+            nbytes = 2 * x.numel() * 2 + sum(
+                t.numel() * t.element_size() for t in pack if t is not None)
+            b_ms, by = add_bound(rec[name], nbytes, 2 * px * 17 * f * f,
+                                 'int8' if extra else 'bf16')
+            phase('kernel', name=name, stage=stage, shape=str(shape), F=f,
+                  max_abs_err=err, exact_frac=exact,
+                  tol=f'{tol[0]} + {tol[1]}*|ref|', ms=f'{ms:.4f}',
+                  pack_ms=f'{pack_ms:.4f}', plain_ms=f'{plain_ms:.4f}',
+                  unfused_ms=f'{unfused_ms:.4f}', bound_ms=f'{b_ms:.4f}',
+                  bound_by=by)
             r = rec[name]
             r['max_abs_err'] = max(r['max_abs_err'], err)
-            r['ms'] += ms
-            r['plain_ms'] += plain_ms
-            del got, want, diff
+            for k, v in (('ms', ms), ('plain_ms', plain_ms),
+                         ('unfused_ms', unfused_ms), ('pack_ms', pack_ms)):
+                r[k] += v
+            del pack, block
         del x, ws
+    for name, r in rec.items():
+        phase('kernel_sum', name=name, stages='C2+C3+C4', ms=f'{r["ms"]:.4f}',
+              pack_ms=f'{r["pack_ms"]:.4f}',
+              unfused_ms=f'{r["unfused_ms"]:.4f}',
+              plain_ms=f'{r["plain_ms"]:.4f}',
+              bound_ms=f'{r["bound_ms"]:.4f}')
     torch.cuda.empty_cache()
     return rec
 

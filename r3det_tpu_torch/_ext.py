@@ -59,12 +59,11 @@ _SIGNATURES = {
     'stem_conv_pool_q8': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # conv output (B, H, W, 64), out, B, H, W, stream
     'stem_pool': (_P, _P, _I, _I, _I, _P),
-    # x, w1, b1, w2, b2, w3, b3, out, B, H, W, F, stream
-    'bottleneck': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # x, inv (3,), w1, s1, b1, w2, s2, b2, w3, s3, b3, out, B, H, W, F,
-    # stream
-    'bottleneck_q8': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                      _I, _I, _P),
+    # x, packed weights, b1, b2, b3, out, B, H, W, F, SMs, stream
+    'bottleneck': (_P,) * 6 + (_I,) * 5 + (_P,),
+    # x, inv (3,), packed weights, s1, b1, s2, b2, s3, b3, out, B, H, W, F,
+    # SMs, stream
+    'bottleneck_q8': (_P,) * 10 + (_I,) * 5 + (_P,),
     # x, q_in, ascale (1,), packed w, bn, ck, kscale, bias|NULL, inv|NULL,
     # b|NULL, residual|NULL, res_kind, rscale|NULL, relu, out, out_q,
     # oscale|NULL, B, H, W, Ci, Ho, Wo, Co, kh, kw, sh, sw, ph, pw, stream

@@ -25,10 +25,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.bottleneck_fuse import (fold_bn, fused_bottleneck,
-                                   fused_bottleneck_q8,
+from ..ops.bottleneck_fuse import (fold_bn, fused_bottleneck_packed,
                                    fused_bottleneck_q8_reference,
-                                   fused_bottleneck_reference)
+                                   fused_bottleneck_reference,
+                                   pack_bottleneck)
 from ..ops.int8_conv import quantize_act
 from ..ops.stem_pool import (pack_stem, stem_conv_pool_cuda,
                              stem_conv_pool_q8_reference,
@@ -109,6 +109,7 @@ class Bottleneck(nn.Module):
                                         stride=stride, bias=False)
             self.downsample_bn = FrozenBN(features * 4)
         self.int8_act = int8_act and quantize == 'static'
+        self._fused_pack = (None, None)
         if self.int8_act:
             self.calibrating = False
             self.register_buffer('in_absmax', torch.zeros(()))
@@ -153,25 +154,59 @@ class Bottleneck(nn.Module):
         return (self.fused and self.stride == 1 and not self.has_downsample
                 and x.shape[2] % 8 == 0 and self.features <= 256)
 
+    def _fused_q8(self):
+        return self.quantize == 'static'
+
+    def fused_pack_key(self):
+        """What the fused kernel's pack depends on: the ``(data_ptr,
+        _version)`` of the conv weights, the FrozenBN parameters and
+        buffers and (int8) the calibrated ``act_absmax`` of each conv."""
+        convs = (self.conv1, self.conv2, self.conv3)
+        ts = [c.weight for c in convs]
+        for bn in (self.bn1, self.bn2, self.bn3):
+            ts += [bn.scale, bn.bias, bn.mean, bn.var]
+        if self._fused_q8():
+            ts += [c.act_absmax for c in convs]
+        return (self._fused_q8(), self.conv1.weight.device,
+                *((t.data_ptr(), t._version) for t in ts))
+
+    def fused_pack(self):
+        """The K5 kernel's operands (``pack_bottleneck``: BN-folded weights
+        laid out as the kernel reads them, the biases and, int8, the codes
+        and scales), made once per :meth:`fused_pack_key`, as
+        ``ResNet.stem_pack`` keeps the stem's."""
+        key = self.fused_pack_key()
+        if self._fused_pack[0] != key:
+            with torch.no_grad():
+                amax = [c.act_absmax for c in
+                        (self.conv1, self.conv2, self.conv3)] \
+                    if self._fused_q8() else []
+                pack = pack_bottleneck(*self._folded_weights(), *amax)
+            self._fused_pack = (key, pack)
+        return self._fused_pack[1]
+
     def _folded(self, conv, bn):
         """BN-folded HWIO kernel and bias (f32)."""
         return fold_bn(conv.weight.permute(2, 3, 1, 0), bn.scale, bn.bias,
                        bn.mean, bn.var)
 
-    def _fused_forward(self, x):
-        args = [*self._folded(self.conv1, self.bn1),
+    def _folded_weights(self):
+        return [*self._folded(self.conv1, self.bn1),
                 *self._folded(self.conv2, self.bn2),
                 *self._folded(self.conv3, self.bn3)]
+
+    def _fused_forward(self, x):
+        """The fused block: K5 (bf16, or int8 with 'static') on the cached
+        pack on a card with kernels on, its plain form otherwise."""
         xs = x.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
-        if self.quantize == 'static':
-            fn = fused_bottleneck_q8 if self.kernels else \
-                fused_bottleneck_q8_reference
-            y = fn(xs, *args, self.conv1.act_absmax, self.conv2.act_absmax,
-                   self.conv3.act_absmax)
+        if self.kernels and xs.is_cuda:
+            y = fused_bottleneck_packed(xs, self.fused_pack())
+        elif self._fused_q8():
+            y = fused_bottleneck_q8_reference(
+                xs, *self._folded_weights(), self.conv1.act_absmax,
+                self.conv2.act_absmax, self.conv3.act_absmax)
         else:
-            fn = fused_bottleneck if self.kernels else \
-                fused_bottleneck_reference
-            y = fn(xs, *args)
+            y = fused_bottleneck_reference(xs, *self._folded_weights())
         return y.to(x.dtype).permute(0, 3, 1, 2)
 
     def forward(self, x):

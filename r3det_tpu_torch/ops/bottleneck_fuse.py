@@ -22,7 +22,13 @@ with FrozenBN folded into the convs (1x1, 3x3 with zero padding, 1x1).
 Layouts follow the JAX package: ``x`` (B, H, W, 4F) NHWC bf16; ``w1``
 (1, 1, 4F, F), ``w2`` (3, 3, F, F), ``w3`` (1, 1, F, 4F) HWIO, BN-folded f32;
 ``b*`` f32; ``amax*`` calibrated absmax scalars.
+
+The kernel reads its weights as :func:`pack_bottleneck` lays them out, once
+per weight version (``models/resnet.py::Bottleneck.fused_pack`` keeps the
+pack); :func:`fused_bottleneck_packed` launches on a pack.
 """
+from typing import NamedTuple, Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -93,62 +99,152 @@ def fused_bottleneck_q8_reference(x, w1, b1, w2, b2, w3, b3, amax1, amax2,
     return (y + xf).clamp_min(0.0).to(torch.bfloat16)
 
 
-def _check(x, w1):
-    if not x.is_cuda or x.dtype != torch.bfloat16 or x.dim() != 4 \
-            or not x.is_contiguous():
-        raise ValueError(f'x must be a contiguous NHWC bfloat16 CUDA tensor, '
-                         f'got {x.dtype} {tuple(x.shape)} on {x.device}')
-    b, h, w, c4 = x.shape
-    f = w1.shape[-1]
-    if f not in FEATURES or c4 != 4 * f or h % BTL_TH:
-        raise ValueError(f'the bottleneck kernel takes F in {FEATURES}, '
-                         f'C = 4F and H % {BTL_TH} == 0; got F={f}, '
-                         f'x {tuple(x.shape)}')
-    return b, h, w, c4, f
+CHUNK = 64          # bytes of K in a packed weight row
+
+
+class BottleneckPack(NamedTuple):
+    """The K5 kernel's operands, from :func:`pack_bottleneck`.
+
+    - ``weights``: (bytes,) uint8, the weight stream in the order the kernel
+      reads it (:func:`weight_units`);
+    - ``b1``, ``b2``, ``b3``: the folded biases, f32;
+    - ``s1``, ``s2``, ``s3``: q8 only, the dequant factors ``a_n * ks_n``
+      (f32, per output channel), else None;
+    - ``inv``: q8 only, (3,) f32 ``(1/a1, 1/a2, 1/a3)``, else None.
+    """
+    weights: torch.Tensor
+    b1: torch.Tensor
+    b2: torch.Tensor
+    b3: torch.Tensor
+    s1: Optional[torch.Tensor]
+    s2: Optional[torch.Tensor]
+    s3: Optional[torch.Tensor]
+    inv: Optional[torch.Tensor]
+
+    @property
+    def q8(self):
+        return self.inv is not None
+
+    @property
+    def features(self):
+        return self.b1.numel()
+
+
+def weight_rows(f, q8):
+    """Rows of a weight unit (the output channels one pass of the MMAs
+    makes) in the three phases of the stream for width ``f``: conv1,
+    conv2 (a tap), conv3. A unit is one 64-byte K chunk of those rows."""
+    return (min(f, 128) if q8 else 64), min(f, 128), 128
+
+
+def _units(w, rows):
+    """(N, K) weights ``[n][k]`` -> the bytes of their units: for each
+    block of ``rows`` output channels, for each 64-byte chunk of K, a
+    (rows, 64 bytes) tile whose 16-byte pieces are swizzled as Hopper's
+    64-byte K-major layout reads them (piece c of row n stored at c ^ ((n
+    >> 1) & 3))."""
+    n, k = w.shape
+    per = 16 // w.element_size()              # elements a 16-byte piece
+    kc = CHUNK // w.element_size()
+    u = w.reshape(n // rows, rows, k // kc, 4, per).permute(0, 2, 1, 3, 4)
+    r = torch.arange(rows, device=w.device)[:, None]
+    piece = torch.arange(4, device=w.device)[None] ^ ((r >> 1) & 3)
+    return u[:, :, r, piece].contiguous().view(torch.uint8).reshape(-1)
+
+
+def weight_units(w1, w2, w3):
+    """The kernel's weight stream from (N, K) ``[n][k]`` weights w1 (F, 4F),
+    w2 (9, F, F) per tap, w3 (4F, F), bf16 or int8 codes, pass by pass:
+    conv1's K chunks, conv2's taps (each tap's K chunks), conv3's K
+    chunks."""
+    f = w1.shape[0]
+    r1, r2, r3 = weight_rows(f, w1.dtype == torch.int8)
+    conv2 = [_units(w2[t, n:n + r2], r2) for n in range(0, f, r2)
+             for t in range(9)]
+    return torch.cat([_units(w1, r1)] + conv2 + [_units(w3, r3)])
+
+
+def pack_bottleneck(w1, b1, w2, b2, w3, b3, amax1=None, amax2=None,
+                    amax3=None):
+    """Pack a BN-folded bottleneck (HWIO f32 weights, f32 biases) for the
+    K5 kernel, on the weights' device: bf16 weights, or with the three
+    calibrated ranges ``amax*`` the int8 codes of :func:`_wq` and the
+    scales of :func:`fused_bottleneck_q8_reference`."""
+    c4, f = w1.shape[-2], w1.shape[-1]
+    if f not in FEATURES or c4 != 4 * f or tuple(w2.shape) != (3, 3, f, f) \
+            or tuple(w3.shape[-2:]) != (f, c4):
+        raise ValueError(f'the bottleneck kernel takes F in {FEATURES} and '
+                         f'C = 4F; got w1 {tuple(w1.shape)}, w2 '
+                         f'{tuple(w2.shape)}, w3 {tuple(w3.shape)}')
+    w1, w2, w3 = w1.reshape(c4, f), w2.reshape(9, f, f), w3.reshape(f, c4)
+    b1, b2, b3 = _f32(b1, b2, b3)
+    if amax1 is None:
+        bf = torch.bfloat16
+        stream = weight_units(w1.t().to(bf), w2.transpose(1, 2).to(bf),
+                              w3.t().to(bf))
+        return BottleneckPack(stream, b1, b2, b3, None, None, None, None)
+    w1i, ks1 = _wq(w1)
+    w2i, ks2 = _wq(w2)
+    w3i, ks3 = _wq(w3)
+    a1, a2, a3 = _act_scales(amax1, amax2, amax3)
+    inv = torch.stack([1.0 / a1, 1.0 / a2, 1.0 / a3]).to(w1.device)
+    s1, s2, s3 = _f32(a1 * ks1, a2 * ks2, a3 * ks3)
+    stream = weight_units(w1i.t(), w2i.transpose(1, 2), w3i.t())
+    return BottleneckPack(stream, b1, b2, b3, s1, s2, s3, inv)
 
 
 def _f32(*ts):
     return [t.to(torch.float32).reshape(-1).contiguous() for t in ts]
 
 
-def fused_bottleneck_cuda(x, w1, b1, w2, b2, w3, b3):
-    """Launch the bf16 K5 kernel (``csrc/bottleneck.cu``). Weights go over
-    as [n][k] (K contiguous) bf16: w1 (F, 4F), w2 (9, F, F), w3 (4F, F)."""
-    b, h, w, c4, f = _check(x, w1)
-    bf = torch.bfloat16
-    w1p = w1.reshape(c4, f).t().to(bf).contiguous()
-    w2p = w2.reshape(9, f, f).transpose(1, 2).to(bf).contiguous()
-    w3p = w3.reshape(f, c4).t().to(bf).contiguous()
-    b1, b2, b3 = _f32(b1, b2, b3)
+def fused_bottleneck_packed(x, pack):
+    """Launch the K5 kernel (``csrc/bottleneck.cu``) on ``pack``
+    (:func:`pack_bottleneck`): bf16, or int8 for a q8 pack. Raises on
+    inputs the kernel does not take."""
+    if not x.is_cuda or x.dtype != torch.bfloat16 or x.dim() != 4 \
+            or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f'x must be a contiguous, 16-byte aligned NHWC '
+                         f'bfloat16 CUDA tensor, got {x.dtype} '
+                         f'{tuple(x.shape)} on {x.device}')
+    b, h, w, c4 = x.shape
+    f = pack.features
+    if f not in FEATURES or c4 != 4 * f or h % BTL_TH:
+        raise ValueError(f'the bottleneck kernel takes F in {FEATURES}, '
+                         f'C = 4F and H % {BTL_TH} == 0; got F={f}, '
+                         f'x {tuple(x.shape)}')
+    nbytes = (4 + 9 + 4) * f * f * (1 if pack.q8 else 2)
+    if pack.weights.dtype != torch.uint8 or pack.weights.numel() != nbytes:
+        raise ValueError(f'the pack holds {pack.weights.numel()} weight '
+                         f'bytes, F={f} needs {nbytes}: use pack_bottleneck')
+    for t in pack:
+        if t is not None and (t.device != x.device or not t.is_contiguous()):
+            raise ValueError('the pack must lie, contiguous, on the input\'s '
+                             'device')
     out = torch.empty_like(x)
-    _ext.launch('bottleneck', x.data_ptr(), w1p.data_ptr(), b1.data_ptr(),
-                w2p.data_ptr(), b2.data_ptr(), w3p.data_ptr(), b3.data_ptr(),
-                out.data_ptr(), b, h, w, f, _ext.current_stream(x.device))
+    args = (b, h, w, f, _ext.sm_count(x.device), _ext.current_stream(x.device))
+    if pack.q8:
+        _ext.launch('bottleneck_q8', x.data_ptr(), pack.inv.data_ptr(),
+                    pack.weights.data_ptr(), pack.s1.data_ptr(),
+                    pack.b1.data_ptr(), pack.s2.data_ptr(),
+                    pack.b2.data_ptr(), pack.s3.data_ptr(),
+                    pack.b3.data_ptr(), out.data_ptr(), *args)
+    else:
+        _ext.launch('bottleneck', x.data_ptr(), pack.weights.data_ptr(),
+                    pack.b1.data_ptr(), pack.b2.data_ptr(),
+                    pack.b3.data_ptr(), out.data_ptr(), *args)
     return out
+
+
+def fused_bottleneck_cuda(x, w1, b1, w2, b2, w3, b3):
+    """The bf16 K5 kernel on weights packed in the call (callers that keep
+    weights across calls keep the pack: :func:`fused_bottleneck_packed`)."""
+    return fused_bottleneck_packed(x, pack_bottleneck(w1, b1, w2, b2, w3, b3))
 
 
 def fused_bottleneck_q8_cuda(x, w1, b1, w2, b2, w3, b3, amax1, amax2, amax3):
-    """Launch the int8 K5 kernel (``csrc/bottleneck.cu``). The scales stay
-    on the device: ``inv`` = (1/a1, 1/a2, 1/a3) and the per-channel
-    dequant factors ``s_n = a_n * ks_n`` go over by pointer."""
-    b, h, w, c4, f = _check(x, w1)
-    w1i, ks1 = _wq(w1.reshape(c4, f))
-    w2i, ks2 = _wq(w2.reshape(9, f, f))
-    w3i, ks3 = _wq(w3.reshape(f, c4))
-    a1, a2, a3 = _act_scales(amax1, amax2, amax3)
-    inv = torch.stack([1.0 / a1, 1.0 / a2, 1.0 / a3]).to(x.device)
-    s1, s2, s3 = _f32(a1 * ks1, a2 * ks2, a3 * ks3)
-    b1, b2, b3 = _f32(b1, b2, b3)
-    w1p = w1i.t().contiguous()
-    w2p = w2i.transpose(1, 2).contiguous()
-    w3p = w3i.t().contiguous()
-    out = torch.empty_like(x)
-    _ext.launch('bottleneck_q8', x.data_ptr(), inv.data_ptr(),
-                w1p.data_ptr(), s1.data_ptr(), b1.data_ptr(),
-                w2p.data_ptr(), s2.data_ptr(), b2.data_ptr(),
-                w3p.data_ptr(), s3.data_ptr(), b3.data_ptr(),
-                out.data_ptr(), b, h, w, f, _ext.current_stream(x.device))
-    return out
+    """The int8 K5 kernel on weights packed in the call."""
+    return fused_bottleneck_packed(x, pack_bottleneck(
+        w1, b1, w2, b2, w3, b3, amax1, amax2, amax3))
 
 
 def fused_bottleneck(x, w1, b1, w2, b2, w3, b3):
