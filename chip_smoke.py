@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the r3det_tpu_torch serving path on one CUDA card.
+"""Smoke run of the r3det_tpu_torch serving and training paths on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -23,7 +24,11 @@ Phases, one line each (any failure raises and the exit code is 1):
    ``Bottleneck.forward``, int8 ``Bottleneck.q8_fused_forward``). QConv's
    int8 conv runs at eight main-path shapes, with
    the fused epilogue each takes there, beside a bf16 cuDNN conv of the
-   same shape (``cudnn_bf16_ms``, a yardstick the port never calls);
+   same shape (``cudnn_bf16_ms``, a yardstick the port never calls).
+   K2's backward runs at the training shapes (the five levels of a 1024^2
+   image, batch 2, points 1, and points 5 once), within a bf16 ulp of the
+   plain backward computed in f32 (``frm_bwd_check``), beside the plain
+   bf16 backward's time and its gap;
 4. end to end: R3Det* tiny (stacked_convs=2, angle v1), ResNet-50, full
    width, bf16, batch 8 of 1024^2 patches, weights from a numpy seed,
    through ``build_detector`` and the port's predict step. The refine
@@ -49,7 +54,16 @@ Phases, one line each (any failure raises and the exit code is 1):
    route;
 5. opt-in routes, batch 2: bf16 with ``fused_blocks`` and the unfused stem
    with ``stem_pool_kernel`` (launches K5 and K4), and int8 with
-   ``fused_blocks`` (launches K5 int8), each held to the unfused model.
+   ``fused_blocks`` (launches K5 int8), each held to the unfused model;
+6. training (``[train]``): R3Det R50 as shipped (``R3DET_R50_V1``,
+   ``stacked_convs=4``), bf16 compute on f32 parameters, seeded weights,
+   ``SyntheticDetData`` batch 2 of 1024^2 with ``max_gt=64``, through
+   ``make_train_step`` (the shipped SGD and schedule). One step's losses
+   and gradients on the kernel route are held to the plain route's
+   (``use_kernels(model, False)``) on the same weights and batch; then
+   TRAIN_WARMUP steps and TRAIN_STEPS timed steps (CUDA events) on the same
+   batch: every loss finite, the last total below the first, K1, K2, K2's
+   backward and K3 once a step, ms a step, images/s and peak memory.
 
 Prints the kernels' JSON record on the line before the last, and as the
 last line ``{"ok": true, "device": {...}}``. Needs one card; exits non-zero
@@ -75,6 +89,20 @@ BOTTLENECKS = (('C2', (BATCH, 256, 256, 256), 64),
                ('C3', (BATCH, 128, 128, 512), 128),
                ('C4', (BATCH, 64, 64, 1024), 256))
 ROUTE_BATCH = 2                   # batch of the opt-in routes
+TRAIN_BATCH = 2                   # samples_per_gpu of the shipped config
+TRAIN_MAX_GT = 64
+TRAIN_WARMUP = 2                  # train steps before the timed ones
+TRAIN_STEPS = 8                   # timed train steps
+# [train]: the kernel route's one-step losses and gradients against the
+# plain route's. Both compute in bf16: the stem kernel rounds a few outputs
+# a bf16 ulp apart from the plain stem, which moves everything after it
+# slightly, and the plain backward of the FRM sample sums its scatter in
+# bf16 (K2's backward in f32). Losses within 2% each; gradients within 5%
+# relative L2 over all parameters, and each parameter's within 25% (a
+# gradient that is wrong, not rounded otherwise, is off by its own size).
+TRAIN_LOSS_RTOL = 0.02
+TRAIN_GRAD_RTOL = 0.05
+TRAIN_PARAM_RTOL = 0.25
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
 PEAK_OPS_PER_S = {'bf16': 989e12, 'int8': 1979e12, 'f32': 67e12}
 IOU_OPS_PER_PAIR = 500            # f32 operations of one pair's integral (K1)
@@ -92,6 +120,8 @@ REPLACES = {
     'bottleneck_q8': 'r3det_tpu/ops/bottleneck_fuse.py:271',
     # no TPU kernel: the XLA int8 conv of QConv
     'int8_conv': 'r3det_tpu/models/quant.py:111',
+    # no TPU kernel: XLA's scatter-add from autodiff of the FRM's gather
+    'frm_sample_bwd': 'r3det_tpu/models/frm.py:27',
 }
 SOURCES = {
     'rotated_iou': 'r3det_tpu_torch/csrc/rotated_iou.cu',
@@ -102,12 +132,14 @@ SOURCES = {
     'bottleneck': 'r3det_tpu_torch/csrc/bottleneck.cu',
     'bottleneck_q8': 'r3det_tpu_torch/csrc/bottleneck.cu',
     'int8_conv': 'r3det_tpu_torch/csrc/int8_conv.cu',
+    'frm_sample_bwd': 'r3det_tpu_torch/csrc/frm_sample.cu',
 }
 # the run whose launch counts each kernel reports
 PATH_OF = {'rotated_iou': 'bf16', 'frm_sample': 'bf16',
            'stem_conv_pool': 'bf16', 'stem_conv_pool_q8': 'int8',
            'stem_pool': 'route_bf16', 'bottleneck': 'route_bf16',
-           'bottleneck_q8': 'route_int8', 'int8_conv': 'int8'}
+           'bottleneck_q8': 'route_int8', 'int8_conv': 'int8',
+           'frm_sample_bwd': 'train'}
 # the kernels each run must launch
 PATH_KERNELS = {
     'bf16': ('rotated_iou', 'frm_sample', 'stem_conv_pool'),
@@ -116,6 +148,10 @@ PATH_KERNELS = {
     'route_int8': ('bottleneck_q8', 'stem_conv_pool_q8', 'int8_conv'),
     # an f32 model: every route takes its plain form but NMS's IoU (f32)
     'f32': ('rotated_iou',),
+    # a train step: K3 (frozen stem), K1 (refine assignment), K2 and its
+    # backward, once each
+    'train': ('rotated_iou', 'frm_sample', 'frm_sample_bwd',
+              'stem_conv_pool'),
 }
 
 
@@ -270,19 +306,19 @@ def frm_rois(rng, b, h, w, stride):
     return rois.reshape(b, h * w, 5).astype(np.float32)
 
 
-def frm_inputs(rng, dev):
+def frm_inputs(rng, dev, batch=BATCH):
     """K2's main-path inputs: the five levels' (x, feat, rois, scales) of
-    BATCH images, bf16 x and feat of FRM_CHANNELS."""
+    ``batch`` images, bf16 x and feat of FRM_CHANNELS."""
     import numpy as np
     import torch
     xs, feats, rois, scales = [], [], [], []
     for s in FRM_SIZES:
         stride = SIZE // s
-        shape = (BATCH, s, s, FRM_CHANNELS)
+        shape = (batch, s, s, FRM_CHANNELS)
         for out in (xs, feats):
             out.append(torch.from_numpy(rng.randn(*shape).astype(
                 np.float32)).to(dev, torch.bfloat16))
-        rois.append(torch.from_numpy(frm_rois(rng, BATCH, s, s, stride)).to(
+        rois.append(torch.from_numpy(frm_rois(rng, batch, s, s, stride)).to(
             dev))
         scales.append(1.0 / stride)
     return xs, feats, rois, scales
@@ -296,6 +332,103 @@ def frm_work(xs, rois, points):
     values = sum(x.numel() for x in xs)
     nbytes = 3 * values * 2 + sum(r.numel() for r in rois) * 4
     return nbytes, values * (8 * points + 2 * (points - 1) + 4)
+
+
+def bf16_ulp(v):
+    """One bf16 ulp at |v| (f32 tensor; 0 at 0)."""
+    import torch
+    _, e = torch.frexp(v)
+    return torch.where(v == 0, torch.zeros_like(v),
+                       torch.ldexp(torch.ones_like(v), e - 8))
+
+
+def frm_bwd_check(got, grads, rois, scales, points):
+    """K2's backward against its plain backward computed in f32 (autograd
+    through frm_sample_levels_reference on f32 gradients) and rounded to
+    bf16. Bound a value: one bf16 ulp of the f32 reference plus 2^-14 of
+    the sum of its absolute contributions A (the plain backward of |g|):
+    the kernel's f32 atomics and the plain scatter sum the same f32
+    products in other orders. Returns (the largest excess over the bound,
+    max |kernel - f32 reference|, max |kernel - bf16 plain backward|)."""
+    from r3det_tpu_torch.ops import frm_sample as K2
+    excess, err, gap = -math.inf, 0.0, 0.0
+    for lvl in range(len(got)):
+        args = ([rois[lvl]], [scales[lvl]], points)
+        g = grads[lvl]
+        ref = K2.frm_sample_levels_bwd_reference([g.float()], *args)[0]
+        absum = K2.frm_sample_levels_bwd_reference([g.float().abs()],
+                                                   *args)[0]
+        plain = K2.frm_sample_levels_bwd_reference([g], *args)[0]
+        k = got[lvl].float()
+        slack = 2.0 ** -14 * absum
+        tol = bf16_ulp(ref.abs() + slack) + slack
+        d = (k - ref.to(grads[0].dtype).float()).abs()
+        excess = max(excess, float((d - tol).max()))
+        err = max(err, float((k - ref).abs().max()))
+        gap = max(gap, float((k - plain.float()).abs().max()))
+        del ref, absum, plain, k, slack, tol, d
+    return excess, err, gap
+
+
+def frm_bwd_kernel(dev, rng):
+    """K2's backward at the training shapes (the five levels of a 1024^2
+    image, TRAIN_BATCH, FRM_CHANNELS), points 1 (the recorded row) and 5:
+    one launch for the five levels, within frm_bwd_check's bound; timed
+    beside the plain bf16 backward (autograd of the plain forward)."""
+    import numpy as np
+    import torch
+
+    from r3det_tpu_torch import _ext
+    from r3det_tpu_torch.ops import frm_sample as K2
+    xs, feats, rois, scales = frm_inputs(rng, dev, TRAIN_BATCH)
+    grads = [torch.from_numpy(rng.randn(*f.shape).astype(np.float32)).to(
+        dev, torch.bfloat16) for f in feats]
+    rec = None
+    for points in (1, 5):
+        before = _ext.LAUNCHES['frm_sample_bwd']
+        got = K2.frm_sample_levels_bwd_cuda(grads, rois, scales, points)
+        torch.cuda.synchronize()
+        check(_ext.LAUNCHES['frm_sample_bwd'] == before + 1,
+              'K2 backward: one launch for the five levels')
+        excess, err, gap = frm_bwd_check(got, grads, rois, scales, points)
+        del got
+        trig = K2.angle_trig(rois) if points == 5 else None
+        ms = cuda_ms(lambda: K2.frm_sample_levels_bwd_cuda(
+            grads, rois, scales, points, trig=trig), 20)
+        # the plain backward alone: autograd of the plain bf16 forward,
+        # its graph built once
+        with torch.enable_grad():
+            fs = [f.detach().requires_grad_() for f in feats]
+            outs = K2.frm_sample_levels_reference(xs, fs, rois, scales,
+                                                  points)
+            plain_ms = cuda_ms(lambda: torch.autograd.grad(
+                outs, fs, grads, retain_graph=True), 5)
+        del fs, outs
+        # g read and dfeat written (bf16), the rois (and trig) read; per
+        # value points x 4 corners x (a product, a sum) and g + acc. The
+        # f32 sums' own traffic, counted apart: the zero fill, each
+        # corner's 16-byte read and write at L2, the final read.
+        values = sum(g.numel() for g in grads)
+        nbytes = 2 * values * 2 + sum(r.numel() for r in rois) * 4 + \
+            (0 if trig is None else trig.numel() * 4)
+        acc_bytes = values * 4 * 2 + values * 4 * points * 2
+        r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None)
+        b_ms, by = add_bound(r, nbytes, values * (8 * points + 1), 'f32')
+        phase('kernel', name='frm_sample_bwd', points=points,
+              levels=str([tuple(g.shape) for g in grads]), launches_a_call=1,
+              max_abs_err=err, bf16_autograd_gap=gap,
+              tol='1 bf16 ulp + 2^-14 sum|w g|', excess=excess,
+              ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
+              bound_ms=f'{b_ms:.4f}', bound_by=by, acc_bytes=acc_bytes,
+              acc_ms_at_hbm=f'{acc_bytes / HBM_BYTES_PER_S * 1e3:.4f}',
+              library_ms=None)
+        check(excess <= 0.0, f'frm_sample_bwd points={points} disagrees '
+                             f'with its f32 plain backward')
+        if points == 1:
+            rec = r
+    del xs, feats, rois, grads
+    torch.cuda.empty_cache()
+    return rec
 
 
 def compare_kernels(dev):
@@ -460,6 +593,7 @@ def compare_kernels(dev):
     del conv, conv_nchw, lib_out
     rec.update(compare_bottlenecks(dev, rng))
     rec['int8_conv'] = int8_conv_route(dev, rng)
+    rec['frm_sample_bwd'] = frm_bwd_kernel(dev, rng)
     return rec
 
 
@@ -948,7 +1082,7 @@ def _patches_per_s(step, images, iters=5):
     return images.shape[0] * iters / (time.perf_counter() - t0)
 
 
-def profile_step(step, images, path, card):
+def profile_step(step, images, path, card, batch='big'):
     """One step under torch.profiler: the top 8 device kernels by time,
     the device's busy share of its span, and the int8 conv's and K1's
     device times.
@@ -977,7 +1111,7 @@ def profile_step(step, images, path, card):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     int8_ms = sum(v for k, v in by_name.items() if 'int8_conv' in k)
     iou_ms = sum(v for k, v in by_name.items() if 'rotated_iou' in k)
-    phase('profile', path=path, batch='big',
+    phase('profile', path=path, batch=batch,
           device_span_ms=f'{span / 1e3:.3f}',
           busy_ms=f'{busy / 1e3:.3f}', busy_share=f'{busy / span:.3f}',
           int8_conv_ms=f'{int8_ms:.3f}', rotated_iou_ms=f'{iou_ms:.3f}',
@@ -1223,6 +1357,164 @@ def opt_in_routes(dev, base, model_q):
     return out
 
 
+def _grad_errors(got, want, names):
+    """Relative L2 errors of the gradient list ``got`` against ``want``
+    (None: no gradient, a frozen parameter; both must agree on it): over
+    all parameters at once, and each parameter's, worst first."""
+    num = den = 0.0
+    per = []
+    for n, a, b in zip(names, got, want):
+        check((a is None) == (b is None),
+              f'{n}: a gradient on one route only')
+        if a is None:
+            continue
+        d = float((a.float() - b.float()).square().sum())
+        w = float(b.float().square().sum())
+        num += d
+        den += w
+        if w > 0:
+            per.append((math.sqrt(d / w), n))
+    return math.sqrt(num / den), sorted(per, reverse=True)
+
+
+def train_stages(model, cfg, sizes, batch, opt, iters=3):
+    """Mean ms of each part of a train step (CUDA events): the forward,
+    the targets and losses, the backward and the update."""
+    import torch
+
+    from r3det_tpu_torch.models.detectors import detector_loss
+    names = ('forward', 'targets_losses', 'backward', 'update')
+    tot = [0.0] * len(names)
+    for _ in range(iters):
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(names) + 1)]
+        model.zero_grad(set_to_none=True)
+        ev[0].record()
+        out = model(batch['image'])
+        ev[1].record()
+        losses = detector_loss(out, cfg, sizes, batch['gt_bboxes'],
+                               batch['gt_labels'], batch['gt_mask'])
+        ev[2].record()
+        losses['total'].backward()
+        ev[3].record()
+        opt.step([p.grad for p in model.parameters()])
+        ev[4].record()
+        torch.cuda.synchronize()
+        for i in range(len(names)):
+            tot[i] += ev[i].elapsed_time(ev[i + 1])
+    return {n: tot[i] / iters for i, n in enumerate(names)}
+
+
+def train_path(dev, card):
+    """Phase 6: R3Det R50 as shipped, bf16 on f32 parameters, batch
+    TRAIN_BATCH of 1024^2: the kernel route against the plain route on one
+    step, then TRAIN_WARMUP + TRAIN_STEPS steps of make_train_step on one
+    seeded batch. Returns the timed run's launch counts."""
+    import torch
+
+    from r3det_tpu_torch import _ext
+    from r3det_tpu_torch.datasets.synthetic import SyntheticDetData
+    from r3det_tpu_torch.models.detectors import (R3DET_R50_V1,
+                                                  build_detector,
+                                                  use_kernels)
+    from r3det_tpu_torch.parallel.train import (loss_and_grads,
+                                                make_optimizer,
+                                                make_train_step)
+    from r3det_tpu_torch.utils.convert import seeded_state_dict
+
+    cfg = R3DET_R50_V1
+    model = build_detector(cfg, dtype=torch.bfloat16, device=dev)
+    model.load_state_dict(seeded_state_dict(model, SEED))
+    data = SyntheticDetData(batch_size=TRAIN_BATCH, size=SIZE,
+                            max_gt=TRAIN_MAX_GT, num_classes=cfg.num_classes,
+                            seed=SEED).batch()
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    sizes = tuple((SIZE // s, SIZE // s) for s in cfg.strides)
+    names = [n for n, _ in model.named_parameters()]
+
+    # one step's losses and gradients, kernel route against plain route
+    losses, grads = loss_and_grads(model, cfg, sizes, batch)
+    use_kernels(model, False)
+    try:
+        plain_losses, plain_grads = loss_and_grads(model, cfg, sizes, batch)
+    finally:
+        use_kernels(model, True)
+    loss_err = {k: abs(float(losses[k]) - float(v)) / abs(float(v))
+                for k, v in plain_losses.items()}
+    total_err, per = _grad_errors(grads, plain_grads, names)
+    frozen = sum(g is None for g in grads)
+    phase('train_parity', losses=json.dumps(
+              {k: float(v) for k, v in losses.items()}),
+          plain_losses=json.dumps(
+              {k: float(v) for k, v in plain_losses.items()}),
+          loss_rel_err=json.dumps(loss_err), tol_loss=TRAIN_LOSS_RTOL,
+          grad_rel_l2=f'{total_err:.6f}', tol_grad=TRAIN_GRAD_RTOL,
+          worst_params=json.dumps([[n, round(e, 6)] for e, n in per[:5]]),
+          tol_param=TRAIN_PARAM_RTOL, params=len(names),
+          frozen_without_grad=frozen)
+    check(all(math.isfinite(float(v)) for v in losses.values()),
+          'a non-finite loss on the kernel route')
+    check(max(loss_err.values()) <= TRAIN_LOSS_RTOL,
+          'kernel-route losses drift from the plain route')
+    check(total_err <= TRAIN_GRAD_RTOL,
+          'kernel-route gradients drift from the plain route')
+    check(per[0][0] <= TRAIN_PARAM_RTOL,
+          f'the gradient of {per[0][1]} drifts from the plain route')
+    del grads, plain_grads
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    opt = make_optimizer(model.parameters())
+    step = make_train_step(model, cfg, sizes, optimizer=opt)
+    history = [step(batch) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _ext.reset_launches()
+    times = []
+    for _ in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        history.append(step(batch))
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    launches = dict(_ext.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    phase('launches', path='train', steps=TRAIN_STEPS, **launches)
+    for name in PATH_KERNELS['train']:
+        check(launches[name] == TRAIN_STEPS,
+              f'kernel {name} ran {launches[name]} times in {TRAIN_STEPS} '
+              f'train steps, not once a step')
+    first = {k: float(v) for k, v in history[0].items()}
+    last = {k: float(v) for k, v in history[-1].items()}
+    ms = sum(times) / len(times)
+    phase('train', config='R3DET_R50_V1', batch=TRAIN_BATCH, size=SIZE,
+          steps=f'{TRAIN_WARMUP}+{TRAIN_STEPS}',
+          first=json.dumps(first), last=json.dumps(last),
+          totals=json.dumps([round(float(h['total']), 5) for h in history]),
+          ms_per_step=f'{ms:.3f}', ms_min=f'{min(times):.3f}',
+          ms_max=f'{max(times):.3f}',
+          images_per_s=f'{TRAIN_BATCH * 1e3 / ms:.2f}',
+          max_memory_allocated_gb=f'{peak / 2 ** 30:.3f}',
+          launches_per_step=json.dumps(
+              {k: launches[k] / TRAIN_STEPS for k in PATH_KERNELS['train']}),
+          card=card)
+    check(all(math.isfinite(v) for h in history for v in
+              (float(x) for x in h.values())), 'a non-finite train loss')
+    check(last['total'] < first['total'],
+          f'the total loss did not fall over {len(history)} steps on one '
+          f'batch: {first["total"]} -> {last["total"]}')
+    # where a step's time goes, after the timed steps
+    phase('stages', path='train', batch=TRAIN_BATCH, card=card,
+          **{k: f'{v:.3f}' for k, v in train_stages(
+              model, cfg, sizes, batch, opt).items()})
+    profile_step(step, batch, 'train', card, batch=TRAIN_BATCH)
+    del model, step, history, batch, opt
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
 
@@ -1258,6 +1550,9 @@ def main():
     launches['f32'] = f32_model(dev, smi, base)
     launches['frm5'] = frm5_model(dev, smi, base)
     launches.update(opt_in_routes(dev, base, model_q))
+    del base, model_q
+    torch.cuda.empty_cache()
+    launches['train'] = train_path(dev, smi)
     kernels = [dict(name=k, route='cuda', source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches[PATH_OF[k]][k],
                     max_abs_err=rec[k]['max_abs_err'], ms=rec[k]['ms'],

@@ -51,6 +51,11 @@ _SIGNATURES = {
     # points, transpose_quirk, stream
     'frm_sample_levels': (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _P),
+    # K2's backward: L, host arrays of the L levels' g, rois, acc (f32),
+    # dfeat pointers, H, W (int) and spatial_scale (float), trig | NULL,
+    # barrier (one zeroed uint32), B, C, points, transpose_quirk, stream
+    'frm_sample_bwd': (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _I, _P),
     # x12, packed weights (4, 64, 56), scale, bias, out, B, H, W, SMs,
     # stream
     'stem_conv_pool': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

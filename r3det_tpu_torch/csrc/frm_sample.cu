@@ -56,11 +56,14 @@ constexpr int kWarpChannels = 32 * kVec;
 constexpr int kRoiFloats = kTileCells * 5;
 static_assert(kRoiFloats <= 2 * kThreads, "a tile's rois: two a thread");
 
+// the backward reads x as the output gradient g, writes out as dfeat and
+// scatters into acc; the forward leaves acc unused
 struct Level {
   const __nv_bfloat16* x;
   const __nv_bfloat16* feat;
   const float* rois;
   __nv_bfloat16* out;
+  float* acc;
   int H, W;
   float scale;
   int tiles_w;       // tiles across the map
@@ -376,24 +379,30 @@ bool aligned16(const void* ptr) {
   return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
 }
 
-int frm_levels(int L, const void* const* x, const void* const* feat,
-               const void* const* rois, void* const* out, const int* H,
-               const int* W, const float* scale, const void* trig, int B,
-               int C, int points, int quirk, void* stream) {
+// the launch parameters of L levels (x, feat, out: 16-byte aligned bf16;
+// acc: 16-byte aligned f32 or absent); false on an argument the kernels do
+// not take
+bool make_params(Params& p, int L, const void* const* x,
+                 const void* const* feat, const void* const* rois,
+                 void* const* out, void* const* acc, const int* H,
+                 const int* W, const float* scale, const void* trig, int B,
+                 int C, int points, int quirk) {
   if (L < 1 || L > kMaxLevels || B < 0 || C <= 0 || C % kVec != 0 ||
       (points != 1 && points != 5) || (points == 5 && trig == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  Params p = {};
+    return false;
+  p = Params{};
   long long tiles = 0, cells = 0;
   for (int l = 0; l < L; ++l) {
-    if (H[l] < 0 || W[l] < 0 || !aligned16(x[l]) || !aligned16(feat[l]) ||
-        !aligned16(out[l]))
-      return static_cast<int>(cudaErrorInvalidValue);
+    if (H[l] < 0 || W[l] < 0 || !aligned16(x[l]) ||
+        (feat != nullptr && !aligned16(feat[l])) || !aligned16(out[l]) ||
+        (acc != nullptr && !aligned16(acc[l])))
+      return false;
     Level& v = p.lv[l];
     v.x = static_cast<const __nv_bfloat16*>(x[l]);
-    v.feat = static_cast<const __nv_bfloat16*>(feat[l]);
+    v.feat = feat ? static_cast<const __nv_bfloat16*>(feat[l]) : nullptr;
     v.rois = static_cast<const float*>(rois[l]);
     v.out = static_cast<__nv_bfloat16*>(out[l]);
+    v.acc = acc ? static_cast<float*>(acc[l]) : nullptr;
     v.H = H[l];
     v.W = W[l];
     v.scale = scale[l];
@@ -403,18 +412,219 @@ int frm_levels(int L, const void* const* x, const void* const* feat,
     v.cell_begin = static_cast<int>(cells);
     tiles += static_cast<long long>(v.tiles_img) * B;
     cells += static_cast<long long>(H[l]) * W[l] * B;
-    if (tiles > 0x7fffffffLL || cells > 0x7fffffffLL)
-      return static_cast<int>(cudaErrorInvalidValue);
+    if (tiles > 0x7fffffffLL || cells > 0x7fffffffLL) return false;
   }
-  if (tiles == 0) return 0;
   p.trig = static_cast<const float*>(trig);
   p.L = L;
   p.C = C;
   p.tiles = static_cast<int>(tiles);
   p.cells = static_cast<int>(cells);
   p.quirk = quirk;
+  return true;
+}
+
+int frm_levels(int L, const void* const* x, const void* const* feat,
+               const void* const* rois, void* const* out, const int* H,
+               const int* W, const float* scale, const void* trig, int B,
+               int C, int points, int quirk, void* stream) {
+  Params p;
+  if (feat == nullptr ||
+      !make_params(p, L, x, feat, rois, out, nullptr, H, W, scale, trig, B,
+                   C, points, quirk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (p.tiles == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return points == 1 ? launch<1, 1>(p, s) : launch<5, 1>(p, s);
+}
+
+// ---------------------------------------------------------------------------
+// The backward: dfeat_l = g_l + S_l^T g_l (dx_l = g_l needs no kernel).
+//
+// No TPU kernel stands behind it: on the TPU the gradient is XLA's
+// scatter-add from autodiff of r3det_tpu/models/frm.py::bilinear_sample.
+// S_l^T scatters each cell's gradient row, times the f32 weight of each
+// corner its points read in the forward (the same inside test, clamp and
+// weights, point_setup), onto those corner cells. One cooperative launch
+// for all levels of a stage, in two phases split by a grid barrier:
+// 1. scatter: the forward's persistent walk over 8 x 8-cell tiles, a warp
+//    a cell, a lane 8 channels; each corner row gets two 16-byte f32
+//    vector atomics a lane (float4 atomicAdd, sm_90; the result unused, so
+//    a reduction) into the level's f32 buffer acc (zeroed by the caller);
+// 2. dfeat = bf16(g + acc), the same walk.
+// The sum into a corner is not deterministic in its order: atomics from
+// many cells (every cell of a small level can land on one corner) arrive
+// in whatever order the blocks run, so acc may differ from run to run in
+// its last f32 bits, and dfeat in rare bf16 roundings. A deterministic
+// gather form (an inverse map from each corner to the cells that read it)
+// is the alternative.
+// What bounds it on the H100: memory. g is read twice and dfeat written
+// once (bf16), the rois read once; the f32 buffer takes the atomics' read
+// and write at L2 (a 4 to 20-fold collision-dependent traffic that mostly
+// stays in the 50 MB L2 at the training shapes) and one read.
+// ---------------------------------------------------------------------------
+
+// a grid-wide barrier for a cooperative launch (every block resident):
+// each block arrives once at *count, then waits for all gridDim.x
+__device__ __forceinline__ void grid_barrier(unsigned int* count) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    atomicAdd(count, 1u);
+    while (*reinterpret_cast<volatile unsigned int*>(count) < gridDim.x)
+      __nanosleep(64);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ void red_add4(float* dst, float a, float b,
+                                         float c, float d) {
+  atomicAdd(reinterpret_cast<float4*>(dst), make_float4(a, b, c, d));
+}
+
+// one cell's gradient row g, times each point's corner weights, added
+// into the corner rows of acc
+template <int P>
+__device__ __forceinline__ void scatter_cell(const Level& v, int C,
+                                             size_t img, size_t row,
+                                             int cell, const Geo* geo,
+                                             int lane) {
+  for (int c = lane * kVec; c < C; c += kWarpChannels) {
+    float gf[kVec];
+    unpack(__ldcs(reinterpret_cast<const uint4*>(v.x + row + c)), gf);
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      const Geo g = geo[q * kTileCells + cell];
+      if (g.idx.x < 0) continue;                      // outside: nothing
+      const int id[4] = {g.idx.x, g.idx.y, g.idx.z, g.idx.w};
+      const float w[4] = {g.w.x, g.w.y, g.w.z, g.w.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        float* a = v.acc + (img + id[k]) * C + c;
+        red_add4(a, w[k] * gf[0], w[k] * gf[1], w[k] * gf[2], w[k] * gf[3]);
+        red_add4(a + 4, w[k] * gf[4], w[k] * gf[5], w[k] * gf[6],
+                 w[k] * gf[7]);
+      }
+    }
+  }
+}
+
+// dfeat = bf16(g + acc) for one cell's row
+__device__ __forceinline__ void finish_cell(const Level& v, int C,
+                                            size_t row, int lane) {
+  for (int c = lane * kVec; c < C; c += kWarpChannels) {
+    float gf[kVec], o[kVec];
+    unpack(__ldcs(reinterpret_cast<const uint4*>(v.x + row + c)), gf);
+    const float4 a0 = *reinterpret_cast<const float4*>(v.acc + row + c);
+    const float4 a1 = *reinterpret_cast<const float4*>(v.acc + row + c + 4);
+    const float a[kVec] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) o[e] = gf[e] + a[e];
+    __stcs(reinterpret_cast<uint4*>(v.out + row + c), pack(o));
+  }
+}
+
+template <int P>
+__global__ void __launch_bounds__(kThreads, 2)
+    frm_sample_bwd_kernel(const __grid_constant__ Params p,
+                          unsigned int* barrier) {
+  __shared__ float s_roi[kRoiFloats];
+  __shared__ float s_trig[2 * kTileCells];
+  __shared__ Geo s_geo[P * kTileCells];
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  // phase 1: scatter
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    const Tile tl = tile_of(p, t);
+    const Level& v = p.lv[tl.l];
+    float roi[2], trig = 0.0f;
+    load_tile<P>(p, tl, tid, roi, trig);
+    __syncthreads();                 // the last tile's s_geo is read
+    s_roi[tid] = roi[0];
+    if (tid + kThreads < kRoiFloats) s_roi[tid + kThreads] = roi[1];
+    if (P == 5 && tid < 2 * kTileCells) s_trig[tid] = trig;
+    __syncthreads();
+    for (int q = tid; q < P * kTileCells; q += kThreads) {
+      const int cell = q % kTileCells;
+      const int i = tl.i0 + cell / kTile, j = tl.j0 + cell % kTile;
+      if (i < v.H && j < v.W)
+        s_geo[q] = point_setup(
+            s_roi + cell * 5, q / kTileCells, P == 5 ? s_trig[cell] : 0.0f,
+            P == 5 ? s_trig[kTileCells + cell] : 0.0f, v.scale, p.quirk, v.H,
+            v.W);
+    }
+    __syncthreads();
+    const int i = tl.i0 + warp;
+    if (i < v.H) {
+      const size_t img = static_cast<size_t>(tl.b) * v.H * v.W;
+      for (int jj = 0; jj < kTile && tl.j0 + jj < v.W; ++jj)
+        scatter_cell<P>(v, p.C, img,
+                        (img + static_cast<size_t>(i) * v.W + tl.j0 + jj) *
+                            p.C,
+                        warp * kTile + jj, s_geo, lane);
+    }
+  }
+  grid_barrier(barrier);
+  // phase 2: dfeat = bf16(g + acc)
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    const Tile tl = tile_of(p, t);
+    const Level& v = p.lv[tl.l];
+    const int i = tl.i0 + warp;
+    if (i >= v.H) continue;
+    const size_t img = static_cast<size_t>(tl.b) * v.H * v.W;
+    for (int jj = 0; jj < kTile && tl.j0 + jj < v.W; ++jj)
+      finish_cell(v, p.C,
+                  (img + static_cast<size_t>(i) * v.W + tl.j0 + jj) * p.C,
+                  lane);
+  }
+}
+
+template <int P>
+int launch_bwd(const Params& p, unsigned int* barrier, cudaStream_t stream) {
+  static int occupancy[64] = {};
+  static int sm_count[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (occupancy[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sm_count[dev],
+                                 cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, frm_sample_bwd_kernel<P>, kThreads, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (blocks < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    occupancy[dev] = blocks;
+  }
+  // a cooperative launch: at most every block resident at once, so the
+  // grid barrier cannot wait on a block that has not started
+  const long resident = static_cast<long>(occupancy[dev]) * sm_count[dev];
+  const int grid = static_cast<int>(p.tiles < resident ? p.tiles : resident);
+  Params params = p;
+  void* args[] = {&params, &barrier};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(frm_sample_bwd_kernel<P>), dim3(grid),
+      dim3(kThreads), args, 0, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int frm_levels_bwd(int L, const void* const* g, const void* const* rois,
+                   void* const* acc, void* const* dfeat, const int* H,
+                   const int* W, const float* scale, const void* trig,
+                   void* barrier, int B, int C, int points, int quirk,
+                   void* stream) {
+  Params p;
+  if (acc == nullptr || barrier == nullptr ||
+      !make_params(p, L, g, nullptr, rois, dfeat, acc, H, W, scale, trig, B,
+                   C, points, quirk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (p.tiles == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned int* bar = static_cast<unsigned int*>(barrier);
+  return points == 1 ? launch_bwd<1>(p, bar, s) : launch_bwd<5>(p, bar, s);
 }
 
 }  // namespace
@@ -431,6 +641,20 @@ extern "C" int r3det_frm_sample_levels(int L, const void* const* x,
                                        int points, int quirk, void* stream) {
   return frm_levels(L, x, feat, rois, out, H, W, scale, trig, B, C, points,
                     quirk, stream);
+}
+
+// the backward of r3det_frm_sample_levels for dfeat, one launch: host
+// arrays of the L levels' gradient g (bf16, the forward's out layout),
+// rois, f32 scatter buffers acc (zeroed, (B, H, W, C) each), dfeat (bf16)
+// pointers, H, W and scales; trig as the forward's; barrier one zeroed
+// unsigned int
+extern "C" int r3det_frm_sample_bwd(
+    int L, const void* const* g, const void* const* rois, void* const* acc,
+    void* const* dfeat, const int* H, const int* W, const float* scale,
+    const void* trig, void* barrier, int B, int C, int points, int quirk,
+    void* stream) {
+  return frm_levels_bwd(L, g, rois, acc, dfeat, H, W, scale, trig, barrier,
+                        B, C, points, quirk, stream);
 }
 
 // one level, points=1 (the same kernel)

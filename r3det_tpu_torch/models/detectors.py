@@ -1,10 +1,11 @@
-"""Detectors: RRetinaNet (single stage) and R3Det (cascaded refinement),
-inference only.
+"""Detectors: RRetinaNet (single stage) and R3Det (cascaded refinement).
 
 Port of ``r3det_tpu/models/detectors.py``: the config NamedTuples, the
 ``RRetinaNet`` / ``R3Det`` modules, ``build_detector``, ``level_anchors``,
-``filter_bboxes``, ``refine_rois`` and ``detector_predict``. Losses and
-training wait for a later slice.
+``filter_bboxes``, ``refine_rois``, the training losses (``head_loss``,
+``detector_loss``) and ``detector_predict``. ``filter_bboxes`` and
+``refine_rois`` detach their rois, as the JAX package's ``stop_gradient``
+does: the refine stages' rois and targets carry no gradient.
 
 Layouts follow the JAX package: images NHWC (B, H, W, 3); head maps
 (B, H, W, A*C) / (B, H, W, A*5) f32; rois per level (B, H*W, 5) f32;
@@ -31,9 +32,12 @@ from torch import nn
 
 from ..core import coders
 from ..core.anchors import RAnchorGenerator
+from ..core.targets import TargetConfig, anchor_targets, num_total_samples
 from ..ops.nms import multiclass_nms_rotated_batched
 from .fpn import FPN
 from .frm import FeatureRefineModule
+from .losses import (l1_loss, sigmoid_bce_loss, sigmoid_focal_loss,
+                     smooth_l1_loss)
 from .resnet import ResNet
 from .retina_head import RRetinaHead
 
@@ -139,6 +143,7 @@ class _Base(nn.Module):
         self.kernels = kernels
         self.backbone = ResNet(
             depth=cfg.backbone_depth, dtype=dtype, kernels=kernels,
+            frozen_stages=cfg.frozen_stages,
             stem_fused_kernel=stem_fused_kernel,
             stem_pool_kernel=stem_pool_kernel, quantize=cfg.quantize,
             fused_blocks=fused_blocks, int8_act=int8_act)
@@ -266,7 +271,7 @@ def filter_bboxes(cls_scores, bbox_preds, anchors, coder, cfg):
         idx = best[:, :, None, None].expand(-1, -1, 1, 5)
         best_reg = reg.gather(2, idx)[:, :, 0]
         best_anc = anc.gather(2, idx)[:, :, 0]
-        rois.append(coder.decode(best_anc, best_reg))
+        rois.append(coder.decode(best_anc, best_reg).detach())
     return rois
 
 
@@ -276,8 +281,97 @@ def refine_rois(bbox_preds, rois, coder):
     out = []
     for reg, roi in zip(bbox_preds, rois):
         b, h, w, _ = reg.shape
-        out.append(coder.decode(roi, reg.reshape(b, h * w, 5)))
+        out.append(coder.decode(roi, reg.reshape(b, h * w, 5)).detach())
     return out
+
+
+def _flatten_levels(cls_scores, bbox_preds, num_classes):
+    """Level lists of (B, H, W, A*C) / (B, H, W, A*5) -> (B, N, C) /
+    (B, N, 5)."""
+    b = cls_scores[0].shape[0]
+    return (torch.cat([c.reshape(b, -1, num_classes) for c in cls_scores], 1),
+            torch.cat([r.reshape(b, -1, 5) for r in bbox_preds], 1))
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def head_loss(cls_scores, bbox_preds, anchors, gt_bboxes, gt_labels,
+              gt_mask, cfg: DetectorConfig, stage: StageTrainCfg, coder,
+              per_image_anchors=False, generator=None, kernels=True):
+    """``(loss_cls, loss_bbox)`` of one head over all levels at once (one
+    global avg_factor, so the reference's per-level sum is the same)."""
+    cls_flat, reg_flat = _flatten_levels(cls_scores, bbox_preds,
+                                         cfg.num_classes)
+    tcfg = TargetConfig(
+        pos_iou_thr=stage.pos_iou_thr, neg_iou_thr=stage.neg_iou_thr,
+        min_pos_iou=stage.min_pos_iou,
+        assign_by_circumhbbox=stage.assign_by_circumhbbox,
+        angle_version=cfg.angle_version, sampler=stage.sampler)
+    tgts = anchor_targets(anchors, gt_bboxes, gt_labels, gt_mask,
+                          coder.encode, cfg.num_classes, tcfg,
+                          per_image_anchors=per_image_anchors,
+                          generator=generator, kernels=kernels)
+    # focal: num_total_pos; with a sampler pos + neg (each sum of max(n, 1))
+    nts = num_total_samples(tgts.num_pos)
+    if stage.sampler is not None:
+        nts = nts + num_total_samples(tgts.num_neg)
+    logits = cls_flat.reshape(-1, cfg.num_classes)
+    labels = tgts.labels.reshape(-1)
+    lw = tgts.label_weights.reshape(-1)
+    if cfg.loss_cls_type == 'bce':
+        loss_cls = sigmoid_bce_loss(logits, labels, lw, cfg.num_classes, nts)
+    else:
+        loss_cls = sigmoid_focal_loss(logits, labels, lw, cfg.num_classes,
+                                      nts, gamma=cfg.focal_gamma,
+                                      alpha=cfg.focal_alpha)
+    args = (reg_flat.reshape(-1, 5), tgts.bbox_targets.reshape(-1, 5),
+            tgts.bbox_weights.reshape(-1), nts)
+    if cfg.loss_bbox_type == 'l1':
+        loss_bbox = l1_loss(*args)
+    else:
+        loss_bbox = smooth_l1_loss(*args, beta=cfg.smooth_l1_beta)
+    return loss_cls, loss_bbox
+
+
+def detector_loss(outputs, cfg: DetectorConfig, featmap_sizes, gt_bboxes,
+                  gt_labels, gt_mask, generator=None, kernels=True):
+    """The train loss: the base head ('s0') and each refine stage ('sr{i}',
+    weighted by ``stage_loss_weights``), keys ``s0.loss_cls``,
+    ``s0.loss_bbox``, ``sr0.loss_cls``, ... and their sum ``total``.
+
+    ``generator`` feeds the RRandomSampler of stages that configure one
+    (a generator seeded 0 when none is given); ``kernels`` off takes the
+    plain rotated IoU of the refine stages' assignment on a card."""
+    coder = cfg.coder()
+    dev = gt_bboxes.device
+    anchors = torch.cat(level_anchors(cfg, featmap_sizes, dev), 0)
+    any_sampler = (cfg.s0_train.sampler is not None or
+                   any(s.sampler is not None for s in cfg.sr_train))
+    if any_sampler and generator is None:
+        generator = torch.Generator(dev).manual_seed(0)
+
+    losses = {}
+    cls0, reg0 = outputs['s0']
+    lc, lb = head_loss(cls0, reg0, anchors, gt_bboxes, gt_labels, gt_mask,
+                       cfg, cfg.s0_train, coder, generator=generator,
+                       kernels=kernels)
+    losses['s0.loss_cls'] = lc
+    losses['s0.loss_bbox'] = lb
+    refine_coder = coders.DeltaXYWHAOBBoxCoder(
+        cfg.target_means, cfg.target_stds, cfg.angle_version)
+    for i, (cls_i, reg_i) in enumerate(outputs.get('sr', [])):
+        rois = torch.cat(outputs['rois'][i], 1)              # (B, N, 5)
+        w = cfg.stage_loss_weights[i]
+        lc, lb = head_loss(cls_i, reg_i, rois, gt_bboxes, gt_labels, gt_mask,
+                           cfg, cfg.sr_train[i], refine_coder,
+                           per_image_anchors=True, generator=generator,
+                           kernels=kernels)
+        losses[f'sr{i}.loss_cls'] = lc * w
+        losses[f'sr{i}.loss_bbox'] = lb * w
+    losses['total'] = sum(losses.values())
+    return losses
 
 
 def _top_positions(max_scores, k):

@@ -10,8 +10,11 @@ cy * scale).
 
 Every level of a stage runs through one
 :func:`..ops.frm_sample.frm_sample_levels` call, points 1 and 5: one
-launch of the K2 kernel on bf16 CUDA tensors when ``kernels`` is on; an
-f32 model takes the plain form (``FeatureRefineModule.sample_route``).
+launch of the K2 kernel on bf16 CUDA tensors when ``kernels`` is on, and
+under autograd one launch of K2's backward kernel
+(``ops/frm_sample.py::FRMSampleLevels``); an f32 model, or ``kernels``
+off, takes the plain form, autograd through
+``frm_sample_levels_reference`` (``FeatureRefineModule.sample_route``).
 ``quantize`` makes the three branch convs ``QConv``s; the sample and the
 residual adds stay in the input's dtype.
 """

@@ -12,6 +12,8 @@ Port of ``r3det_tpu/models/quant.py``: ``QConv``, ``conv_factory`` and
   buffer ``act_absmax`` (the flax ``quant_stats/.../act_absmax``); 0 means
   uncalibrated, and then a non-static ``QConv`` takes ``max|x|`` of its
   input on the device (``where(amax > 0, amax, max|x|)``, no host sync);
+- no backward (the JAX package's int8 conv has none either): under
+  autograd a ``QConv`` whose weight or input needs gradients raises;
 - the product: int8 x int8 -> exact int32, then
   ``acc * (ascale * kscale) [+ bias]``. A bf16 model rounds the int32 sums
   to bf16 before that dequant, as the JAX package's bf16 conv output does;
@@ -32,6 +34,7 @@ import functools
 import torch
 from torch import nn
 
+from ..ops.grad_guard import forbid_grad
 from ..ops.int8_conv import (pack_weights, qconv, qconv_fused,
                              qconv_fused_reference, qconv_reference,
                              quantize_weights)
@@ -113,6 +116,8 @@ class QConv(nn.Module):
         return self.kernels and x.is_cuda and dtype == torch.bfloat16
 
     def forward(self, x, dtype=None):
+        forbid_grad('the int8 conv (QConv)', self.weight, self.bias,
+                    x[0] if isinstance(x, tuple) else x)
         wi, kscale, bias, packed = self.codes()
         if isinstance(x, tuple):
             x, ascale = x                                    # int8 NHWC codes
@@ -137,7 +142,9 @@ class QConv(nn.Module):
         epilogue of ``qconv_fused`` (FrozenBN ``affine``, ``residual``,
         ``relu``, int8 codes at ``out_scale``). Returns NHWC bf16, or
         ``(codes, out_scale)``; one kernel launch on a card (``kernels``
-        on), the plain composition otherwise."""
+        on), the plain composition otherwise. Neither has a backward."""
+        forbid_grad('the int8 conv (QConv)', self.weight, self.bias,
+                    x[0] if isinstance(x, tuple) else x)
         wi, kscale, bias, packed = self.codes()
         x, ascale = x if isinstance(x, tuple) else (x, self.act_scale())
         kw = dict(affine=affine, residual=residual, relu=relu,

@@ -1,8 +1,12 @@
-"""ResNet backbone (C2..C5), inference only.
+"""ResNet backbone (C2..C5).
 
 Port of ``r3det_tpu/models/resnet.py`` (``FrozenBN``, ``Bottleneck``,
 ``space_to_depth_2x``, ``ResNet`` with the folded space-to-depth stem).
-Depths 10, 14 and 50. Activations are NCHW tensors in
+Depths 10, 14 and 50. ``frozen_stages`` (mmcv's meaning; 1 in every
+shipped config) cuts gradients as the JAX package's ``stop_gradient``s
+do: with ``frozen_stages >= 0`` the stem, and stages 1..frozen_stages,
+run with gradients off, so their parameters get none and nothing flows
+back through them. Activations are NCHW tensors in
 ``torch.channels_last`` memory, i.e. NHWC bytes; the public input is the
 NHWC image. Parameters stay f32 and every layer computes in its input's
 dtype (``dtype`` for the whole trunk), as the flax modules do.
@@ -15,7 +19,10 @@ the conv and the pool run apart, and ``stem_pool_kernel`` takes K4 for the
 pool. ``quantize`` makes the stem and every bottleneck conv
 int8 (``models/quant.py``); ``fused_blocks`` sends stride-1 identity
 blocks through :mod:`..ops.bottleneck_fuse` (K5); ``int8_act`` stores each
-block input as int8 (serving, with ``quantize='static'``). A bf16
+block input as int8 (serving, with ``quantize='static'``). The stem
+under autograd (``frozen_stages < 0``) takes its plain form, as the JAX
+package does; K4, K5 and the int8 convs have no backward, and their routes
+raise under autograd (``ops/grad_guard.py``). A bf16
 ``quantize='static'`` block on a card runs each conv as one launch of the
 int8 conv kernel with its FrozenBN, ReLU, residual and the next conv's
 quantize fused (``Bottleneck.q8_fused_forward``). ``kernels`` off takes
@@ -29,6 +36,7 @@ from ..ops.bottleneck_fuse import (fold_bn, fused_bottleneck_packed,
                                    fused_bottleneck_q8_reference,
                                    fused_bottleneck_reference,
                                    pack_bottleneck)
+from ..ops.grad_guard import forbid_grad
 from ..ops.int8_conv import quantize_act
 from ..ops.stem_pool import (pack_stem, stem_conv_pool_cuda,
                              stem_conv_pool_q8_reference,
@@ -197,7 +205,9 @@ class Bottleneck(nn.Module):
 
     def _fused_forward(self, x):
         """The fused block: K5 (bf16, or int8 with 'static') on the cached
-        pack on a card with kernels on, its plain form otherwise."""
+        pack on a card with kernels on, its plain form otherwise. It has
+        no backward: under autograd it raises."""
+        forbid_grad('the fused bottleneck (K5)', x, *self.parameters())
         xs = x.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
         if self.kernels and xs.is_cuda:
             y = fused_bottleneck_packed(xs, self.fused_pack())
@@ -252,9 +262,11 @@ class ResNet(nn.Module):
 
     def __init__(self, depth=50, dtype=torch.float32, kernels=True,
                  stem_fused_kernel=True, stem_pool_kernel=False,
-                 quantize=False, fused_blocks=False, int8_act=False):
+                 quantize=False, fused_blocks=False, int8_act=False,
+                 frozen_stages=1):
         super().__init__()
         self.depth = depth
+        self.frozen_stages = frozen_stages
         self.dtype = dtype
         self.kernels = kernels
         self.stem_fused_kernel = stem_fused_kernel
@@ -300,7 +312,12 @@ class ResNet(nn.Module):
         return self._stem_pack[1]
 
     def stem(self, x12):
-        if self.stem_fused_kernel and self.stem_kernel_route(x12):
+        """The stem on the s2d image: K3 on its route unless gradients
+        reach the stem's weights (an unfrozen stem under autograd), which
+        take the plain form."""
+        grad = torch.is_grad_enabled() and self.conv1.kernel.requires_grad
+        if self.stem_fused_kernel and self.stem_kernel_route(x12) \
+                and not grad:
             return stem_conv_pool_cuda(x12.contiguous(), self.stem_pack())
         inv, off = self.stem_affine()
         args = (x12, self.conv1.kernel, inv, off, self.dtype)
@@ -313,11 +330,14 @@ class ResNet(nn.Module):
         return ref(*args)
 
     def forward(self, images):
-        x = self.stem(space_to_depth_2x(images.to(self.dtype)))
-        x = x.to(self.dtype).permute(0, 3, 1, 2)     # NCHW, channels_last
+        grad = torch.is_grad_enabled()
+        with torch.set_grad_enabled(grad and self.frozen_stages < 0):
+            x = self.stem(space_to_depth_2x(images.to(self.dtype)))
+            x = x.to(self.dtype).permute(0, 3, 1, 2)  # NCHW, channels_last
         outs = []
         for stage, num_blocks in enumerate(STAGE_BLOCKS[self.depth]):
-            for blk in range(num_blocks):
-                x = getattr(self, f'layer{stage + 1}_{blk}')(x)
+            with torch.set_grad_enabled(grad and stage >= self.frozen_stages):
+                for blk in range(num_blocks):
+                    x = getattr(self, f'layer{stage + 1}_{blk}')(x)
             outs.append(x)
         return tuple(outs)

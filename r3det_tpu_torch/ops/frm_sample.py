@@ -16,6 +16,15 @@ to the running sum in that dtype. The reference's transposed-coordinate
 quirk is on by default (row <- cx * scale, col <- cy * scale). Corner
 weights stay f32 (JAX's gather rounded them to ``feat``'s dtype; the band
 kernel kept f32).
+
+On CUDA tensors :func:`frm_sample_levels` is a ``torch.autograd.Function``
+over the flat ``(*xs, *feats)`` (``rois`` and the scales carry no
+gradient): its backward gives ``dx = g`` itself and ``dfeat = g + S^T g``,
+``S^T`` scattering each cell's gradient, times the f32 weights of the
+corners its points read, onto those corners, by one launch of K2's
+backward kernel for all levels (:func:`frm_sample_levels_bwd_cuda`,
+accumulating in f32 with atomics). Its plain version is autograd through
+:func:`frm_sample_levels_reference` (:func:`frm_sample_levels_bwd_reference`).
 """
 import ctypes
 
@@ -159,11 +168,11 @@ def frm_sample_cuda(x, feat, rois, spatial_scale, transpose_quirk=True):
 
 
 def frm_sample_levels_cuda(xs, feats, rois, scales, points=1,
-                           transpose_quirk=True):
+                           transpose_quirk=True, trig=None):
     """Launch the K2 kernel once for every level of an FRM stage (CUDA
     tensors). For points=5 the cos and sin of every box angle are taken
-    here, by PyTorch's own ops (as the plain form takes them), in one pass
-    over all levels' angles."""
+    here (unless given as ``trig``), by PyTorch's own ops (as the plain
+    form takes them), in one pass over all levels' angles."""
     n = len(feats)
     if not 1 <= n <= MAX_LEVELS or not len(xs) == len(rois) == len(scales) \
             == n:
@@ -178,7 +187,8 @@ def frm_sample_levels_cuda(xs, feats, rois, scales, points=1,
         _check_level(x, f, r, dev, b, c)
     _check_cuda(dev)
     outs = [torch.empty_like(f) for f in feats]
-    trig = angle_trig(rois) if points == 5 else None
+    if points == 5 and trig is None:
+        trig = angle_trig(rois)
     _ext.launch('frm_sample_levels', *levels_args(
         xs, feats, rois, outs, scales, trig, points, transpose_quirk))
     return outs
@@ -212,6 +222,86 @@ def levels_args(xs, feats, rois, outs, scales, trig, points, transpose_quirk):
             _ext.current_stream(feats[0].device))
 
 
+def frm_sample_levels_bwd_cuda(grads, rois, scales, points=1,
+                               transpose_quirk=True, trig=None):
+    """Launch K2's backward once for every level of a stage (CUDA tensors):
+    ``dfeat = bf16(g + S^T g)`` a level, from the output gradients
+    ``grads`` ((B, H, W, C) bf16, contiguous) and the forward's ``rois``,
+    ``scales`` and, for points=5, its ``trig`` (taken again when None)."""
+    n = len(grads)
+    if not 1 <= n <= MAX_LEVELS or not len(rois) == len(scales) == n:
+        raise ValueError(f'1 to {MAX_LEVELS} levels, each with a gradient, '
+                         f'rois and a scale; got {n}, {len(rois)} and '
+                         f'{len(scales)}')
+    if points not in (1, 5):
+        raise ValueError('points must be 1 or 5')
+    dev = grads[0].device
+    b, c = grads[0].shape[0], grads[0].shape[-1]
+    for g, r in zip(grads, rois):
+        _check_level(g, g, r, dev, b, c)
+    _check_cuda(dev)
+    if points == 5 and trig is None:
+        trig = angle_trig(rois)
+    # one zeroed buffer: each level's f32 sums (a multiple of 8 floats
+    # each, so every level starts 16-byte aligned), then the grid
+    # barrier's counter in the last 16 bytes
+    sizes = [g.numel() for g in grads]
+    buf = torch.zeros(sum(sizes) + 4, dtype=torch.float32, device=dev)
+    accs = list(torch.split(buf[:-4], sizes))
+    barrier = buf[-4:].view(torch.int32)
+    dfeats = [torch.empty_like(g) for g in grads]
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))
+    _ext.launch('frm_sample_bwd', n, ptrs(grads), ptrs(rois), ptrs(accs),
+                ptrs(dfeats), (ctypes.c_int * n)(*(g.shape[1] for g in grads)),
+                (ctypes.c_int * n)(*(g.shape[2] for g in grads)),
+                (ctypes.c_float * n)(*map(float, scales)),
+                None if trig is None else trig.data_ptr(),
+                barrier.data_ptr(), b, c, points, int(bool(transpose_quirk)),
+                _ext.current_stream(dev))
+    return dfeats
+
+
+def frm_sample_levels_bwd_reference(grads, rois, scales, points=1,
+                                    transpose_quirk=True):
+    """Plain version of :func:`frm_sample_levels_bwd_cuda`: ``dfeat`` of
+    every level by autograd through :func:`frm_sample_levels_reference`,
+    in the gradients' dtype (the sample is linear in ``feat``, so its
+    values do not matter: zeros stand in for them)."""
+    with torch.enable_grad():
+        feats = [torch.zeros_like(g, requires_grad=True) for g in grads]
+        outs = frm_sample_levels_reference(
+            [torch.zeros_like(g) for g in grads], feats, rois, scales, points,
+            transpose_quirk)
+        return list(torch.autograd.grad(outs, feats, grads))
+
+
+class FRMSampleLevels(torch.autograd.Function):
+    """K2 with its backward: ``apply(rois, scales, points, quirk, *xs,
+    *feats)`` -> the levels' outputs. Forward: one launch of the K2 kernel;
+    backward: ``dx = g`` (the gradient itself, no copy) and ``dfeat`` by one
+    launch of K2's backward kernel."""
+
+    @staticmethod
+    def forward(ctx, rois, scales, points, transpose_quirk, *tensors):
+        n = len(tensors) // 2
+        xs, feats = list(tensors[:n]), list(tensors[n:])
+        trig = angle_trig(rois) if points == 5 else None
+        outs = frm_sample_levels_cuda(xs, feats, rois, scales, points,
+                                      transpose_quirk, trig=trig)
+        ctx.meta = (rois, scales, points, transpose_quirk, trig)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        rois, scales, points, quirk, trig = ctx.meta
+        dfeats = frm_sample_levels_bwd_cuda(
+            [g.contiguous() for g in grads], rois, scales, points, quirk,
+            trig)
+        return (None, None, None, None, *grads, *dfeats)
+
+
 def frm_sample(x, feat, rois, spatial_scale, transpose_quirk=True):
     """FRM points=1 refinement of one level: ``x + (feat + sample)``.
 
@@ -228,9 +318,11 @@ def frm_sample_levels(xs, feats, rois, scales, points=1, transpose_quirk=True):
     """FRM refinement of every level of a stage, ``x + (feat + acc)`` a
     level: lists of (B, H, W, C) NHWC ``xs`` and ``feats``, (B, H*W, 5) f32
     ``rois`` and ``scales`` (1 / stride). CPU tensors take the plain form;
-    CUDA tensors launch the kernel once for all levels (bfloat16 only)."""
+    CUDA tensors launch the kernel once for all levels (bfloat16 only),
+    through :class:`FRMSampleLevels`, whose backward is K2's backward
+    kernel."""
     if feats[0].is_cuda:
-        return frm_sample_levels_cuda(xs, feats, rois, scales, points,
-                                      transpose_quirk)
+        return list(FRMSampleLevels.apply(rois, scales, points,
+                                          transpose_quirk, *xs, *feats))
     return frm_sample_levels_reference(xs, feats, rois, scales, points,
                                        transpose_quirk)

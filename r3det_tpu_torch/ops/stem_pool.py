@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _ext
+from .grad_guard import forbid_grad
 from .int8_conv import int8_conv_nhwc, quantize_act, quantize_weights
 
 CIN = 12
@@ -244,5 +245,6 @@ def stem_conv_pool_unfused(x12, kernel, scale, bias, dtype=torch.bfloat16,
         y = y.permute(0, 2, 3, 1)
     y = (y * scale + bias).clamp_min(0.0).to(dtype).contiguous()
     if pool_kernel and dtype == torch.bfloat16:
+        forbid_grad('the stem pool (K4)', y)
         return stem_pool(y)
     return stem_pool_reference(y)

@@ -170,6 +170,10 @@ def test_import_leaves_jax_out():
             'import r3det_tpu_torch.models.quant\n'
             'import r3det_tpu_torch.ops.bottleneck_fuse\n'
             'import r3det_tpu_torch.parallel.predict\n'
+            'import r3det_tpu_torch.parallel.train\n'
+            'import r3det_tpu_torch.core.targets\n'
+            'import r3det_tpu_torch.core.rtransforms\n'
+            'import r3det_tpu_torch.datasets.synthetic\n'
             'import r3det_tpu_torch.utils.convert\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "flax", "r3det_tpu")]\n'
@@ -178,3 +182,21 @@ def test_import_leaves_jax_out():
     proc = subprocess.run([sys.executable, '-c', code], cwd=root,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_package_sources_import_no_jax():
+    """No source of the port imports jax, flax or anything of r3det_tpu
+    (the JAX package), not even its numpy-only modules."""
+    import re
+    root = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), 'r3det_tpu_torch')
+    bad = re.compile(r'^\s*(import|from)\s+(jax|jaxlib|flax|optax|'
+                     r'r3det_tpu)(\.|\s|$)', re.M)
+    found = []
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith('.py'):
+                with open(os.path.join(dirpath, f)) as fh:
+                    found += [(f, m.group(0).strip())
+                              for m in bad.finditer(fh.read())]
+    assert not found, found

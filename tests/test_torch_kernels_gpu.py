@@ -721,3 +721,232 @@ def test_wrappers_raise_on_unsupported_cuda_inputs(cuda):
                       args[3][:32], None, *args[5:])
     with pytest.raises(ValueError):                        # f32 input
         Q.qconv_fused(args[0].float(), *args[1:], **kw)
+
+
+# ---------------------------------------------------------------------------
+# K2's backward (dfeat = g + S^T g) and the train step on the card
+# ---------------------------------------------------------------------------
+
+def bf16_ulp(v):
+    """One bf16 ulp at |v| (f32 tensor; 0 at 0)."""
+    m, e = torch.frexp(v)
+    return torch.where(v == 0, torch.zeros_like(v),
+                       torch.ldexp(torch.ones_like(v), e - 8))
+
+
+def frm_bwd_error(got, grads, rois, scales, points, quirk):
+    """K2's backward against its plain backward computed in f32 and
+    rounded to bf16. Bound a value: one bf16 ulp of the f32 reference plus
+    2^-14 of the sum of the absolute contributions A (|g| + sum |w g|,
+    the plain backward of |g|): the kernel's atomics and the plain scatter
+    sum the same f32 products in other orders, whose f32 roundings differ
+    by well under 2^-14 A for sums of a few thousand terms. Returns (the
+    largest excess over the bound, max |kernel - f32 reference|, max
+    |kernel - bf16 plain backward|)."""
+    ref32 = K2.frm_sample_levels_bwd_reference(
+        [g.float() for g in grads], rois, scales, points, quirk)
+    absum = K2.frm_sample_levels_bwd_reference(
+        [g.float().abs() for g in grads], rois, scales, points, quirk)
+    plain = K2.frm_sample_levels_bwd_reference(grads, rois, scales, points,
+                                               quirk)
+    excess, err, gap = -math.inf, 0.0, 0.0
+    for k, r, a, p in zip(got, ref32, absum, plain):
+        assert k.dtype == torch.bfloat16 and k.shape == r.shape
+        d = (k.float() - r.to(torch.bfloat16).float()).abs()
+        slack = 2.0 ** -14 * a
+        tol = bf16_ulp(r.abs() + slack) + slack
+        excess = max(excess, float((d - tol).max()))
+        err = max(err, float((k.float() - r).abs().max()))
+        gap = max(gap, float((k.float() - p.float()).abs().max()))
+    return excess, err, gap
+
+
+def colliding_rois(rng, b, sizes, target=(0.3, 0.6)):
+    """Rois that send every cell's centre to one point near a fixed
+    corner of each level (transposed quirk: row <- cx, col <- cy), and a
+    few to the map's clamped edge: every cell scatters onto the same four
+    corners."""
+    rois = []
+    for (h, w), stride in zip(sizes, (8, 16, 32, 64, 128)):
+        n = h * w
+        cx = np.full((b, n), target[0] * h * stride)
+        cy = np.full((b, n), target[1] * w * stride)
+        edge = rng.uniform(size=(b, n)) < 0.1
+        cx[edge] = (h - 0.5) * stride                  # clamped to h - 1
+        rois.append(np.stack([cx, cy, rng.uniform(8, 64, (b, n)),
+                              rng.uniform(8, 64, (b, n)),
+                              rng.uniform(-1.5, 1.5, (b, n))], -1)
+                    .astype(np.float32))
+    return rois
+
+
+FRM_BWD_CASES = {
+    'main': (FRM_CASES['main'][0], 256, 2, False),
+    'ragged': (FRM_CASES['ragged'][0], 264, 2, False),
+    'collide': (FRM_CASES['main'][0], 256, 2, True),
+    'batch1': (FRM_CASES['ragged'][0], 256, 1, False),
+    'batch3': (((24, 40), (12, 20), (6, 10), (3, 5), (2, 3)), 64, 3, False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('quirk', [True, False])
+@pytest.mark.parametrize('points', [1, 5])
+@pytest.mark.parametrize('case', list(FRM_BWD_CASES))
+def test_frm_sample_bwd_kernel_matches_f32_plain(cuda, case, points, quirk):
+    """K2's backward, all levels in one launch: within a bf16 ulp of the
+    f32 plain backward (frm_bwd_error), on the main-path levels, ragged
+    maps, edge and outside rois (frm_levels), a roi set where every cell
+    lands on one corner, points 1 and 5, batch 1 to 3."""
+    sizes, c, b, collide = FRM_BWD_CASES[case]
+    rng = np.random.RandomState(11 + points + 2 * quirk)
+    xs, feats, rois, scales = frm_levels(rng, b, sizes, c, cuda)
+    if collide:
+        rois = [torch.from_numpy(r).to(cuda)
+                for r in colliding_rois(rng, b, sizes)]
+    grads = [torch.from_numpy(rng.randn(*f.shape).astype(np.float32)).to(
+        cuda, torch.bfloat16) for f in feats]
+    before = _ext.LAUNCHES['frm_sample_bwd']
+    got = K2.frm_sample_levels_bwd_cuda(grads, rois, scales, points, quirk)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES['frm_sample_bwd'] == before + 1
+    excess, err, gap = frm_bwd_error(got, grads, rois, scales, points, quirk)
+    print(f'{case} points={points} quirk={quirk}: max|k - f32 ref| {err} '
+          f'max|k - bf16 plain| {gap} excess {excess}')
+    assert excess <= 0.0, (err, gap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('points', [1, 5])
+def test_frm_sample_function_wiring(cuda, points):
+    """FRMSampleLevels under autograd: one forward and one backward launch;
+    dx is the output gradient itself, dfeat K2's backward; and the adjoint
+    identity <dfeat, v> = <g, d out / d feat . v> against the plain f32
+    forward's linear map (a gradcheck of the wiring, in bf16's precision)."""
+    sizes, c = FRM_CASES['ragged']
+    rng = np.random.RandomState(20 + points)
+    xs, feats, rois, scales = frm_levels(rng, 2, sizes, c, cuda)
+    xs = [x.requires_grad_() for x in xs]
+    feats = [f.requires_grad_() for f in feats]
+    fwd = _ext.LAUNCHES['frm_sample']
+    bwd = _ext.LAUNCHES['frm_sample_bwd']
+    outs = K2.frm_sample_levels(xs, feats, rois, scales, points)
+    assert all(o.grad_fn is not None for o in outs)
+    grads = [torch.from_numpy(rng.randn(*o.shape).astype(np.float32)).to(
+        cuda, torch.bfloat16) for o in outs]
+    torch.autograd.backward(outs, grads)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES['frm_sample'] == fwd + 1
+    assert _ext.LAUNCHES['frm_sample_bwd'] == bwd + 1
+    for x, g in zip(xs, grads):
+        assert torch.equal(x.grad, g)
+    excess, _, _ = frm_bwd_error([f.grad for f in feats], grads, rois,
+                                 scales, points, True)
+    assert excess <= 0.0
+    # adjoint: <dfeat, v> against <g, v + S v> from the f32 plain forward.
+    # dfeat is rounded to bf16 (at most 2^-9 of each value): those errors
+    # are independent, so their sum stays within a few root-sum-squares of
+    # 2^-9 |dfeat_i v_i|; a missing or doubled term of the transpose moves
+    # it by hundreds of them
+    vs = [torch.from_numpy(rng.randn(*f.shape).astype(np.float32)).to(cuda)
+          for f in feats]
+    with torch.no_grad():
+        lin = K2.frm_sample_levels_reference(
+            [torch.zeros_like(v) for v in vs], vs, rois, scales, points)
+    terms = [f.grad.double() * v.double() for f, v in zip(feats, vs)]
+    lhs = sum(float(t.sum()) for t in terms)
+    rhs = sum(float((g.double() * o.double()).sum())
+              for g, o in zip(grads, lin))
+    rss = math.sqrt(sum(float(t.square().sum()) for t in terms))
+    assert abs(lhs - rhs) <= 8 * 2.0 ** -9 * rss, (lhs, rhs, rss)
+
+
+@pytest.mark.gpu
+def test_frm_sample_bwd_wrapper_checks(cuda):
+    x = torch.zeros(2, 8, 8, 256, device=cuda, dtype=torch.bfloat16)
+    rois = torch.zeros(2, 64, 5, device=cuda)
+    for g in (x.float(), x[..., :12].contiguous(), misaligned(x)):
+        with pytest.raises(ValueError):
+            K2.frm_sample_levels_bwd_cuda([g], [rois], [0.125])
+    with pytest.raises(ValueError):
+        K2.frm_sample_levels_bwd_cuda([x], [rois], [0.125], points=3)
+    with pytest.raises(ValueError):
+        K2.frm_sample_levels_bwd_cuda([x.cpu()], [rois.cpu()], [0.125])
+
+
+def tiny_train_setup(dev, frm_points=1):
+    """A small bf16 R3Det on the card (depth 10, width 32, one tower conv,
+    3 classes) with seeded weights, and a seeded batch of two 64^2
+    images, as a dict of card tensors."""
+    from r3det_tpu_torch.datasets.synthetic import SyntheticDetData
+    from r3det_tpu_torch.models.detectors import StageTrainCfg
+    cfg = DetectorConfig(
+        num_classes=3, stacked_convs=1, feat_channels=32, backbone_depth=10,
+        num_refine_stages=1, stage_loss_weights=(1.0,),
+        s0_train=StageTrainCfg(0.5, 0.4, 0.0, 'v1'),
+        sr_train=(StageTrainCfg(0.6, 0.5, 0.0, None),),
+        test=TestCfg(nms_pre=64, max_per_img=16))
+    model = build_detector(cfg, dtype=torch.bfloat16, device=dev,
+                           frm_points=frm_points)
+    model.load_state_dict(seeded_state_dict(model, 0))
+    data = SyntheticDetData(batch_size=2, size=64, max_gt=8, num_classes=3,
+                            seed=0).batch()
+    data['gt_bboxes'][..., :2] = np.clip(data['gt_bboxes'][..., :2], 8, 56)
+    data['gt_bboxes'][..., 2:4] /= 3
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    return cfg, model, batch
+
+
+def grad_rel_err(a, b):
+    """Relative L2 error of gradient lists a against b (None as zero):
+    over all parameters at once, and the worst parameter's among those
+    whose gradient is not zero."""
+    pairs = [(x, y) for x, y in zip(a, b) if x is not None or y is not None]
+    a = [x.float() if x is not None else torch.zeros_like(y, dtype=torch.float)
+         for x, y in pairs]
+    b = [y.float() if y is not None else torch.zeros_like(a[i])
+         for i, (_, y) in enumerate(pairs)]
+    num = sum(float((x - y).square().sum()) for x, y in zip(a, b))
+    den = sum(float(y.square().sum()) for y in b)
+    worst = max(float((x - y).norm() / y.norm()) for x, y in zip(a, b)
+                if float(y.norm()) > 0)
+    return math.sqrt(num / den), worst
+
+
+@pytest.mark.gpu
+def test_train_step_kernel_route_matches_plain(cuda):
+    """One bf16 train step of a small R3Det on the card: the kernel route
+    (K3 forward, K1 in the refine assignment, K2 forward and backward, one
+    launch each) against the plain route (use_kernels False) on the same
+    weights and batch. Losses within 2% (bf16 forwards that round a few
+    stem values apart); gradients within 5% relative L2 over all
+    parameters (the plain bf16 backward of the sample also sums its
+    scatter in bf16)."""
+    from r3det_tpu_torch.parallel.train import loss_and_grads
+    cfg, model, batch = tiny_train_setup(cuda)
+    sizes = ((8, 8), (4, 4), (2, 2), (1, 1), (1, 1))
+    _ext.reset_launches()
+    losses, grads = loss_and_grads(model, cfg, sizes, batch)
+    torch.cuda.synchronize()
+    launches = dict(_ext.LAUNCHES)
+    assert {k: launches[k] for k in ('rotated_iou', 'frm_sample',
+                                     'frm_sample_bwd', 'stem_conv_pool')} \
+        == dict(rotated_iou=1, frm_sample=1, frm_sample_bwd=1,
+                stem_conv_pool=1), launches
+    use_kernels(model, False)
+    try:
+        plain_losses, plain_grads = loss_and_grads(model, cfg, sizes, batch)
+    finally:
+        use_kernels(model, True)
+    for k, v in plain_losses.items():
+        assert torch.isfinite(losses[k]), k
+        assert abs(float(losses[k]) - float(v)) <= 0.02 * abs(float(v)), k
+    total, worst = grad_rel_err(grads, plain_grads)
+    print(f'grad rel L2: all {total}, worst parameter {worst}')
+    assert total <= 0.05
+    # the frozen stem and stage 1 get none
+    names = [n for n, _ in model.named_parameters()]
+    for n, g in zip(names, grads):
+        if n.startswith(('backbone.conv1', 'backbone.bn1',
+                         'backbone.layer1_')):
+            assert g is None, n

@@ -6,6 +6,7 @@ its plain version on a card.
 """
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -319,6 +320,29 @@ def test_frm_sample_levels_reference_matches_jax(points, quirk):
                                             jnp.asarray(r.numpy()), s,
                                             points, quirk))
         np.testing.assert_allclose(g.numpy(), want, rtol=0,
+                                   atol=1e-5 if points == 1 else 2e-5)
+
+
+@pytest.mark.parametrize('quirk', [True, False])
+@pytest.mark.parametrize('points', [1, 5])
+def test_frm_sample_levels_backward_matches_jax_vjp(points, quirk):
+    """K2's plain backward (autograd through the plain form,
+    frm_sample_levels_bwd_reference, which the kernel's backward is held
+    to on the card) against JAX's autodiff of feature_refine_sample, a
+    level at a time (f32: atol 1e-5, 2e-5 for the five-point sum)."""
+    rng = np.random.RandomState(10 + points + quirk)
+    xs, feats, rois, scales = frm_levels(rng, 2, FRM_SIZES, 32, 'cpu',
+                                         torch.float32)
+    grads = [torch.from_numpy(rng.randn(*f.shape).astype(np.float32))
+             for f in feats]
+    got = K2.frm_sample_levels_bwd_reference(grads, rois, scales, points,
+                                             quirk)
+    for d, g, f, r, s in zip(got, grads, feats, rois, scales):
+        _, vjp = jax.vjp(lambda v: j_frs(v, jnp.asarray(r.numpy()), s,
+                                         points, quirk),
+                         jnp.asarray(f.numpy()))
+        want = np.asarray(vjp(jnp.asarray(g.numpy()))[0])
+        np.testing.assert_allclose(d.numpy(), want, rtol=0,
                                    atol=1e-5 if points == 1 else 2e-5)
 
 

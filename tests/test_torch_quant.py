@@ -83,10 +83,12 @@ def test_qconv_matches_jax(conv, mode):
         ascale = np.float32(xn) / np.float32(127.0)
         xi = np.clip(np.round(x / ascale), -127, 127).astype(np.int8)
         want = jm.apply(v, (jnp.asarray(xi), jnp.asarray(ascale)))
-        got = tm((t(xi), torch.tensor(ascale)), torch.float32)
+        with torch.no_grad():           # QConv has no backward
+            got = tm((t(xi), torch.tensor(ascale)), torch.float32)
     else:
         want = jm.apply(v, jnp.asarray(x))
-        got = tm(t(x).permute(0, 3, 1, 2))
+        with torch.no_grad():
+            got = tm(t(x).permute(0, 3, 1, 2))
     got = got.permute(0, 2, 3, 1).detach().numpy()
     assert got.shape == want.shape
     assert_close(got, want, 1e-6)
@@ -99,7 +101,8 @@ def test_qconv_bf16_matches_jax():
     x, jm, v, tm = qconv_pair('3x3', seed=9)
     jm = jm.clone(dtype=jnp.bfloat16)
     want = jm.apply(v, jnp.asarray(x).astype(jnp.bfloat16))
-    got = tm(t(x).permute(0, 3, 1, 2).to(torch.bfloat16))
+    with torch.no_grad():               # QConv has no backward
+        got = tm(t(x).permute(0, 3, 1, 2).to(torch.bfloat16))
     assert got.dtype == torch.bfloat16
     assert_close(got.permute(0, 2, 3, 1).float().detach().numpy(), want,
                  2.0 ** -8)
