@@ -47,7 +47,25 @@ Phases, one line each (any failure raises and the exit code is 1):
    measured beside the bf16 path's. One ``[profile]`` line per path:
    ``torch.profiler`` over one step of the big batch, the top device
    kernels and the device's busy share. The stem kernel and K2 must run
-   once a predict step in both. Then the same weights in an f32 model at
+   once a predict step in both. Then the DOTA evaluation path
+   (``[eval]``): the port's fake-DOTA maker writes EVAL_IMAGES scenes split
+   into 512^2 patches (gap 128), ``configs/debug/r3det_tiny_fake_dota.py``
+   through the port's builder gives R3Det* tiny R50 (3 classes, full
+   width, bf16, seeded weights, the refine cls layer set as above) and
+   ``evaluate_dataset`` reads, decodes and resizes each patch to 1024^2 on
+   the card, predicts and undoes the scale. Checks: ground truth fed as
+   detections through ``merge_det`` and ``evaluate`` against the scenes'
+   own labels scores mAP 1.0, shifted by EVAL_SHIFT px under 0.1; the
+   transforms on the card equal the CPU's bit for bit; K1, K2 and K3 once
+   a predict step; kernel route against plain route (``_agreement`` >=
+   0.75 both ways, each class's AP both ways); the int8 serving
+   configuration calibrated on EVAL_CALIBRATE batches equal to its plain
+   route exactly (115 int8 conv launches a step); ``format_results``
+   writes the Task1 files and the zip. It prints images/s end to end and
+   the seconds in decoding, transforms, predict steps (median and range
+   over EVAL_REPEATS runs), ``merge_det`` and ``evaluate``, and the
+   decode's own split (``[eval_decode]``: file read, inflate, unfilter,
+   the rest). Then the same weights in an f32 model at
    batch 1: only NMS's IoU kernel may launch, and its outputs must equal
    its plain route's; and in bf16 with ``frm_points=5`` at batch 2 (the
    ``[frm5]`` line): K2 once a forward, outputs equal to the FRM's plain
@@ -89,6 +107,12 @@ BOTTLENECKS = (('C2', (BATCH, 256, 256, 256), 64),
                ('C3', (BATCH, 128, 128, 512), 128),
                ('C4', (BATCH, 64, 64, 1024), 256))
 ROUTE_BATCH = 2                   # batch of the opt-in routes
+EVAL_CONFIG = 'configs/debug/r3det_tiny_fake_dota.py'
+EVAL_IMAGES = 8                   # fake-DOTA scenes (700^2): 4 patches each
+EVAL_BATCH = 8
+EVAL_CALIBRATE = 2                # --calibrate-int8 batches
+EVAL_SHIFT = 99                   # px: ground truth moved off itself
+EVAL_REPEATS = 5                  # timed runs of the eval loop
 TRAIN_BATCH = 2                   # samples_per_gpu of the shipped config
 TRAIN_MAX_GT = 64
 TRAIN_WARMUP = 2                  # train steps before the timed ones
@@ -1067,6 +1091,281 @@ def end_to_end(dev, card):
                 biases=biases, cfg=cfg, step=step)
 
 
+def _padded_results(results):
+    """Per-image per-class (n, 6) arrays -> (dets (B, N, 6), labels (B, N),
+    num (B,)) tensors, the predict step's layout."""
+    import torch
+    n = max(1, max(sum(len(c) for c in r) for r in results))
+    dets = torch.zeros(len(results), n, 6)
+    labels = torch.full((len(results), n), -1, dtype=torch.long)
+    num = torch.zeros(len(results), dtype=torch.long)
+    for i, r in enumerate(results):
+        k = sum(len(c) for c in r)
+        dets[i, :k] = torch.cat([torch.from_numpy(c) for c in r])
+        labels[i, :k] = torch.cat([torch.full((len(c),), c_id)
+                                   for c_id, c in enumerate(r)])
+        num[i] = k
+    return dets, labels, num
+
+
+def _same_results(a, b):
+    import numpy as np
+    return all(np.array_equal(x, y) for ra, rb in zip(a, b)
+               for x, y in zip(ra, rb))
+
+
+def _ap_line(metrics):
+    return json.dumps({k: round(v, 6) for k, v in metrics.items()})
+
+
+def _spread(xs, fmt='.4f'):
+    """'median [min, max]' of a list of numbers."""
+    import statistics
+    return (f'{statistics.median(xs):{fmt}} '
+            f'[{min(xs):{fmt}}, {max(xs):{fmt}}]')
+
+
+def _decode_split(ds, repeats):
+    """Seconds, per pass over every image of ``ds`` (``repeats`` passes),
+    of each part of ``image_io.imread``: the file read, zlib's inflate,
+    the C++ unfilter, and the rest of ``decode_png`` (chunk parsing,
+    samples to BGR); the rest is the whole ``decode_png`` less inflate
+    and unfilter, each timed alone on the same bytes."""
+    import struct
+    import zlib
+
+    from r3det_tpu_torch.datasets import image_io
+    paths = [os.path.join(ds.img_folder, info['filename'])
+             for info in ds.data_infos]
+    runs = {k: [] for k in ('read', 'inflate', 'unfilter', 'rest')}
+    for _ in range(repeats):
+        t = dict.fromkeys(runs, 0.0)
+        for path in paths:
+            t0 = time.perf_counter()
+            with open(path, 'rb') as f:
+                data = f.read()
+            t1 = time.perf_counter()
+            chunks = list(image_io._chunks(data))
+            w, h, depth, ctype = struct.unpack(
+                '>IIBB', dict(chunks)[b'IHDR'][:10])
+            ch = image_io._CHANNELS[ctype]
+            idat = b''.join(b for k, b in chunks if k == b'IDAT')
+            t2 = time.perf_counter()
+            raw = zlib.decompress(idat)
+            t3 = time.perf_counter()
+            image_io.unfilter(raw, h, (w * ch * depth + 7) // 8,
+                              max(1, ch * depth // 8))
+            t4 = time.perf_counter()
+            image_io.decode_png(data)
+            t5 = time.perf_counter()
+            t['read'] += t1 - t0
+            t['inflate'] += t3 - t2
+            t['unfilter'] += t4 - t3
+            t['rest'] += (t5 - t4) - (t4 - t2)
+        for k in runs:
+            runs[k].append(t[k])
+    return runs
+
+
+def eval_path(dev, card):
+    """The DOTA evaluation path ([eval]); returns the launch counts of the
+    bf16 kernel route's run."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from r3det_tpu_torch import _ext
+    from r3det_tpu_torch.datasets.dota import DOTADataset
+    from r3det_tpu_torch.models.detectors import use_kernels
+    from r3det_tpu_torch.models.quant import calibrate
+    from r3det_tpu_torch.tools import make_fake_dota
+    from r3det_tpu_torch.tools.test import (calibration_batches,
+                                            pipeline_image_size)
+    from r3det_tpu_torch.utils.builder import build_from_config
+    from r3det_tpu_torch.utils.config import Config
+    from r3det_tpu_torch.utils.convert import seeded_state_dict
+    from r3det_tpu_torch.utils.eval_loop import (evaluate_dataset,
+                                                 test_pipeline,
+                                                 transform_batch)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, 'build', 'eval_smoke')
+    shutil.rmtree(work, ignore_errors=True)
+    raw, split = os.path.join(work, 'raw'), os.path.join(work, 'split')
+    t0 = time.perf_counter()
+    make_fake_dota.main(['--out', raw, '--split-out', split,
+                         '--num-images', str(EVAL_IMAGES)])
+    make_s = time.perf_counter() - t0
+    cfg = Config.fromfile(os.path.join(root, EVAL_CONFIG))
+    cfg.merge_from_options({'data.test.ann_file': split + '/annfiles/',
+                            'data.test.img_prefix': split + '/images/'})
+    test_d = cfg.data.test
+    model, det_cfg = build_from_config(cfg, dtype=torch.bfloat16, device=dev)
+    model.load_state_dict(seeded_state_dict(model, SEED))
+    ds = DOTADataset(test_d.ann_file, test_d.img_prefix,
+                     version=det_cfg.angle_version, filter_empty=False,
+                     classes=test_d.classes)
+    scenes = DOTADataset(raw + '/labelTxt/', raw + '/images/',
+                         version=det_cfg.angle_version, filter_empty=False,
+                         classes=test_d.classes)
+    hw = pipeline_image_size(test_d)
+    batches = -(-len(ds) // EVAL_BATCH)
+    check(hw == (SIZE, SIZE) and batches >= 4 and
+          len(ds) == batches * EVAL_BATCH,
+          f'{len(ds)} patches at {hw}: not >= 4 full batches at {SIZE}^2')
+
+    # the eval machinery alone: ground truth as detections, merged into the
+    # scenes and scored against the scenes' own labels
+    def oracle(shift):
+        res = []
+        for info in ds.data_infos:
+            b = info['ann']['bboxes'].copy()
+            b[:, 0] += shift
+            lbl = info['ann']['labels']
+            res.append([np.concatenate(
+                [b[lbl == c], np.full(((lbl == c).sum(), 1), 0.9,
+                                      np.float32)], -1)
+                for c in range(len(ds.CLASSES))])
+        ids, merged = ds.merge_det(res)
+        order = [ids.index(info['id']) for info in scenes.data_infos]
+        return scenes.evaluate([merged[i] for i in order], logger=None)
+    exact, shifted = oracle(0.0), oracle(float(EVAL_SHIFT))
+    phase('eval_oracle', scenes=len(scenes), patches=len(ds),
+          gts=sum(len(i['ann']['labels']) for i in scenes.data_infos),
+          mAP=exact['mAP'], shifted_mAP=shifted['mAP'], shift=EVAL_SHIFT)
+    check(exact['mAP'] == 1.0, 'ground truth as detections scores '
+                               f'mAP {exact["mAP"]}, not 1.0')
+    check(shifted['mAP'] < 0.1, 'ground truth shifted off itself scores '
+                                f'mAP {shifted["mAP"]}')
+
+    # the transforms on the card against the CPU, one decoded patch
+    sample = ds.get_sample(0)
+    outs = [transform_batch([dict(sample)], test_pipeline(hw)[0], where)[0]
+            .cpu() for where in ('cpu', dev)]
+    same_tf = torch.equal(outs[0], outs[1])
+    phase('eval_transforms', input=str(tuple(sample['img'].shape)),
+          output=str(tuple(outs[1].shape)), bit_equal=same_tf)
+    check(same_tf, 'RResize/Normalize/Pad on the card differ from the CPU')
+
+    # the refine cls layer from the seeded pass on the first batch, so that
+    # every patch sends detections through merge and mAP
+    first = calibration_batches(ds, 1, EVAL_BATCH, hw, dev)[0]
+    sizes = tuple((SIZE // s, SIZE // s) for s in det_cfg.strides)
+    _set_bias(model, calibrate_cls(model, first, sizes)['small'])
+
+    def run(m, mcfg=det_cfg, times=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = evaluate_dataset(m, mcfg, ds, img_size=hw,
+                               batch_size=EVAL_BATCH, times=times)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    results, first_s = run(model)
+    launches = dict(_ext.LAUNCHES)
+    phase('launches', path='eval', batches=batches, **launches)
+    for name in PATH_KERNELS['bf16']:
+        check(launches[name] == batches,
+              f'kernel {name} ran {launches[name]} times in {batches} '
+              'predict steps of the eval path, not once a step')
+    check(all(sum(len(c) for c in r) > 0 for r in results),
+          'a patch has no detection on the eval path')
+    # the timed runs: host clocks on a shared host vary from run to run,
+    # so EVAL_REPEATS runs, each split into its phases
+    splits = []
+    for _ in range(EVAL_REPEATS):
+        splits.append({})
+        _, splits[-1]['run'] = run(model, times=splits[-1])
+    decode = _decode_split(ds, EVAL_REPEATS)
+    t = time.perf_counter()
+    ids, merged = ds.merge_det(results)
+    merge_s = time.perf_counter() - t
+    t = time.perf_counter()
+    metrics = ds.evaluate(results, logger=None)
+    map_s = time.perf_counter() - t
+    use_kernels(model, False)
+    plain, plain_s = run(model)
+    use_kernels(model, True)
+    plain_metrics = ds.evaluate(plain, logger=None)
+    kd, pd = _padded_results(results), _padded_results(plain)
+    found, back = _agreement(kd, pd), _agreement(pd, kd)
+    spread = {k: _spread([sp[k] for sp in splits])
+              for k in ('run', 'decode', 'transforms', 'predict')}
+    phase('eval', config=EVAL_CONFIG, patches=len(ds), batch=EVAL_BATCH,
+          size=SIZE, repeats=EVAL_REPEATS,
+          images_per_s=_spread([len(ds) / sp['run'] for sp in splits],
+                               '.2f'),
+          first_run_s=f'{first_s:.3f}', run_s=spread['run'],
+          decode_s=spread['decode'], transforms_s=spread['transforms'],
+          predict_s=spread['predict'],
+          merge_s=f'{merge_s:.4f}', map_s=f'{map_s:.4f}',
+          make_fake_dota_s=f'{make_s:.2f}', merged_scenes=len(ids),
+          dets=int(kd[2].sum()), plain_dets=int(pd[2].sum()),
+          dets_found_in_plain=f'{found:.4f}',
+          plain_found_in_kernel=f'{back:.4f}', tol=0.75,
+          plain_run_s=f'{plain_s:.3f}', card=card)
+    phase('eval_decode', images=len(ds), repeats=EVAL_REPEATS,
+          **{f'{k}_s': _spread(v) for k, v in decode.items()}, card=card)
+    phase('eval_ap', kernel=_ap_line(metrics), plain=_ap_line(plain_metrics))
+    check(min(found, back) >= 0.75,
+          'kernel and plain detections disagree on the eval path')
+
+    out_dir = os.path.join(work, 'submission')
+    zip_path = ds.format_results(results, out_dir)
+    task1 = sorted(f for f in os.listdir(out_dir) if f.startswith('Task1_'))
+    phase('eval_format', files=len(task1), zip=os.path.relpath(zip_path, root),
+          zip_bytes=os.path.getsize(zip_path))
+    check(len(task1) == len(ds.CLASSES) and os.path.getsize(zip_path) > 0,
+          'format_results did not write a Task1 file a class and the zip')
+
+    # the int8 serving configuration on the same weights, calibrated as
+    # the test CLI's --calibrate-int8 does
+    state = model.state_dict()
+    del model
+    torch.cuda.empty_cache()
+    cfg.merge_from_options({'model.quantize_int8': 'static',
+                            'model.quantize_head_int8': 'static',
+                            'model.int8_act': True})
+    model_q, cfg_q = build_from_config(cfg, dtype=torch.bfloat16, device=dev)
+    missing, unexpected = model_q.load_state_dict(state, strict=False)
+    check(not unexpected and all(k.endswith(('act_absmax', 'in_absmax'))
+                                 for k in missing),
+          f'state dict mismatch: {missing[:3]} {unexpected[:3]}')
+    with torch.no_grad():
+        calibrate(model_q, calibration_batches(ds, EVAL_CALIBRATE,
+                                               EVAL_BATCH, hw, dev))
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    q_results, _ = run(model_q, cfg_q)
+    q_launches = dict(_ext.LAUNCHES)
+    phase('launches', path='eval_int8', batches=batches, **q_launches)
+    for name, per_step in (('rotated_iou', 1), ('frm_sample', 1),
+                           ('stem_conv_pool_q8', 1),
+                           ('int8_conv', INT8_QCONVS)):
+        check(q_launches[name] == per_step * batches,
+              f'kernel {name} ran {q_launches[name]} times in {batches} '
+              f'int8 predict steps, not {per_step} a step')
+    _, q_s = run(model_q, cfg_q)
+    use_kernels(model_q, False)
+    q_plain, _ = run(model_q, cfg_q)
+    use_kernels(model_q, True)
+    same = _same_results(q_results, q_plain)
+    phase('eval_int8', calibrated_batches=EVAL_CALIBRATE,
+          images_per_s=f'{len(ds) / q_s:.2f}',
+          dets=sum(len(c) for r in q_results for c in r),
+          equal_to_plain=same, card=card)
+    phase('eval_ap', path='int8',
+          kernel=_ap_line(ds.evaluate(q_results, logger=None)),
+          plain=_ap_line(ds.evaluate(q_plain, logger=None)))
+    check(same, 'the int8 eval path differs from its plain route')
+    del model_q
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
@@ -1547,6 +1846,7 @@ def main():
     base = end_to_end(dev, smi)
     launches = {'bf16': base['launches']}
     launches['int8'], model_q = int8_serving(dev, smi, base)
+    launches['eval'] = eval_path(dev, smi)
     launches['f32'] = f32_model(dev, smi, base)
     launches['frm5'] = frm5_model(dev, smi, base)
     launches.update(opt_in_routes(dev, base, model_q))

@@ -950,3 +950,77 @@ def test_train_step_kernel_route_matches_plain(cuda):
         if n.startswith(('backbone.conv1', 'backbone.bn1',
                          'backbone.layer1_')):
             assert g is None, n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('hw,scale', [((512, 512), (1024, 1024)),
+                                      ((700, 333), (1024, 1024)),
+                                      ((64, 64), (32, 32)),
+                                      ((3, 2), (800, 800))])
+def test_eval_transforms_on_card_equal_cpu(cuda, hw, scale):
+    """RResize (cv2's INTER_LINEAR in integers), Normalize and Pad on the
+    card equal their CPU result bit for bit."""
+    from r3det_tpu_torch.datasets.transforms import Normalize, Pad, RResize
+    img = np.random.RandomState(hw[0]).randint(0, 256, hw + (3,), np.uint8)
+    canvas = tuple(-(-d // 32) * 32 for d in scale[::-1])
+    outs = []
+    for dev in ('cpu', cuda):
+        r = dict(img=torch.from_numpy(img).to(dev))
+        for stage in (RResize(scale), Normalize(), Pad(32, fixed_size=canvas)):
+            r = stage(r)
+        outs.append(r)
+    assert outs[1]['img'].device.type == 'cuda'
+    assert torch.equal(outs[0]['img'], outs[1]['img'].cpu())
+    assert outs[0]['img_shape'] == outs[1]['img_shape']
+    np.testing.assert_array_equal(outs[0]['scale_factor'],
+                                  outs[1]['scale_factor'])
+
+
+def _found(a, b):
+    """Fraction of run a's detections (per image, per class) found in run
+    b: same class, box and score within 1e-2 relative."""
+    found = total = 0
+    for ra, rb in zip(a, b):
+        for xa, xb in zip(ra, rb):
+            total += len(xa)
+            if len(xa) and len(xb):
+                d = np.abs(xa[:, None] - xb[None])
+                found += int((d <= 1e-2 * (np.abs(xa[:, None]) + 1)).all(-1)
+                             .any(1).sum())
+    return found / max(total, 1)
+
+
+@pytest.mark.gpu
+def test_evaluate_dataset_kernel_route_matches_plain(cuda, tmp_path):
+    """The eval loop on a small bf16 R3Det over a fake-DOTA split at 256^2:
+    K1, K2 and K3 once a predict step; its detections found in the plain
+    route's (use_kernels False) and back at 0.75 or more."""
+    from r3det_tpu_torch.datasets.dota import DOTADataset
+    from r3det_tpu_torch.tools import make_fake_dota
+    from r3det_tpu_torch.utils.eval_loop import evaluate_dataset
+    split = str(tmp_path / 'split')
+    make_fake_dota.main(['--out', str(tmp_path / 'raw'), '--split-out',
+                         split, '--num-images', '1'])
+    ds = DOTADataset(split + '/annfiles/', split + '/images/',
+                     filter_empty=False, classes=make_fake_dota.CLASSES)
+    cfg = DetectorConfig(num_classes=3, stacked_convs=2, feat_channels=32,
+                         backbone_depth=10, num_refine_stages=1,
+                         test=TestCfg(nms_pre=64, max_per_img=16))
+    model = build_detector(cfg, dtype=torch.bfloat16, device=cuda)
+    model.load_state_dict(seeded_state_dict(model, 0))
+    with torch.no_grad():
+        model.refine_head_0.retina_cls.bias.zero_()   # every score live
+    _ext.reset_launches()
+    got = evaluate_dataset(model, cfg, ds, img_size=256, batch_size=2)
+    torch.cuda.synchronize()
+    steps = -(-len(ds) // 2)
+    assert {k: _ext.LAUNCHES[k] for k in ('rotated_iou', 'frm_sample',
+                                          'stem_conv_pool')} == dict(
+        rotated_iou=steps, frm_sample=steps, stem_conv_pool=steps)
+    use_kernels(model, False)
+    try:
+        plain = evaluate_dataset(model, cfg, ds, img_size=256, batch_size=2)
+    finally:
+        use_kernels(model, True)
+    assert all(sum(len(c) for c in r) > 0 for r in got)
+    assert min(_found(got, plain), _found(plain, got)) >= 0.75
