@@ -81,7 +81,26 @@ Phases, one line each (any failure raises and the exit code is 1):
    (``use_kernels(model, False)``) on the same weights and batch; then
    TRAIN_WARMUP steps and TRAIN_STEPS timed steps (CUDA events) on the same
    batch: every loss finite, the last total below the first, K1, K2, K2's
-   backward and K3 once a step, ms a step, images/s and peak memory.
+   backward and K3 once a step, ms a step, images/s and peak memory. The
+   ``[train_f32]`` line holds each bf16 route's gradients against one f32
+   step of the same weights and batch (relative L2, overall and the worst
+   five parameters; which route lies nearer);
+7. the train CLI from DOTA files (``[train_cli]``), in a temporary
+   directory: the port's fake-DOTA maker writes EVAL_IMAGES scenes split
+   into 512^2 patches; ``tools/train.py``'s ``main`` trains R3Det R50 as
+   shipped (``configs/r3det/r3det_r50_fpn_1x_dota_v1.py``, batch 2 of
+   1024^2, seeded weights) for TRAIN_CLI_STEPS[0] steps, saves a
+   checkpoint and runs the eval hook (its mAP printed); the checkpoint
+   restored into a new model and optimizer equals the saved state bit for
+   bit; the CLI resumed from it to TRAIN_CLI_STEPS[1] continues the step,
+   the update count and the LR, its losses finite, K1, K2, K2's backward
+   and K3 once a step; ms a step, images/s and the share of the loop's
+   time spent waiting in ``next(loader)`` over the resumed run's steps
+   after TRAIN_CLI_WARMUP, its peak memory, and a ``[profile]`` line of
+   one iteration (the loader's next batch and a step). Then rotated
+   RetinaNet with PolyRandomRotate (``rretinanet_obb_r50_fpn_1x_dota_
+   ms_rr_v3.py``) trains 4 steps, and its first batch from the card's
+   pipeline equals the CPU pipeline's (images bit for bit, boxes exactly).
 
 Prints the kernels' JSON record on the line before the last, and as the
 last line ``{"ok": true, "device": {...}}``. Needs one card; exits non-zero
@@ -117,6 +136,11 @@ TRAIN_BATCH = 2                   # samples_per_gpu of the shipped config
 TRAIN_MAX_GT = 64
 TRAIN_WARMUP = 2                  # train steps before the timed ones
 TRAIN_STEPS = 8                   # timed train steps
+TRAIN_CLI_CONFIG = 'configs/r3det/r3det_r50_fpn_1x_dota_v1.py'
+TRAIN_CLI_ROTATE = ('configs/rretinanet/'
+                    'rretinanet_obb_r50_fpn_1x_dota_ms_rr_v3.py')
+TRAIN_CLI_STEPS = (4, 8)          # run 1's steps, then resumed to
+TRAIN_CLI_WARMUP = 1              # steps of a run left out of its times
 # [train]: the kernel route's one-step losses and gradients against the
 # plain route's. Both compute in bf16: the stem kernel rounds a few outputs
 # a bf16 ulp apart from the plain stem, which moves everything after it
@@ -1759,7 +1783,27 @@ def train_path(dev, card):
           'kernel-route gradients drift from the plain route')
     check(per[0][0] <= TRAIN_PARAM_RTOL,
           f'the gradient of {per[0][1]} drifts from the plain route')
-    del grads, plain_grads
+    # F7: each bf16 route against one f32 step of the same weights and
+    # batch (an f32 model takes the plain routes)
+    model.zero_grad(set_to_none=True)
+    f32 = build_detector(cfg, dtype=torch.float32, device=dev)
+    f32.load_state_dict(model.state_dict())
+    f32_losses, f32_grads = loss_and_grads(f32, cfg, sizes, batch)
+    del f32
+    kernel_f32, kernel_per = _grad_errors(grads, f32_grads, names)
+    plain_f32, plain_per = _grad_errors(plain_grads, f32_grads, names)
+    phase('train_f32', f32_losses=json.dumps(
+              {k: float(v) for k, v in f32_losses.items()}),
+          kernel_grad_rel_l2=f'{kernel_f32:.6f}',
+          plain_grad_rel_l2=f'{plain_f32:.6f}',
+          kernel_worst=json.dumps([[n, round(e, 6)]
+                                   for e, n in kernel_per[:5]]),
+          plain_worst=json.dumps([[n, round(e, 6)]
+                                  for e, n in plain_per[:5]]),
+          nearer='kernel' if kernel_f32 < plain_f32 else 'plain', card=card)
+    check(all(math.isfinite(float(v)) for v in f32_losses.values()),
+          'a non-finite loss in the f32 step')
+    del grads, plain_grads, f32_grads
     model.zero_grad(set_to_none=True)
     torch.cuda.empty_cache()
 
@@ -1814,6 +1858,172 @@ def train_path(dev, card):
     return launches
 
 
+def _cli_times(run, warm=TRAIN_CLI_WARMUP):
+    """ms a step, images/s and the share of the loop's wall time spent
+    waiting in next(loader), over a CLI run's steps after ``warm``."""
+    iters, waits = run['iter_s'][warm:], run['wait_s'][warm:]
+    ms = 1e3 * sum(iters) / len(iters)
+    return ms, TRAIN_BATCH * 1e3 / ms, sum(waits) / sum(iters)
+
+
+def train_cli_path(dev, card):
+    """Phase 7 ([train_cli]): the train CLI from DOTA files. Run 1: R3Det
+    R50 as shipped, batch 2 of 1024^2, TRAIN_CLI_STEPS[0] steps with the
+    eval hook at the end, a checkpoint restored into a new model bit for
+    bit, then resumed to TRAIN_CLI_STEPS[1] (the timed run; K1, K2, K2's
+    backward and K3 once a step). Run 2: rotated RetinaNet with
+    PolyRandomRotate (v3), whose first batch from the card's pipeline
+    equals the CPU's. Returns the resumed run's launch counts."""
+    import tempfile
+
+    import torch
+
+    from r3det_tpu_torch import _ext
+    from r3det_tpu_torch.parallel.train import (make_optimizer,
+                                                make_train_step)
+    from r3det_tpu_torch.tools import make_fake_dota
+    from r3det_tpu_torch.tools import train as train_cli
+    from r3det_tpu_torch.utils.builder import (build_from_config,
+                                               detector_config_from_dict)
+    from r3det_tpu_torch.utils.checkpoint import restore_checkpoint
+    from r3det_tpu_torch.utils.config import Config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix='train_cli_') as work:
+        raw, split = os.path.join(work, 'raw'), os.path.join(work, 'split')
+        make_fake_dota.main(['--out', raw, '--split-out', split,
+                             '--num-images', str(EVAL_IMAGES)])
+        data = [f'data.{s}.{k}={split}/{d}/' for s in ('train', 'val')
+                for k, d in (('ann_file', 'annfiles'),
+                             ('img_prefix', 'images'))]
+
+        def argv(config, out, *extra, options=()):
+            return [os.path.join(root, config), '--work-dir', out,
+                    '--log-interval', '1', '--seed', str(SEED), *extra,
+                    '--cfg-options', *data, *options]
+
+        # run 1: 4 steps, a checkpoint at the end, then the eval hook
+        first = train_cli.main(argv(
+            TRAIN_CLI_CONFIG, os.path.join(work, 'run1'), '--max-steps',
+            str(TRAIN_CLI_STEPS[0]), options=['checkpoint_config.interval=1',
+                                              'evaluation.interval=1']))
+        ckpt = os.path.join(work, 'run1', 'ckpt',
+                            f'step_{TRAIN_CLI_STEPS[0]}.pt')
+        check(os.path.exists(ckpt) and first['metrics'] is not None,
+              'run 1 wrote no checkpoint or ran no eval hook')
+        check(all(math.isfinite(h['total']) for h in first['history']),
+              'a non-finite loss in run 1')
+        first_map = first['metrics']['mAP']
+        saved = {k: v.detach().clone()
+                 for k, v in first['model'].state_dict().items()}
+        saved_trace = [t.clone() for t in first['optimizer'].trace]
+        saved_count = first['optimizer'].count
+        first_times = _cli_times(first)
+        cfg = Config.fromfile(os.path.join(root, TRAIN_CLI_CONFIG))
+        cfg.merge_from_options(dict(kv.split('=', 1) for kv in data))
+        del first
+        torch.cuda.empty_cache()
+
+        # the checkpoint into a new model and optimizer, bit for bit
+        model, det_cfg = build_from_config(cfg, dtype=torch.bfloat16,
+                                           device=dev)
+        opt = make_optimizer(model.parameters())
+        step_at = restore_checkpoint(ckpt, model, opt)
+        restored = (step_at == TRAIN_CLI_STEPS[0] and
+                    opt.count == saved_count == TRAIN_CLI_STEPS[0] and
+                    all(torch.equal(v, saved[k])
+                        for k, v in model.state_dict().items()) and
+                    all(torch.equal(a, b) for a, b in
+                        zip(opt.trace, saved_trace)))
+        del model, opt, saved, saved_trace
+        torch.cuda.empty_cache()
+        check(restored, 'the restored state differs from the saved one')
+
+        # resumed to step 8: the timed run, its launches counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _ext.reset_launches()
+        second = train_cli.main(argv(
+            TRAIN_CLI_CONFIG, os.path.join(work, 'run1b'), '--max-steps',
+            str(TRAIN_CLI_STEPS[1]), '--resume-from', ckpt,
+            options=['evaluation.interval=0']))
+        torch.cuda.synchronize()
+        launches = dict(_ext.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        steps = TRAIN_CLI_STEPS[1] - TRAIN_CLI_STEPS[0]
+        phase('launches', path='train_cli', steps=steps, **launches)
+        for name in PATH_KERNELS['train']:
+            check(launches[name] == steps,
+                  f'kernel {name} ran {launches[name]} times in {steps} '
+                  'train CLI steps, not once a step')
+        hist = second['history']
+        check([h['step'] for h in hist] ==
+              list(range(TRAIN_CLI_STEPS[0] + 1, TRAIN_CLI_STEPS[1] + 1)) and
+              second['optimizer'].count == TRAIN_CLI_STEPS[1] and
+              all(h['lr'] == second['optimizer'].lr_schedule(h['step'])
+                  for h in hist),
+              'the resumed run did not continue the step, count and LR')
+        check(all(math.isfinite(v) for h in hist for k, v in h.items()
+                  if k != 'step'), 'a non-finite train CLI loss')
+        ms, ips, wait = _cli_times(second)
+
+        # one profiled iteration: the loader's next batch and a step
+        step = make_train_step(second['model'], det_cfg,
+                               tuple((SIZE // s, SIZE // s)
+                                     for s in det_cfg.strides),
+                               optimizer=second['optimizer'], device=dev)
+        loader, _, _ = train_cli.build_train_loader(
+            cfg, det_cfg, TRAIN_BATCH, SEED, dev)
+        it = iter(loader)
+        profile_step(lambda _: step(next(it)), None, 'train_cli', card,
+                     batch=TRAIN_BATCH)
+        it.close()
+        phase('train_cli', config=TRAIN_CLI_CONFIG, batch=TRAIN_BATCH,
+              size=SIZE, steps=f'{TRAIN_CLI_STEPS[0]}+'
+              f'{steps} (resumed at {step_at})',
+              ms_per_step=f'{ms:.3f}', images_per_s=f'{ips:.2f}',
+              loader_wait_share=f'{wait:.4f}',
+              run1_ms_per_step=f'{first_times[0]:.3f}',
+              run1_loader_wait_share=f'{first_times[2]:.4f}',
+              timed_steps=len(second['iter_s']) - TRAIN_CLI_WARMUP,
+              max_memory_allocated_gb=f'{peak / 2 ** 30:.3f}',
+              losses=json.dumps([round(h['total'], 5) for h in hist]),
+              run1_val_map=f'{first_map:.4f}', card=card)
+        del second, step, loader, it
+        torch.cuda.empty_cache()
+
+        # run 2: PolyRandomRotate (v3); the card's first batch is the CPU's
+        rcfg = Config.fromfile(os.path.join(root, TRAIN_CLI_ROTATE))
+        rcfg.merge_from_options(dict(kv.split('=', 1) for kv in data))
+        rdet = detector_config_from_dict(rcfg.to_dict()['model'])
+        batches = []
+        for d in (dev, 'cpu'):
+            loader, _, _ = train_cli.build_train_loader(
+                rcfg, rdet, TRAIN_BATCH, SEED, d)
+            it = iter(loader)
+            batches.append({k: v.cpu() for k, v in next(it).items()})
+            it.close()
+        same_img = torch.equal(batches[0]['image'], batches[1]['image'])
+        same_gt = all(torch.equal(batches[0][k], batches[1][k])
+                      for k in ('gt_bboxes', 'gt_labels', 'gt_mask'))
+        rot = train_cli.main(argv(
+            TRAIN_CLI_ROTATE, os.path.join(work, 'run2'), '--max-steps',
+            '4', options=['evaluation.interval=0']))
+        phase('train_cli_rotate', config=TRAIN_CLI_ROTATE,
+              batch=TRAIN_BATCH, steps=rot['step'],
+              card_equals_cpu_image=same_img, card_equals_cpu_gt=same_gt,
+              gt=int(batches[0]['gt_mask'].sum()),
+              losses=json.dumps([round(h['total'], 5)
+                                 for h in rot['history']]), card=card)
+        check(same_img and same_gt, "the card's train pipeline differs "
+              "from the CPU's on the first batch")
+        check(all(math.isfinite(h['total']) for h in rot['history']),
+              'a non-finite loss in the rotation run')
+        del rot
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
 
@@ -1853,6 +2063,7 @@ def main():
     del base, model_q
     torch.cuda.empty_cache()
     launches['train'] = train_path(dev, smi)
+    launches['train_cli'] = train_cli_path(dev, smi)
     kernels = [dict(name=k, route='cuda', source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches[PATH_OF[k]][k],
                     max_abs_err=rec[k]['max_abs_err'], ms=rec[k]['ms'],

@@ -7,8 +7,9 @@ builds, this CPU's feature flags, so a copy of the tree on another machine
 builds its own:
 
 - ``host_ops`` from ``r3det_tpu_torch/csrc/host_ops.cpp``: the PNG row
-  unfilter of :mod:`..datasets.image_io` and the minimum-area rectangle
-  of :mod:`..core.rtransforms_np`. Built without ``-march=native`` and
+  unfilter of :mod:`..datasets.image_io`, the minimum-area rectangle
+  of :mod:`..core.rtransforms_np` and the affine point transform of
+  :mod:`..datasets.transforms`. Built without ``-march=native`` and
   with ``-ffp-contract=off``, so its float32 arithmetic rounds as
   OpenCV's SSE build does.
 - ``polygeo`` from the repository's ``csrc/polygon_iou.cpp``, the polygon
@@ -125,6 +126,9 @@ def host_ops():
     # points (N, 4, 2) f32, out (N, 5) f32, N
     lib.min_area_rect.argtypes = [_P, _P, _I64]
     lib.min_area_rect.restype = None
+    # points (N, 2) f64, m (2, 3) f64, out (N, 2) f64, N
+    lib.transform_points.argtypes = [_P, _P, _P, _I64]
+    lib.transform_points.restype = None
     return lib
 
 

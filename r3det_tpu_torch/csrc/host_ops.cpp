@@ -4,6 +4,8 @@
 //       filter type is not one of PNG's five
 //   min_area_rect(points, out, n)  (n, 4, 2) f32 quads -> (n, 5) f32
 //       (cx, cy, w, h, angle in degrees)
+//   transform_points(points, m, out, n)  (n, 2) f64 points through the
+//       2x3 f64 affine m -> (n, 2) f64, as cv2.transform computes it
 //
 // min_area_rect returns what OpenCV 5.0's cv::minAreaRect returns for the
 // four points: the convex hull by Sklansky's scan (cv::convexHull,
@@ -373,6 +375,26 @@ int64_t png_unfilter(const uint8_t* in, uint8_t* out, int64_t height,
 void min_area_rect(const float* points, float* out, int64_t n) {
   for (int64_t i = 0; i < n; ++i)
     min_area_rect_one(points + 8 * i, out + 5 * i);
+}
+
+// cv::transform of OpenCV 5.0 (x86-64 build) as found by comparison with
+// cv2.transform, bit-equal: a matrix whose off-diagonal entries are both
+// within DBL_EPSILON of 0 takes its diagonal path, fma(m0, x, m2); any
+// other computes m0*x + m1*y + m2 contracted as fma(m0, x, m1*y) + m2
+// (the unfused sum and fma(m1, y, m0*x) + m2 differ from it).
+void transform_points(const double* points, const double* m, double* out,
+                      int64_t n) {
+  bool diag = std::fabs(m[1]) <= DBL_EPSILON && std::fabs(m[3]) <= DBL_EPSILON;
+  for (int64_t i = 0; i < n; ++i) {
+    double x = points[2 * i], y = points[2 * i + 1];
+    if (diag) {
+      out[2 * i] = std::fma(m[0], x, m[2]);
+      out[2 * i + 1] = std::fma(m[4], y, m[5]);
+    } else {
+      out[2 * i] = std::fma(m[0], x, m[1] * y) + m[2];
+      out[2 * i + 1] = std::fma(m[3], x, m[4] * y) + m[5];
+    }
+  }
 }
 
 }  // extern "C"

@@ -29,16 +29,20 @@ from .image_io import imread
 
 
 def _safe_default_nproc(cap):
-    """Fork-pool default that degrades to serial once CUDA is live.
+    """Fork-pool default that degrades to serial once CUDA is live or
+    another thread runs.
 
     os.fork() after CUDA initialization is unsafe (the child inherits a
     driver context it cannot use), and merge_det / evaluate run on the
-    test CLI's path after the predict steps. Standalone offline evaluation
-    keeps the pool. Callers can always pass nproc explicitly; results do
-    not depend on it.
+    test CLI's path after the predict steps; so is a fork beside running
+    threads (the train CLI evaluates while its loader's threads run).
+    Standalone offline evaluation keeps the pool. Callers can always pass
+    nproc explicitly; results do not depend on it.
     """
+    import threading
+
     import torch
-    if torch.cuda.is_initialized():
+    if torch.cuda.is_initialized() or threading.active_count() > 1:
         return 1
     return max(1, min(os.cpu_count() or 1, cap))
 

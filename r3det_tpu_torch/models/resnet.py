@@ -28,6 +28,7 @@ int8 conv kernel with its FrozenBN, ReLU, residual and the next conv's
 quantize fused (``Bottleneck.q8_fused_forward``). ``kernels`` off takes
 every plain version.
 """
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -246,6 +247,22 @@ def space_to_depth_2x(x):
     b, h, w, c = x.shape
     x = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(b, h // 2, w // 2, 4 * c)
+
+
+def fold_stem_kernel(w7):
+    """Fold a (7, 7, C, O) HWIO stride-2 stem kernel (numpy) into the
+    equivalent (4, 4, 4C, O) stride-1 kernel over a space-to-depth(2)
+    input: a copy of ``r3det_tpu/models/resnet.py::fold_stem_kernel``.
+
+    Exact identity: out[i,j] = sum_{u,v in 0..7} W8[u,v] x[2i+u-4, 2j+v-4]
+    with W8 = pad(w7, left/top 1); substituting u = 2p+a, v = 2q+b packs
+    (a, b, c) into the new input-channel axis."""
+    w7 = np.asarray(w7)
+    c, o = w7.shape[2], w7.shape[3]
+    w8 = np.zeros((8, 8, c, o), w7.dtype)
+    w8[1:, 1:] = w7
+    wp = w8.reshape(4, 2, 4, 2, c, o).transpose(0, 2, 1, 3, 4, 5)
+    return wp.reshape(4, 4, 4 * c, o)
 
 
 class _StemConv(nn.Module):

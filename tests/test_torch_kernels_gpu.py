@@ -1024,3 +1024,49 @@ def test_evaluate_dataset_kernel_route_matches_plain(cuda, tmp_path):
         use_kernels(model, True)
     assert all(sum(len(c) for c in r) > 0 for r in got)
     assert min(_found(got, plain), _found(plain, got)) >= 0.75
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('hw,angle,dsize', [
+    ((1024, 1024), 37.5, (1024, 1024)), ((700, 333), -121.0, (718, 372)),
+    ((513, 1000), 90, (1000, 513)), ((31, 17), 180, (40, 25))])
+def test_warp_affine_on_card_equals_cpu(cuda, hw, angle, dsize):
+    """The train pipeline's warpAffine (float32 with fused multiply-adds
+    done in float64, held to cv2 on the CPU) gives the CPU's result on
+    the card, bit for bit."""
+    from r3det_tpu_torch.datasets.transforms import (get_rotation_matrix_2d,
+                                                     warp_affine_linear)
+    img = np.random.RandomState(hw[1]).randint(0, 256, hw + (3,), np.uint8)
+    m = get_rotation_matrix_2d((hw[1] / 2 - 0.5, hw[0] / 2 - 0.5), angle, 1)
+    want = warp_affine_linear(torch.from_numpy(img), m, dsize)
+    got = warp_affine_linear(torch.from_numpy(img).to(cuda), m, dsize)
+    assert got.device.type == 'cuda'
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_train_loader_on_card_equals_cpu(cuda, tmp_path):
+    """DetLoader + TrainPipeline (RResize, flip, PolyRandomRotate v3,
+    Normalize, Pad) over a fake-DOTA split: the card's batches equal the
+    CPU's, images bit for bit, boxes exactly."""
+    from r3det_tpu_torch.datasets.dota import DOTADataset
+    from r3det_tpu_torch.datasets.loader import DetLoader
+    from r3det_tpu_torch.datasets.transforms import TrainPipeline
+    from r3det_tpu_torch.tools import make_fake_dota
+    split = str(tmp_path / 'split')
+    make_fake_dota.main(['--out', str(tmp_path / 'raw'), '--split-out',
+                         split, '--num-images', '1'])
+    ds = DOTADataset(split + '/annfiles/', split + '/images/', version='v3',
+                     classes=make_fake_dota.CLASSES)
+    runs = []
+    for dev in ('cpu', cuda):
+        pipe = TrainPipeline((1024, 1024), version='v3', with_rotate=True,
+                             rotate_kwargs=dict(rotate_ratio=1.0), max_gt=32,
+                             seed=4, device=dev)
+        pipe.pad_to(1024, 1024)
+        runs.append([{k: v.cpu() for k, v in b.items()} for b in DetLoader(
+            ds, pipe, batch_size=2, seed=1, num_workers=2, device=dev)])
+    assert len(runs[0]) == len(runs[1]) > 0
+    for a, b in zip(*runs):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
