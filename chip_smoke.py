@@ -354,6 +354,25 @@ def frm_rois(rng, b, h, w, stride):
     return rois.reshape(b, h * w, 5).astype(np.float32)
 
 
+def frm_collide_rois(rng, b):
+    """Rois that send the centre of every cell of a level to one point
+    (0.3, 0.6) of the map (transposed quirk: row <- cx, col <- cy), and a
+    tenth of them to its clamped last row: corner rows of thousands of
+    contributions for K2's backward."""
+    import numpy as np
+    rois = []
+    for s in FRM_SIZES:
+        stride, n = SIZE // s, s * s
+        cx = np.full((b, n), 0.3 * s * stride)
+        cy = np.full((b, n), 0.6 * s * stride)
+        cx[rng.uniform(size=(b, n)) < 0.1] = (s - 0.5) * stride
+        rois.append(np.stack([cx, cy, rng.uniform(8, 64, (b, n)),
+                              rng.uniform(8, 64, (b, n)),
+                              rng.uniform(-1.5, 1.5, (b, n))], -1)
+                    .astype(np.float32))
+    return rois
+
+
 def frm_inputs(rng, dev, batch=BATCH):
     """K2's main-path inputs: the five levels' (x, feat, rois, scales) of
     ``batch`` images, bf16 x and feat of FRM_CHANNELS."""
@@ -395,7 +414,7 @@ def frm_bwd_check(got, grads, rois, scales, points):
     through frm_sample_levels_reference on f32 gradients) and rounded to
     bf16. Bound a value: one bf16 ulp of the f32 reference plus 2^-14 of
     the sum of its absolute contributions A (the plain backward of |g|):
-    the kernel's f32 atomics and the plain scatter sum the same f32
+    the kernel's ordered f32 sums and the plain scatter sum the same f32
     products in other orders. Returns (the largest excess over the bound,
     max |kernel - f32 reference|, max |kernel - bf16 plain backward|)."""
     from r3det_tpu_torch.ops import frm_sample as K2
@@ -418,11 +437,31 @@ def frm_bwd_check(got, grads, rois, scales, points):
     return excess, err, gap
 
 
+def frm_bwd_segments(rois, scales, points, sizes):
+    """The corner rows' contribution counts of K2's backward on these rois
+    (every row of every level and image): mean, p99 and max."""
+    import torch
+
+    from r3det_tpu_torch.ops import frm_sample as K2
+    counts = []
+    for r, sc, (b, h, w) in zip(rois, scales, sizes):
+        key, _ = K2.bwd_contributions(r, sc, h, w, points)
+        counts.append(torch.bincount(key[key >= 0], minlength=b * h * w))
+    c = torch.cat(counts).float()
+    return (f'{float(c.mean()):.3f}', f'{float(c.quantile(0.99)):.0f}',
+            int(c.max()))
+
+
 def frm_bwd_kernel(dev, rng):
     """K2's backward at the training shapes (the five levels of a 1024^2
     image, TRAIN_BATCH, FRM_CHANNELS), points 1 (the recorded row) and 5:
-    one launch for the five levels, within frm_bwd_check's bound; timed
-    beside the plain bf16 backward (autograd of the plain forward)."""
+    one launch for the five levels, bit for bit equal to its ordered plain
+    form (frm_sample_levels_bwd_ordered on CPU copies), three launches
+    bit for bit alike, within frm_bwd_check's bound; timed beside the plain
+    bf16 backward (autograd of the plain forward), on colliding rois (every
+    cell on one corner), and beside an f32 index_add_ of the precomputed
+    weighted rows (scatter_only_ms: a comparison, no PyTorch call computes
+    the function)."""
     import numpy as np
     import torch
 
@@ -431,18 +470,41 @@ def frm_bwd_kernel(dev, rng):
     xs, feats, rois, scales = frm_inputs(rng, dev, TRAIN_BATCH)
     grads = [torch.from_numpy(rng.randn(*f.shape).astype(np.float32)).to(
         dev, torch.bfloat16) for f in feats]
+    collide = [torch.from_numpy(r).to(dev)
+               for r in frm_collide_rois(rng, TRAIN_BATCH)]
+    sizes = [tuple(g.shape[:3]) for g in grads]
     rec = None
     for points in (1, 5):
+        trig = K2.angle_trig(rois) if points == 5 else None
         before = _ext.LAUNCHES['frm_sample_bwd']
-        got = K2.frm_sample_levels_bwd_cuda(grads, rois, scales, points)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        got = K2.frm_sample_levels_bwd_cuda(grads, rois, scales, points,
+                                            trig=trig)
         torch.cuda.synchronize()
+        peak_mb = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
         check(_ext.LAUNCHES['frm_sample_bwd'] == before + 1,
               'K2 backward: one launch for the five levels')
-        excess, err, gap = frm_bwd_check(got, grads, rois, scales, points)
+        want = K2.frm_sample_levels_bwd_ordered(
+            [g.cpu() for g in grads], [r.cpu() for r in rois], scales,
+            points, True, None if trig is None else trig.cpu())
+        exact = all(torch.equal(k.cpu().view(torch.int16),
+                                w.view(torch.int16))
+                    for k, w in zip(got, want))
+        err = max(float((k.cpu().float() - w.float()).abs().max())
+                  for k, w in zip(got, want))
+        del want
+        same = all(all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                       for a, b in zip(got, K2.frm_sample_levels_bwd_cuda(
+                           grads, rois, scales, points, trig=trig)))
+                   for _ in range(2))
+        excess, err32, gap = frm_bwd_check(got, grads, rois, scales, points)
         del got
-        trig = K2.angle_trig(rois) if points == 5 else None
         ms = cuda_ms(lambda: K2.frm_sample_levels_bwd_cuda(
             grads, rois, scales, points, trig=trig), 20)
+        ctrig = K2.angle_trig(collide) if points == 5 else None
+        collide_ms = cuda_ms(lambda: K2.frm_sample_levels_bwd_cuda(
+            grads, collide, scales, points, trig=ctrig), 5)
         # the plain backward alone: autograd of the plain bf16 forward,
         # its graph built once
         with torch.enable_grad():
@@ -452,29 +514,58 @@ def frm_bwd_kernel(dev, rng):
             plain_ms = cuda_ms(lambda: torch.autograd.grad(
                 outs, fs, grads, retain_graph=True), 5)
         del fs, outs
+        # an f32 scatter of the weighted rows, precomputed: the atomics
+        # alone, no setup and no final add
+        keys, rows, begin = [], [], 0
+        for g, r, sc, (b, h, w) in zip(grads, rois, scales, sizes):
+            key, wt = K2.bwd_contributions(
+                r, sc, h, w, points, True,
+                None if trig is None else
+                trig[:, begin:begin + b * h * w].reshape(2, b, h * w))
+            src = torch.arange(key.numel(), device=dev) // (4 * points)
+            keep = key >= 0
+            keys.append(key[keep] + begin)
+            rows.append(wt[keep, None] * g.reshape(b * h * w, -1)[
+                src[keep]].float())
+            begin += b * h * w
+        keys, rows = torch.cat(keys), torch.cat(rows)
+        acc = torch.zeros(begin, rows.shape[1], device=dev)
+        scatter_ms = cuda_ms(lambda: acc.index_add_(0, keys, rows), 5)
+        contributions = keys.numel()
+        del keys, rows, acc
         # g read and dfeat written (bf16), the rois (and trig) read; per
         # value points x 4 corners x (a product, a sum) and g + acc. The
-        # f32 sums' own traffic, counted apart: the zero fill, each
-        # corner's 16-byte read and write at L2, the final read.
+        # workspace's own traffic, counted apart: a (corner row, weight)
+        # slot and a CSR id a contribution slot (12 bytes)
         values = sum(g.numel() for g in grads)
         nbytes = 2 * values * 2 + sum(r.numel() for r in rois) * 4 + \
             (0 if trig is None else trig.numel() * 4)
-        acc_bytes = values * 4 * 2 + values * 4 * points * 2
+        index_bytes = 12 * 4 * points * begin
         r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None)
         b_ms, by = add_bound(r, nbytes, values * (8 * points + 1), 'f32')
+        mean, p99, top = frm_bwd_segments(rois, scales, points, sizes)
+        cmean, cp99, ctop = frm_bwd_segments(collide, scales, points, sizes)
         phase('kernel', name='frm_sample_bwd', points=points,
               levels=str([tuple(g.shape) for g in grads]), launches_a_call=1,
-              max_abs_err=err, bf16_autograd_gap=gap,
+              bit_equal_ordered=exact, max_abs_err=err, deterministic=same,
+              f32_err=err32, bf16_autograd_gap=gap,
               tol='1 bf16 ulp + 2^-14 sum|w g|', excess=excess,
               ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
-              bound_ms=f'{b_ms:.4f}', bound_by=by, acc_bytes=acc_bytes,
-              acc_ms_at_hbm=f'{acc_bytes / HBM_BYTES_PER_S * 1e3:.4f}',
+              bound_ms=f'{b_ms:.4f}', bound_by=by,
+              contributions=contributions, index_bytes=index_bytes,
+              peak_mb=f'{peak_mb:.1f}', segments_mean=mean, segments_p99=p99,
+              segments_max=top, collide_ms=f'{collide_ms:.4f}',
+              collide_segments_mean=cmean, collide_segments_p99=cp99,
+              collide_segments_max=ctop, scatter_only_ms=f'{scatter_ms:.4f}',
               library_ms=None)
+        check(exact, f'frm_sample_bwd points={points} is not bit-equal to '
+                     f'its ordered plain form')
+        check(same, f'frm_sample_bwd points={points} is not deterministic')
         check(excess <= 0.0, f'frm_sample_bwd points={points} disagrees '
                              f'with its f32 plain backward')
         if points == 1:
             rec = r
-    del xs, feats, rois, grads
+    del xs, feats, rois, grads, collide
     torch.cuda.empty_cache()
     return rec
 

@@ -38,6 +38,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 # C entry points (csrc/*.cu): each returns the cudaError_t of its launch
 _SIGNATURES = {
     # boxes1, boxes2, valid_count|NULL, out, B, N, M, mode, upper_only,
@@ -51,11 +52,12 @@ _SIGNATURES = {
     # points, transpose_quirk, stream
     'frm_sample_levels': (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _P),
-    # K2's backward: L, host arrays of the L levels' g, rois, acc (f32),
-    # dfeat pointers, H, W (int) and spatial_scale (float), trig | NULL,
-    # barrier (one zeroed uint32), B, C, points, transpose_quirk, stream
-    'frm_sample_bwd': (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                       _I, _P),
+    # K2's backward: L, host arrays of the L levels' g, rois, dfeat
+    # pointers, H, W (int) and spatial_scale (float), trig | NULL, the
+    # zeroed int32 workspace and its size, the other workspace and its
+    # size, B, C, points, transpose_quirk, stream
+    'frm_sample_bwd': (_I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _P, _LL, _I,
+                       _I, _I, _I, _P),
     # x12, packed weights (4, 64, 56), scale, bias, out, B, H, W, SMs,
     # stream
     'stem_conv_pool': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -42,6 +42,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 namespace {
@@ -56,14 +57,12 @@ constexpr int kWarpChannels = 32 * kVec;
 constexpr int kRoiFloats = kTileCells * 5;
 static_assert(kRoiFloats <= 2 * kThreads, "a tile's rois: two a thread");
 
-// the backward reads x as the output gradient g, writes out as dfeat and
-// scatters into acc; the forward leaves acc unused
+// the backward reads x as the output gradient g and writes out as dfeat
 struct Level {
   const __nv_bfloat16* x;
   const __nv_bfloat16* feat;
   const float* rois;
   __nv_bfloat16* out;
-  float* acc;
   int H, W;
   float scale;
   int tiles_w;       // tiles across the map
@@ -379,12 +378,11 @@ bool aligned16(const void* ptr) {
   return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
 }
 
-// the launch parameters of L levels (x, feat, out: 16-byte aligned bf16;
-// acc: 16-byte aligned f32 or absent); false on an argument the kernels do
-// not take
+// the launch parameters of L levels (x, feat, out: 16-byte aligned bf16);
+// false on an argument the kernels do not take
 bool make_params(Params& p, int L, const void* const* x,
                  const void* const* feat, const void* const* rois,
-                 void* const* out, void* const* acc, const int* H,
+                 void* const* out, const int* H,
                  const int* W, const float* scale, const void* trig, int B,
                  int C, int points, int quirk) {
   if (L < 1 || L > kMaxLevels || B < 0 || C <= 0 || C % kVec != 0 ||
@@ -394,15 +392,13 @@ bool make_params(Params& p, int L, const void* const* x,
   long long tiles = 0, cells = 0;
   for (int l = 0; l < L; ++l) {
     if (H[l] < 0 || W[l] < 0 || !aligned16(x[l]) ||
-        (feat != nullptr && !aligned16(feat[l])) || !aligned16(out[l]) ||
-        (acc != nullptr && !aligned16(acc[l])))
+        (feat != nullptr && !aligned16(feat[l])) || !aligned16(out[l]))
       return false;
     Level& v = p.lv[l];
     v.x = static_cast<const __nv_bfloat16*>(x[l]);
     v.feat = feat ? static_cast<const __nv_bfloat16*>(feat[l]) : nullptr;
     v.rois = static_cast<const float*>(rois[l]);
     v.out = static_cast<__nv_bfloat16*>(out[l]);
-    v.acc = acc ? static_cast<float*>(acc[l]) : nullptr;
     v.H = H[l];
     v.W = W[l];
     v.scale = scale[l];
@@ -429,8 +425,8 @@ int frm_levels(int L, const void* const* x, const void* const* feat,
                int C, int points, int quirk, void* stream) {
   Params p;
   if (feat == nullptr ||
-      !make_params(p, L, x, feat, rois, out, nullptr, H, W, scale, trig, B,
-                   C, points, quirk))
+      !make_params(p, L, x, feat, rois, out, H, W, scale, trig, B, C, points,
+                   quirk))
     return static_cast<int>(cudaErrorInvalidValue);
   if (p.tiles == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -438,149 +434,481 @@ int frm_levels(int L, const void* const* x, const void* const* feat,
 }
 
 // ---------------------------------------------------------------------------
-// The backward: dfeat_l = g_l + S_l^T g_l (dx_l = g_l needs no kernel).
+// The backward: dfeat_l = bf16(g_l + acc_l), acc_l = S_l^T g_l in f32
+// (dx_l = g_l needs no kernel).
 //
 // No TPU kernel stands behind it: on the TPU the gradient is XLA's
 // scatter-add from autodiff of r3det_tpu/models/frm.py::bilinear_sample.
-// S_l^T scatters each cell's gradient row, times the f32 weight of each
-// corner its points read in the forward (the same inside test, clamp and
-// weights, point_setup), onto those corner cells. One cooperative launch
-// for all levels of a stage, in two phases split by a grid barrier:
-// 1. scatter: the forward's persistent walk over 8 x 8-cell tiles, a warp
-//    a cell, a lane 8 channels; each corner row gets two 16-byte f32
-//    vector atomics a lane (float4 atomicAdd, sm_90; the result unused, so
-//    a reduction) into the level's f32 buffer acc (zeroed by the caller);
-// 2. dfeat = bf16(g + acc), the same walk.
-// The sum into a corner is not deterministic in its order: atomics from
-// many cells (every cell of a small level can land on one corner) arrive
-// in whatever order the blocks run, so acc may differ from run to run in
-// its last f32 bits, and dfeat in rare bf16 roundings. A deterministic
-// gather form (an inverse map from each corner to the cells that read it)
-// is the alternative.
-// What bounds it on the H100: memory. g is read twice and dfeat written
-// once (bf16), the rois read once; the f32 buffer takes the atomics' read
-// and write at L2 (a 4 to 20-fold collision-dependent traffic that mostly
-// stays in the 50 MB L2 at the training shapes) and one read.
+// S_l^T sends each cell's gradient row, times the f32 weight of each corner
+// its points read in the forward (the same inside test, clamp and weights,
+// point_setup), onto those corner rows.
+//
+// The sum is a gather in a fixed order, so the result is deterministic and
+// equal bit for bit to ops/frm_sample.py::frm_sample_levels_bwd_ordered.
+// The contributions of a level and image are numbered e = ((cell * P) + q)
+// * 4 + k (cell row-major, k the corner in bilinear_sample's order y0x0,
+// y0x1, y1x0, y1x1); each corner row sums its contributions' f32 products
+// w * g_cell in ascending e from +0.0f, each product rounded and then added.
+// A row with more than kChunk contributions sums consecutive chunks of
+// kChunk ids (in ascending e) from +0.0f each, then adds the chunk sums in
+// order from +0.0f. A row that no point reads gets g + 0.0f.
+//
+// One cooperative launch for all levels of a stage, five phases split by
+// grid barriers (the contribution id e runs over all levels and images):
+// 1. setup: a thread a point runs point_setup and writes its 4 (corner row,
+//    weight) slots at e, counting each row's contributions with int
+//    atomics (the counts do not depend on the order);
+// 2. each block sums the counts of its range of rows;
+// 3. each block scans its range on top of the sums before it: the row
+//    offsets of a CSR map, a cursor a row, and the list of long rows;
+// 4. fill: each e goes into its row's segment through the row's cursor
+//    (an int atomic: the order within a segment is not yet fixed);
+// 5. sort and gather: a warp a row of at most kChunk ids ranks its ids
+//    (unique, so the ranks are) into shared memory and walks them in
+//    order, a lane 8 channels (one 16-byte bf16 vector of a 256-channel g
+//    row), four rows of g in flight, then writes bf16(g + acc) once; a
+//    block a long row sorts its ids through a bitmap in shared memory and
+//    sums a kChunk-id chunk a warp, adding the chunk sums in order.
+// No float atomics and no f32 buffer: the workspace is the (row, weight)
+// slots and the CSR ids, 12 bytes a contribution, and per-row ints.
+// What bounds it on the H100: g is read once a contribution (4P times a
+// row, mostly from the 50 MB L2) and once more for its own row, dfeat
+// written once; the four grid barriers and the atomics of phases 1 and 4
+// come on top (perf/k2_bwd.py times the phases).
 // ---------------------------------------------------------------------------
 
+constexpr int kChunk = 256;          // ids a chunk of a long row
+constexpr int kMaxGrid = 1024;       // blocks of the backward at most
+constexpr int kBitmapWords = 2048;   // a long row's sort window: 65536 ids
+constexpr int kRankSlots = kChunk / 32;
+// debug switches for perf/k2_bwd.py (the outputs are then wrong): stop
+// after phase kStopAfter (0..5), walk the ids unsorted, sort but skip the
+// gather, stamp the phases' ends (block 0, %globaltimer) into the stamps
+constexpr int kStopAfter = 5;
+constexpr bool kCutSort = false;
+constexpr bool kCutGather = false;
+constexpr bool kPhaseClock = false;
+
+// the workspace of R rows and N contribution slots (N a multiple of 4):
+// zeroed: count (R, then each row's cursor), the barrier, the long-row
+// count, 8 stamps; ws: offs (R + 1), block sums, long rows (R), slot rows
+// (N; phase 5 reuses them for a long row's sorted ids), slot weights (N),
+// CSR ids (N)
+struct Work {
+  int* count;
+  unsigned int* barrier;
+  int* nlong;
+  unsigned long long* stamps;
+  int* offs;
+  int* bsum;
+  int* longs;
+  int* key;
+  float* w;
+  int* csr;
+};
+
+inline size_t round4(size_t n) { return (n + 3) & ~size_t{3}; }
+
+inline size_t zeroed_ints(size_t R) { return round4(R) + 4 + 16; }
+inline size_t ws_ints(size_t R, size_t N) {
+  return round4(R + 1) + kMaxGrid + round4(R) + 3 * N;
+}
+
+Work make_work(int* zeroed, int* ws, size_t R, size_t N) {
+  Work k;
+  k.count = zeroed;
+  k.barrier = reinterpret_cast<unsigned int*>(zeroed + round4(R));
+  k.nlong = zeroed + round4(R) + 1;
+  k.stamps = reinterpret_cast<unsigned long long*>(zeroed + round4(R) + 4);
+  k.offs = ws;
+  k.bsum = k.offs + round4(R + 1);
+  k.longs = k.bsum + kMaxGrid;
+  k.key = k.longs + round4(R);
+  k.w = reinterpret_cast<float*>(k.key + N);
+  k.csr = k.key + 2 * N;
+  return k;
+}
+
 // a grid-wide barrier for a cooperative launch (every block resident):
-// each block arrives once at *count, then waits for all gridDim.x
-__device__ __forceinline__ void grid_barrier(unsigned int* count) {
+// the n-th barrier of a launch waits until *count reaches n * gridDim.x
+__device__ __forceinline__ void grid_barrier(unsigned int* count,
+                                             unsigned int& target) {
+  target += gridDim.x;
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) {
     atomicAdd(count, 1u);
-    while (*reinterpret_cast<volatile unsigned int*>(count) < gridDim.x)
+    while (*reinterpret_cast<volatile unsigned int*>(count) < target)
       __nanosleep(64);
     __threadfence();
   }
   __syncthreads();
 }
 
-__device__ __forceinline__ void red_add4(float* dst, float a, float b,
-                                         float c, float d) {
-  atomicAdd(reinterpret_cast<float4*>(dst), make_float4(a, b, c, d));
+__device__ __forceinline__ void stamp(const Work& k, int i) {
+  if (kPhaseClock && blockIdx.x == 0 && threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    k.stamps[i] = t;
+  }
 }
 
-// one cell's gradient row g, times each point's corner weights, added
-// into the corner rows of acc
+__device__ __forceinline__ int level_of(const Params& p, int cell) {
+  int l = 0;
+  while (l + 1 < p.L && cell >= p.lv[l + 1].cell_begin) ++l;
+  return l;
+}
+
+// the block's sum of v (every thread gets it); s holds kWarps ints
+__device__ __forceinline__ int block_sum(int v, int* s) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) v += __shfl_xor_sync(0xffffffffu, v, o);
+  __syncthreads();
+  if (lane == 0) s[warp] = v;
+  __syncthreads();
+  int t = 0;
+#pragma unroll
+  for (int i = 0; i < kWarps; ++i) t += s[i];
+  return t;
+}
+
+// the block's exclusive scan of v; total gets the block's sum; s holds
+// kWarps ints
+__device__ __forceinline__ int block_scan(int v, int* s, int& total) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int inc = v;
+#pragma unroll
+  for (int o = 1; o < 32; o *= 2) {
+    const int u = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += u;
+  }
+  __syncthreads();
+  if (lane == 31) s[warp] = inc;
+  __syncthreads();
+  int before = 0;
+  total = 0;
+#pragma unroll
+  for (int i = 0; i < kWarps; ++i) {
+    before += i < warp ? s[i] : 0;
+    total += s[i];
+  }
+  return before + inc - v;
+}
+
+// phase 1: the 4 slots of point q of every cell, a thread a point
 template <int P>
-__device__ __forceinline__ void scatter_cell(const Level& v, int C,
-                                             size_t img, size_t row,
-                                             int cell, const Geo* geo,
-                                             int lane) {
-  for (int c = lane * kVec; c < C; c += kWarpChannels) {
-    float gf[kVec];
-    unpack(__ldcs(reinterpret_cast<const uint4*>(v.x + row + c)), gf);
+__device__ __forceinline__ void setup_slots(const Params& p, const Work& k) {
+  const int points = p.cells * P;
+  for (int t = blockIdx.x * kThreads + threadIdx.x; t < points;
+       t += gridDim.x * kThreads) {
+    const int gcell = t / P, q = t - gcell * P;
+    const Level& v = p.lv[level_of(p, gcell)];
+    const int local = gcell - v.cell_begin;
+    const int img = local - local % (v.H * v.W) + v.cell_begin;
+    float roi[5];
 #pragma unroll
-    for (int q = 0; q < P; ++q) {
-      const Geo g = geo[q * kTileCells + cell];
-      if (g.idx.x < 0) continue;                      // outside: nothing
-      const int id[4] = {g.idx.x, g.idx.y, g.idx.z, g.idx.w};
-      const float w[4] = {g.w.x, g.w.y, g.w.z, g.w.w};
+    for (int i = 0; i < 5; ++i)
+      roi[i] = __ldg(v.rois + static_cast<size_t>(local) * 5 + i);
+    const Geo g = point_setup(
+        roi, q, P == 5 ? __ldg(p.trig + gcell) : 0.0f,
+        P == 5 ? __ldg(p.trig + p.cells + gcell) : 0.0f, v.scale, p.quirk,
+        v.H, v.W);
+    int4 key = make_int4(-1, -1, -1, -1);
+    if (g.idx.x >= 0) {
+      key = make_int4(img + g.idx.x, img + g.idx.y, img + g.idx.z,
+                      img + g.idx.w);
+      atomicAdd(k.count + key.x, 1);
+      atomicAdd(k.count + key.y, 1);
+      atomicAdd(k.count + key.z, 1);
+      atomicAdd(k.count + key.w, 1);
+    }
+    reinterpret_cast<int4*>(k.key)[t] = key;
+    reinterpret_cast<float4*>(k.w)[t] = g.w;
+  }
+}
+
+// the rows [r0, r1) of this block
+__device__ __forceinline__ void block_rows(const Params& p, int& r0,
+                                           int& r1) {
+  const int per = (p.cells + gridDim.x - 1) / gridDim.x;
+  r0 = min(static_cast<int>(blockIdx.x) * per, p.cells);
+  r1 = min(r0 + per, p.cells);
+}
+
+// phase 3: offs and cursors of the block's rows, and its long rows
+__device__ __forceinline__ void scan_rows(const Params& p, const Work& k,
+                                          int* s) {
+  int r0, r1;
+  block_rows(p, r0, r1);
+  const int before = blockIdx.x;
+  int carry = 0;
+  for (int i = threadIdx.x; i < before; i += kThreads)
+    carry += __ldcg(k.bsum + i);
+  carry = block_sum(carry, s);
+  for (int base = r0; base < r1; base += kThreads) {
+    const int r = base + threadIdx.x;
+    const int n = r < r1 ? __ldcg(k.count + r) : 0;
+    int total;
+    const int off = carry + block_scan(n, s, total);
+    if (r < r1) {
+      k.offs[r] = off;
+      k.count[r] = off;
+      if (n > kChunk) k.longs[atomicAdd(k.nlong, 1)] = r;
+    }
+    carry += total;
+  }
+  if (r1 == p.cells && r0 < r1 && threadIdx.x == 0) k.offs[p.cells] = carry;
+}
+
+// g's row of cell gcell (a cell of level v), channels from c
+__device__ __forceinline__ const __nv_bfloat16* g_row(const Level& v, int C,
+                                                      int gcell, int c) {
+  return v.x + static_cast<size_t>(gcell - v.cell_begin) * C + c;
+}
+
+// acc += w[id] * g[cell of id] over ids[0..n) in order, channels c..c+8;
+// four rows in flight
+template <int P>
+__device__ __forceinline__ void gather(const Level& v, int C, int c,
+                                       const int* ids, int n,
+                                       const float* w, float (&acc)[kVec]) {
+  for (int t = 0; t < n; t += 4) {
+    float wt[4];
+    uint4 gv[4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        float* a = v.acc + (img + id[k]) * C + c;
-        red_add4(a, w[k] * gf[0], w[k] * gf[1], w[k] * gf[2], w[k] * gf[3]);
-        red_add4(a + 4, w[k] * gf[4], w[k] * gf[5], w[k] * gf[6],
-                 w[k] * gf[7]);
+    for (int u = 0; u < 4; ++u) {
+      if (t + u < n) {
+        const int id = ids[t + u];
+        wt[u] = __ldcg(w + id);
+        gv[u] = load_keep(g_row(v, C, id / (4 * P), c));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (t + u < n) {
+        float f[kVec];
+        unpack(gv[u], f);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          acc[e] = __fadd_rn(acc[e], __fmul_rn(wt[u], f[e]));
       }
     }
   }
 }
 
-// dfeat = bf16(g + acc) for one cell's row
-__device__ __forceinline__ void finish_cell(const Level& v, int C,
-                                            size_t row, int lane) {
-  for (int c = lane * kVec; c < C; c += kWarpChannels) {
-    float gf[kVec], o[kVec];
-    unpack(__ldcs(reinterpret_cast<const uint4*>(v.x + row + c)), gf);
-    const float4 a0 = *reinterpret_cast<const float4*>(v.acc + row + c);
-    const float4 a1 = *reinterpret_cast<const float4*>(v.acc + row + c + 4);
-    const float a[kVec] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+// dfeat's row r (of level v) = bf16(g + acc), channels c..c+8
+__device__ __forceinline__ void finish(const Level& v, int C, int r, int c,
+                                       const float (&acc)[kVec]) {
+  float f[kVec];
+  unpack(load_keep(g_row(v, C, r, c)), f);
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) o[e] = gf[e] + a[e];
-    __stcs(reinterpret_cast<uint4*>(v.out + row + c), pack(o));
+  for (int e = 0; e < kVec; ++e) f[e] = __fadd_rn(f[e], acc[e]);
+  *reinterpret_cast<uint4*>(v.out + static_cast<size_t>(r - v.cell_begin) *
+                                        C + c) = pack(f);
+}
+
+// phase 5, a row of n <= kChunk ids at csr[beg..], one warp: rank the ids
+// into sorted (shared, kChunk ints; tmp the same), then gather in order
+template <int P>
+__device__ __forceinline__ void short_row(const Params& p, const Work& k,
+                                          int r, int beg, int n, int* tmp,
+                                          int* sorted, int lane) {
+  if (kCutSort) {
+    for (int i = lane; i < n; i += 32) sorted[i] = __ldcg(k.csr + beg + i);
+  } else if (n <= 32) {
+    const int id = lane < n ? __ldcg(k.csr + beg + lane) : INT_MAX;
+    int rank = 0;
+    for (int t = 0; t < 32; ++t)
+      rank += __shfl_sync(0xffffffffu, id, t) < id;
+    if (lane < n) sorted[rank] = id;
+  } else {
+    for (int i = lane; i < n; i += 32) tmp[i] = __ldcg(k.csr + beg + i);
+    __syncwarp();
+    int mine[kRankSlots], rank[kRankSlots];
+#pragma unroll
+    for (int j = 0; j < kRankSlots; ++j) {
+      mine[j] = lane + 32 * j < n ? tmp[lane + 32 * j] : INT_MAX;
+      rank[j] = 0;
+    }
+    for (int t = 0; t < n; ++t) {
+      const int u = tmp[t];
+#pragma unroll
+      for (int j = 0; j < kRankSlots; ++j) rank[j] += u < mine[j];
+    }
+#pragma unroll
+    for (int j = 0; j < kRankSlots; ++j)
+      if (lane + 32 * j < n) sorted[rank[j]] = mine[j];
+  }
+  __syncwarp();
+  if (kCutGather) return;
+  const Level& v = p.lv[level_of(p, r)];
+  for (int c = lane * kVec; c < p.C; c += kWarpChannels) {
+    float acc[kVec] = {};
+    gather<P>(v, p.C, c, sorted, n, k.w, acc);
+    finish(v, p.C, r, c, acc);
+  }
+  __syncwarp();
+}
+
+// phase 5, a row of n > kChunk ids at csr[beg..], the whole block: sort
+// the ids into key[beg..] through a bitmap window of the id range, then a
+// warp a kChunk-id chunk, the chunk sums added in order by warp 0
+template <int P>
+__device__ __forceinline__ void long_row(const Params& p, const Work& k,
+                                         int r, unsigned int* bitmap,
+                                         float* part, int* s) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int beg = __ldcg(k.offs + r), n = __ldcg(k.offs + r + 1) - beg;
+  int* sorted = k.key + beg;
+  int lo = INT_MAX, hi = -1;
+  for (int i = tid; i < n; i += kThreads) {
+    const int id = __ldcg(k.csr + beg + i);
+    lo = min(lo, id);
+    hi = max(hi, id);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  __syncthreads();
+  if (lane == 0) {
+    s[warp] = lo;
+    s[kWarps + warp] = hi;
+  }
+  __syncthreads();
+  for (int i = 0; i < kWarps; ++i) {
+    lo = min(lo, s[i]);
+    hi = max(hi, s[kWarps + i]);
+  }
+  constexpr int kBits = kBitmapWords * 32;
+  constexpr int kWordsEach = kBitmapWords / kThreads;
+  int done = 0;
+  for (long long w0 = lo; w0 <= hi; w0 += kBits) {
+    if (kCutSort) {
+      for (int i = tid; i < n; i += kThreads)
+        sorted[i] = __ldcg(k.csr + beg + i);
+      break;
+    }
+    for (int i = tid; i < kBitmapWords; i += kThreads) bitmap[i] = 0u;
+    __syncthreads();
+    for (int i = tid; i < n; i += kThreads) {
+      const long long d = __ldcg(k.csr + beg + i) - w0;
+      if (d >= 0 && d < kBits)
+        atomicOr(bitmap + (d >> 5), 1u << (d & 31));
+    }
+    __syncthreads();
+    int cnt = 0;
+#pragma unroll
+    for (int j = 0; j < kWordsEach; ++j)
+      cnt += __popc(bitmap[tid * kWordsEach + j]);
+    int total;
+    int pos = done + block_scan(cnt, s + 2 * kWarps, total);
+#pragma unroll
+    for (int j = 0; j < kWordsEach; ++j) {
+      unsigned int bits = bitmap[tid * kWordsEach + j];
+      while (bits) {
+        const int b = __ffs(bits) - 1;
+        sorted[pos++] = static_cast<int>(w0 + (tid * kWordsEach + j) * 32 +
+                                         b);
+        bits &= bits - 1;
+      }
+    }
+    done += total;
+    __syncthreads();
+  }
+  __syncthreads();
+  if (kCutGather) return;
+  const Level& v = p.lv[level_of(p, r)];
+  const int chunks = (n + kChunk - 1) / kChunk;
+  for (int c0 = 0; c0 < p.C; c0 += kWarpChannels) {
+    const int c = c0 + lane * kVec;
+    float total[kVec] = {};
+    for (int j0 = 0; j0 < chunks; j0 += kWarps) {
+      const int j = j0 + warp;
+      if (j < chunks && c < p.C) {
+        float acc[kVec] = {};
+        gather<P>(v, p.C, c, sorted + j * kChunk, min(kChunk, n - j * kChunk),
+                  k.w, acc);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          part[warp * kWarpChannels + lane * kVec + e] = acc[e];
+      }
+      __syncthreads();
+      if (warp == 0 && c < p.C) {
+        for (int i = 0; i < kWarps && j0 + i < chunks; ++i)
+#pragma unroll
+          for (int e = 0; e < kVec; ++e)
+            total[e] = __fadd_rn(total[e],
+                                 part[i * kWarpChannels + lane * kVec + e]);
+      }
+      __syncthreads();
+    }
+    if (warp == 0 && c < p.C) finish(v, p.C, r, c, total);
   }
 }
 
 template <int P>
-__global__ void __launch_bounds__(kThreads, 2)
-    frm_sample_bwd_kernel(const __grid_constant__ Params p,
-                          unsigned int* barrier) {
-  __shared__ float s_roi[kRoiFloats];
-  __shared__ float s_trig[2 * kTileCells];
-  __shared__ Geo s_geo[P * kTileCells];
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  // phase 1: scatter
-  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
-    const Tile tl = tile_of(p, t);
-    const Level& v = p.lv[tl.l];
-    float roi[2], trig = 0.0f;
-    load_tile<P>(p, tl, tid, roi, trig);
-    __syncthreads();                 // the last tile's s_geo is read
-    s_roi[tid] = roi[0];
-    if (tid + kThreads < kRoiFloats) s_roi[tid + kThreads] = roi[1];
-    if (P == 5 && tid < 2 * kTileCells) s_trig[tid] = trig;
-    __syncthreads();
-    for (int q = tid; q < P * kTileCells; q += kThreads) {
-      const int cell = q % kTileCells;
-      const int i = tl.i0 + cell / kTile, j = tl.j0 + cell % kTile;
-      if (i < v.H && j < v.W)
-        s_geo[q] = point_setup(
-            s_roi + cell * 5, q / kTileCells, P == 5 ? s_trig[cell] : 0.0f,
-            P == 5 ? s_trig[kTileCells + cell] : 0.0f, v.scale, p.quirk, v.H,
-            v.W);
-    }
-    __syncthreads();
-    const int i = tl.i0 + warp;
-    if (i < v.H) {
-      const size_t img = static_cast<size_t>(tl.b) * v.H * v.W;
-      for (int jj = 0; jj < kTile && tl.j0 + jj < v.W; ++jj)
-        scatter_cell<P>(v, p.C, img,
-                        (img + static_cast<size_t>(i) * v.W + tl.j0 + jj) *
-                            p.C,
-                        warp * kTile + jj, s_geo, lane);
-    }
+__global__ void __launch_bounds__(kThreads, 4)
+    frm_sample_bwd_kernel(const __grid_constant__ Params p, const Work k) {
+  __shared__ int s_ids[kWarps][2][kChunk];
+  __shared__ unsigned int s_bitmap[kBitmapWords];
+  __shared__ float s_part[kWarps * kWarpChannels];
+  __shared__ int s_red[3 * kWarps];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  unsigned int target = 0;
+  stamp(k, 0);
+  if (kStopAfter < 1) return;
+  setup_slots<P>(p, k);
+  grid_barrier(k.barrier, target);
+  stamp(k, 1);
+  if (kStopAfter < 2) return;
+  {
+    int r0, r1, n = 0;
+    block_rows(p, r0, r1);
+    for (int r = r0 + tid; r < r1; r += kThreads) n += __ldcg(k.count + r);
+    n = block_sum(n, s_red);
+    if (tid == 0) k.bsum[blockIdx.x] = n;
   }
-  grid_barrier(barrier);
-  // phase 2: dfeat = bf16(g + acc)
-  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
-    const Tile tl = tile_of(p, t);
-    const Level& v = p.lv[tl.l];
-    const int i = tl.i0 + warp;
-    if (i >= v.H) continue;
-    const size_t img = static_cast<size_t>(tl.b) * v.H * v.W;
-    for (int jj = 0; jj < kTile && tl.j0 + jj < v.W; ++jj)
-      finish_cell(v, p.C,
-                  (img + static_cast<size_t>(i) * v.W + tl.j0 + jj) * p.C,
-                  lane);
+  grid_barrier(k.barrier, target);
+  stamp(k, 2);
+  if (kStopAfter < 3) return;
+  scan_rows(p, k, s_red);
+  grid_barrier(k.barrier, target);
+  stamp(k, 3);
+  if (kStopAfter < 4) return;
+  const int slots = p.cells * P;            // int4 groups of 4 slots
+  for (int t = blockIdx.x * kThreads + tid; t < slots;
+       t += gridDim.x * kThreads) {
+    const int4 key = __ldcg(reinterpret_cast<const int4*>(k.key) + t);
+    if (key.x < 0) continue;
+    const int e = 4 * t;
+    k.csr[atomicAdd(k.count + key.x, 1)] = e;
+    k.csr[atomicAdd(k.count + key.y, 1)] = e + 1;
+    k.csr[atomicAdd(k.count + key.z, 1)] = e + 2;
+    k.csr[atomicAdd(k.count + key.w, 1)] = e + 3;
+  }
+  grid_barrier(k.barrier, target);
+  stamp(k, 4);
+  if (kStopAfter < 5) return;
+  const int nlong = *reinterpret_cast<volatile int*>(k.nlong);
+  for (int i = blockIdx.x; i < nlong; i += gridDim.x)
+    long_row<P>(p, k, __ldcg(k.longs + i), s_bitmap, s_part, s_red);
+  for (int r = blockIdx.x * kWarps + warp; r < p.cells;
+       r += gridDim.x * kWarps) {
+    const int beg = __ldcg(k.offs + r), n = __ldcg(k.offs + r + 1) - beg;
+    if (n <= kChunk)
+      short_row<P>(p, k, r, beg, n, s_ids[warp][0], s_ids[warp][1], lane);
+  }
+  if (kPhaseClock) {
+    grid_barrier(k.barrier, target);
+    stamp(k, 5);
   }
 }
 
 template <int P>
-int launch_bwd(const Params& p, unsigned int* barrier, cudaStream_t stream) {
+int launch_bwd(const Params& p, const Work& k, cudaStream_t stream) {
   static int occupancy[64] = {};
   static int sm_count[64] = {};
   int dev = 0;
@@ -600,31 +928,41 @@ int launch_bwd(const Params& p, unsigned int* barrier, cudaStream_t stream) {
   }
   // a cooperative launch: at most every block resident at once, so the
   // grid barrier cannot wait on a block that has not started
-  const long resident = static_cast<long>(occupancy[dev]) * sm_count[dev];
-  const int grid = static_cast<int>(p.tiles < resident ? p.tiles : resident);
+  long grid = static_cast<long>(occupancy[dev]) * sm_count[dev];
+  if (grid > kMaxGrid) grid = kMaxGrid;
+  const long rows_of = (static_cast<long>(p.cells) + kWarps - 1) / kWarps;
+  if (grid > rows_of) grid = rows_of;
   Params params = p;
-  void* args[] = {&params, &barrier};
+  Work work = k;
+  void* args[] = {&params, &work};
   err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(frm_sample_bwd_kernel<P>), dim3(grid),
-      dim3(kThreads), args, 0, stream);
+      reinterpret_cast<const void*>(frm_sample_bwd_kernel<P>),
+      dim3(static_cast<unsigned>(grid)), dim3(kThreads), args, 0, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 int frm_levels_bwd(int L, const void* const* g, const void* const* rois,
-                   void* const* acc, void* const* dfeat, const int* H,
-                   const int* W, const float* scale, const void* trig,
-                   void* barrier, int B, int C, int points, int quirk,
-                   void* stream) {
+                   void* const* dfeat, const int* H, const int* W,
+                   const float* scale, const void* trig, void* zeroed,
+                   long long zeroed_n, void* ws, long long ws_n, int B,
+                   int C, int points, int quirk, void* stream) {
   Params p;
-  if (acc == nullptr || barrier == nullptr ||
-      !make_params(p, L, g, nullptr, rois, dfeat, acc, H, W, scale, trig, B,
-                   C, points, quirk))
+  if (zeroed == nullptr || ws == nullptr ||
+      !make_params(p, L, g, nullptr, rois, dfeat, H, W, scale, trig, B, C,
+                   points, quirk) ||
+      p.cells > 0x7fffffff / (4 * points))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (p.tiles == 0) return 0;
+  const size_t R = p.cells, N = static_cast<size_t>(p.cells) * points * 4;
+  if (zeroed_n < static_cast<long long>(zeroed_ints(R)) ||
+      ws_n < static_cast<long long>(ws_ints(R, N)) ||
+      !aligned16(zeroed) || !aligned16(ws))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (p.cells == 0) return 0;
+  const Work k = make_work(static_cast<int*>(zeroed), static_cast<int*>(ws),
+                           R, N);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  unsigned int* bar = static_cast<unsigned int*>(barrier);
-  return points == 1 ? launch_bwd<1>(p, bar, s) : launch_bwd<5>(p, bar, s);
+  return points == 1 ? launch_bwd<1>(p, k, s) : launch_bwd<5>(p, k, s);
 }
 
 }  // namespace
@@ -645,16 +983,18 @@ extern "C" int r3det_frm_sample_levels(int L, const void* const* x,
 
 // the backward of r3det_frm_sample_levels for dfeat, one launch: host
 // arrays of the L levels' gradient g (bf16, the forward's out layout),
-// rois, f32 scatter buffers acc (zeroed, (B, H, W, C) each), dfeat (bf16)
-// pointers, H, W and scales; trig as the forward's; barrier one zeroed
-// unsigned int
+// rois and dfeat (bf16) pointers, H, W and scales; trig as the forward's;
+// zeroed: an int32 workspace of zeroed_n ints, all 0 (at least
+// round4(R) + 20 for R = B * sum(H * W) rows); ws: an int32 workspace of
+// ws_n ints (at least round4(R + 1) + 1024 + round4(R) + 3 * N, N = 4 *
+// points * R); both 16-byte aligned
 extern "C" int r3det_frm_sample_bwd(
-    int L, const void* const* g, const void* const* rois, void* const* acc,
-    void* const* dfeat, const int* H, const int* W, const float* scale,
-    const void* trig, void* barrier, int B, int C, int points, int quirk,
-    void* stream) {
-  return frm_levels_bwd(L, g, rois, acc, dfeat, H, W, scale, trig, barrier,
-                        B, C, points, quirk, stream);
+    int L, const void* const* g, const void* const* rois, void* const* dfeat,
+    const int* H, const int* W, const float* scale, const void* trig,
+    void* zeroed, long long zeroed_n, void* ws, long long ws_n, int B, int C,
+    int points, int quirk, void* stream) {
+  return frm_levels_bwd(L, g, rois, dfeat, H, W, scale, trig, zeroed,
+                        zeroed_n, ws, ws_n, B, C, points, quirk, stream);
 }
 
 // one level, points=1 (the same kernel)

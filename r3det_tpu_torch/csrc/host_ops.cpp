@@ -8,17 +8,18 @@
 //       2x3 f64 affine m -> (n, 2) f64, as cv2.transform computes it
 //
 // min_area_rect returns what OpenCV 5.0's cv::minAreaRect returns for the
-// four points: the convex hull by Sklansky's scan (cv::convexHull,
-// counter-clockwise in OpenCV's sense), rotating calipers that keep the last
-// rectangle of least area, and the box read off the first caliper side with
-// its angle folded into [-90, 0) by quarter turns that swap w and h (an
-// axis-aligned rectangle gives -90). The precision of each step is the one
-// that reproduces OpenCV 5.0's results (edge lengths and the caliper
-// cosines in double, the rest in float), found by comparison with
-// cv2.minAreaRect: bit-equal on random quads, within a few float ulps on
-// float32 rotated rectangles. Build without FMA
-// contraction (-ffp-contract=off): OpenCV's SSE build rounds every float
-// product and sum.
+// four points, bit for bit: the convex hull by Sklansky's scan
+// (cv::convexHull, counter-clockwise in OpenCV's sense), rotating calipers
+// that pick the next caliper by the signs of cross products and keep the
+// last rectangle of least area, and the box read off the first caliper
+// side with its angle in [-90, 0) (an axis-aligned rectangle gives -90).
+// The operation order and precision of each step (which values are float
+// and which double, the cross-product tournament, the angle as
+// atan2(x, y) * -180 / pi) are read from the disassembly of OpenCV 5.0's
+// x86-64 build of minAreaRect (modules/geometry/src/rotcalipers.cpp),
+// which has no FMA in it. Build without FMA contraction
+// (-ffp-contract=off): OpenCV's SSE build rounds every float product and
+// sum.
 #include <algorithm>
 #include <cfloat>
 #include <cmath>
@@ -185,15 +186,21 @@ int convex_hull(const P2* data0, int total, P2* hull) {
   return nout;
 }
 
-// cv::rotatingCalipers in CALIPERS_MINAREARECT mode: out[0] the corner,
-// out[1], out[2] the two sides.
+// cv::rotatingCalipers in CALIPERS_MINAREARECT mode, as OpenCV 5.0's
+// x86-64 build computes it inside cv::minAreaRect: out[0] the corner,
+// out[1], out[2] the two sides. Edge vectors are float differences, each
+// inverse length 1 / sqrt in double rounded to float. The caliper that
+// turns next is picked without cosines: the four candidate edges are
+// turned into the bottom caliper's frame (r0 = v0, r1 = v1 turned by -90
+// degrees, r2 = -v2, r3 = v3 turned by +90) and compared in order by the
+// sign of float cross products; a later candidate wins only on a cross
+// product below zero, so a tie keeps the earlier one.
 void rotating_calipers(const P2* points, int n, P2* out) {
   float minarea = FLT_MAX;
-  double inv_vect_length[4];
+  float inv_vect_length[4];
   P2 vect[4];
   int left = 0, bottom = 0, right = 0, top = 0;
   int seq[4];
-  float orientation = 0, base_a, base_b = 0;
   P2 pt0 = points[0];
   float left_x = pt0.x, right_x = pt0.x, top_y = pt0.y, bottom_y = pt0.y;
   for (int i = 0; i < n; ++i) {
@@ -202,27 +209,14 @@ void rotating_calipers(const P2* points, int n, P2* out) {
     if (pt0.y > top_y) top_y = pt0.y, top = i;
     if (pt0.y < bottom_y) bottom_y = pt0.y, bottom = i;
     P2 pt = points[i + 1 < n ? i + 1 : 0];
-    double dx = pt.x - pt0.x;
-    double dy = pt.y - pt0.y;
-    vect[i].x = (float)dx;
-    vect[i].y = (float)dy;
-    inv_vect_length[i] = 1. / std::sqrt(dx * dx + dy * dy);
+    float dx = pt.x - pt0.x;
+    float dy = pt.y - pt0.y;
+    vect[i].x = dx;
+    vect[i].y = dy;
+    inv_vect_length[i] = (float)(1. / std::sqrt((double)dx * dx +
+                                                (double)dy * dy));
     pt0 = pt;
   }
-  {
-    double ax = vect[n - 1].x, ay = vect[n - 1].y;
-    for (int i = 0; i < n; ++i) {
-      double bx = vect[i].x, by = vect[i].y;
-      double convexity = ax * by - ay * bx;
-      if (convexity != 0) {
-        orientation = convexity > 0 ? 1.f : -1.f;
-        break;
-      }
-      ax = bx;
-      ay = by;
-    }
-  }
-  base_a = orientation;
   seq[0] = bottom;
   seq[1] = right;
   seq[2] = top;
@@ -230,26 +224,26 @@ void rotating_calipers(const P2* points, int n, P2* out) {
   int best_left = 0, best_bottom = 0;
   float best_a = 0, best_b = 0, best_w = 0, best_h = 0;
   for (int k = 0; k < n; ++k) {
-    double a = base_a, b = base_b;
-    double dp[4] = {
-        +a * vect[seq[0]].x + b * vect[seq[0]].y,
-        -b * vect[seq[1]].x + a * vect[seq[1]].y,
-        -a * vect[seq[2]].x - b * vect[seq[2]].y,
-        +b * vect[seq[3]].x - a * vect[seq[3]].y,
-    };
-    double maxcos = dp[0] * inv_vect_length[seq[0]];
+    const P2 v0 = vect[seq[0]], v1 = vect[seq[1]], v2 = vect[seq[2]],
+             v3 = vect[seq[3]];
     int main_element = 0;
-    for (int i = 1; i < 4; ++i) {
-      double cosalpha = dp[i] * inv_vect_length[seq[i]];
-      if (cosalpha > maxcos) {
-        main_element = i;
-        maxcos = cosalpha;
-      }
+    float rx = v0.x, ry = v0.y;
+    if (-v1.x * v0.x - v1.y * v0.y < 0) {
+      main_element = 1;
+      rx = v1.y;
+      ry = -v1.x;
     }
+    if (-v2.y * rx + v2.x * ry < 0) {
+      main_element = 2;
+      rx = -v2.x;
+      ry = -v2.y;
+    }
+    if (rx * v3.x + ry * v3.y < 0) main_element = 3;
     int pindex = seq[main_element];
-    float inv = (float)inv_vect_length[pindex];
+    float inv = inv_vect_length[pindex];
     float lead_x = vect[pindex].x * inv;
     float lead_y = vect[pindex].y * inv;
+    float base_a, base_b;
     switch (main_element) {
       case 0: base_a = lead_x; base_b = lead_y; break;
       case 1: base_a = lead_y; base_b = -lead_x; break;
@@ -287,45 +281,58 @@ void rotating_calipers(const P2* points, int n, P2* out) {
   out[2].y = B2 * best_h;
 }
 
+inline float length(double x, double y) {
+  return (float)std::sqrt(x * x + y * y);
+}
+
+// cv::minAreaRect of OpenCV 5.0 (x86-64 build): the box's angle is read
+// off the first caliper side s = out[1] as atan2(s.x, s.y) * -180 / pi,
+// which lies in [-90, 0) for the hull's orientation, with size (|out[2]|,
+// |out[1]|); a side along +y gives -90 and size (|out[1]|, |out[2]|). Two
+// distinct hull points give a box of width 0 along their difference.
 void min_area_rect_one(const float* q, float* res) {
   P2 pts[4], hull[4], out[3];
   for (int i = 0; i < 4; ++i) pts[i] = {q[2 * i], q[2 * i + 1]};
   int n = convex_hull(pts, 4, hull);
-  float cx = 0, cy = 0, w = 0, h = 0;
-  double angle = 0;
+  float cx = 0, cy = 0, w = 0, h = 0, angle = -90.f;
   if (n > 2) {
     rotating_calipers(hull, n, out);
     cx = out[0].x + (out[1].x + out[2].x) * 0.5f;
     cy = out[0].y + (out[1].y + out[2].y) * 0.5f;
-    w = (float)std::sqrt((double)out[1].x * out[1].x +
-                         (double)out[1].y * out[1].y);
-    h = (float)std::sqrt((double)out[2].x * out[2].x +
-                         (double)out[2].y * out[2].y);
-    angle = std::atan2((double)out[1].y, (double)out[1].x);
+    float s1 = length(out[1].x, out[1].y), s2 = length(out[2].x, out[2].y);
+    if (out[1].x == 0 && out[1].y > 0) {
+      w = s1;
+      h = s2;
+    } else {
+      w = s2;
+      h = s1;
+      angle = (float)(std::atan2((double)out[1].x, (double)out[1].y) *
+                      -180.0 / M_PI);
+    }
   } else if (n == 2) {
     cx = (hull[0].x + hull[1].x) * 0.5f;
     cy = (hull[0].y + hull[1].y) * 0.5f;
-    double dx = hull[1].x - hull[0].x, dy = hull[1].y - hull[0].y;
-    w = (float)std::sqrt(dx * dx + dy * dy);
-    angle = std::atan2(dy, dx);
-  } else {
+    float dx = hull[0].x - hull[1].x, dy = hull[0].y - hull[1].y;
+    h = length(dx, dy);
+    if (dx == 0) {
+      w = h;
+      h = 0;
+    } else if (dy < 0) {
+      w = h;
+      h = 0;
+      angle = (float)(std::atan2((double)dy, (double)dx) * 180.0 / M_PI);
+    } else if (dy > 0) {
+      angle = (float)(std::atan2((double)dx, (double)dy) * -180.0 / M_PI);
+    }
+  } else if (n == 1) {
     cx = hull[0].x;
     cy = hull[0].y;
-  }
-  angle = angle * 180 / M_PI;
-  while (angle >= 0) {
-    angle -= 90;
-    std::swap(w, h);
-  }
-  while (angle < -90) {
-    angle += 90;
-    std::swap(w, h);
   }
   res[0] = cx;
   res[1] = cy;
   res[2] = w;
   res[3] = h;
-  res[4] = (float)angle;
+  res[4] = angle;
 }
 
 }  // namespace

@@ -738,8 +738,8 @@ def frm_bwd_error(got, grads, rois, scales, points, quirk):
     """K2's backward against its plain backward computed in f32 and
     rounded to bf16. Bound a value: one bf16 ulp of the f32 reference plus
     2^-14 of the sum of the absolute contributions A (|g| + sum |w g|,
-    the plain backward of |g|): the kernel's atomics and the plain scatter
-    sum the same f32 products in other orders, whose f32 roundings differ
+    the plain backward of |g|): the kernel's ordered sums and the plain
+    scatter sum the same f32 products in other orders, whose f32 roundings differ
     by well under 2^-14 A for sums of a few thousand terms. Returns (the
     largest excess over the bound, max |kernel - f32 reference|, max
     |kernel - bf16 plain backward|)."""
@@ -814,6 +814,93 @@ def test_frm_sample_bwd_kernel_matches_f32_plain(cuda, case, points, quirk):
     print(f'{case} points={points} quirk={quirk}: max|k - f32 ref| {err} '
           f'max|k - bf16 plain| {gap} excess {excess}')
     assert excess <= 0.0, (err, gap)
+
+
+def clustered_rois(rng, b, sizes, objects=12):
+    """Rois whose centres sit on a few object centres a level, as a trained
+    model's best boxes do (every cell of an object points at its centre):
+    corner rows of tens to thousands of contributions."""
+    rois = []
+    for (h, w), stride in zip(sizes, (8, 16, 32, 64, 128)):
+        n = h * w
+        centres = rng.uniform(0, 1, (b, objects, 2)) * (h * stride,
+                                                        w * stride)
+        pick = rng.randint(0, objects, (b, n))
+        cxy = np.take_along_axis(centres, pick[..., None], 1)
+        rois.append(np.concatenate([
+            cxy, rng.uniform(8, 256, (b, n, 2)),
+            rng.uniform(-1.6, 1.6, (b, n, 1))], -1).astype(np.float32))
+    return rois
+
+
+def frm_bwd_inputs(rng, case, cuda):
+    """(grads, rois, scales) of one FRM_BWD_CASES case or 'clusters' (the
+    main-path levels with clustered_rois); a tenth of the gradient values
+    are -0.0, which a corner row that no point reads returns as +0.0."""
+    sizes, c, b, rule = FRM_BWD_CASES.get(
+        case, (FRM_CASES['main'][0], 256, 2, False))
+    _, feats, rois, scales = frm_levels(rng, b, sizes, c, cuda)
+    if rule:
+        rois = colliding_rois(rng, b, sizes)
+    elif case == 'clusters':
+        rois = clustered_rois(rng, b, sizes)
+    rois = [r if torch.is_tensor(r) else torch.from_numpy(r).to(cuda)
+            for r in rois]
+    grads = []
+    for f in feats:
+        g = rng.randn(*f.shape).astype(np.float32)
+        g[rng.uniform(size=g.shape) < 0.1] = -0.0
+        grads.append(torch.from_numpy(g).to(cuda, torch.bfloat16))
+    return grads, rois, scales
+
+
+def bits(t):
+    return t.view(torch.int16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('quirk', [True, False])
+@pytest.mark.parametrize('points', [1, 5])
+@pytest.mark.parametrize('case', list(FRM_BWD_CASES) + ['clusters'])
+def test_frm_sample_bwd_kernel_equals_ordered_plain(cuda, case, points,
+                                                     quirk):
+    """K2's backward, one launch for all levels, bit for bit equal to its
+    ordered plain form (frm_sample_levels_bwd_ordered on CPU copies of the
+    same inputs and of the card's cos/sin): the main-path levels, ragged
+    maps and C = 264, batch 1 and 3, every cell on one corner (rows of
+    thousands of contributions, summed in chunks), and clustered rois."""
+    rng = np.random.RandomState(31 + points + 2 * quirk)
+    grads, rois, scales = frm_bwd_inputs(rng, case, cuda)
+    trig = K2.angle_trig(rois) if points == 5 else None
+    before = _ext.LAUNCHES['frm_sample_bwd']
+    got = K2.frm_sample_levels_bwd_cuda(grads, rois, scales, points, quirk,
+                                        trig)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES['frm_sample_bwd'] == before + 1
+    want = K2.frm_sample_levels_bwd_ordered(
+        [g.cpu() for g in grads], [r.cpu() for r in rois], scales, points,
+        quirk, None if trig is None else trig.cpu())
+    for lvl, (k, w) in enumerate(zip(got, want)):
+        k = k.cpu()
+        assert k.dtype == w.dtype and k.shape == w.shape
+        assert torch.equal(bits(k), bits(w)), (
+            lvl, int((bits(k) != bits(w)).sum()),
+            float((k.float() - w.float()).abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('points', [1, 5])
+@pytest.mark.parametrize('case', ['main', 'collide', 'clusters'])
+def test_frm_sample_bwd_kernel_is_deterministic(cuda, case, points):
+    """Three launches on the same inputs give the same bits."""
+    rng = np.random.RandomState(41 + points)
+    grads, rois, scales = frm_bwd_inputs(rng, case, cuda)
+    runs = [K2.frm_sample_levels_bwd_cuda(grads, rois, scales, points)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        for a, b in zip(runs[0], run):
+            assert torch.equal(bits(a), bits(b))
 
 
 @pytest.mark.gpu

@@ -9,8 +9,9 @@ vertical long sides at DOTA's 0.1 px label precision, float32 rectangles
 1e-4 degrees off the axes, and sub-2 px boxes. Tolerances: x, y, w, h
 within 1e-3 px and theta within 1e-5 rad, the same ``None`` set, hence the
 same fold side (a wrong side is off by pi/2 or pi). The helper repeats
-OpenCV's arithmetic: on random quads it is bit-equal to
-``cv2.minAreaRect``, on float32 rotated rectangles within 2 float ulps.
+OpenCV 5.0's arithmetic, as its x86-64 build computes it: it is bit-equal
+to ``cv2.minAreaRect`` on random quads, on float32 rotated rectangles, on
+near-axis quads whose caliper choices tie, and on degenerate quads.
 
 Where float32 leaves the fold ambiguous the port still lands on cv2's
 side: a rectangle 1e-4 degrees off the axes has edges along and across
@@ -29,6 +30,7 @@ import pytest
 
 from r3det_tpu.core import rtransforms_np as J
 from r3det_tpu_torch.core import rtransforms_np as T
+from r3det_tpu_torch.datasets import transforms as TT
 
 N_PER_KIND = 400
 
@@ -112,9 +114,79 @@ def test_min_area_rect_is_cv2_bit_for_bit_on_random_quads():
     rng = np.random.RandomState(2)
     quads = rng.uniform(0, 1000, (3000, 4, 2)).astype(np.float32)
     quads[::3] = np.round(quads[::3])
-    want = np.array([[r[0][0], r[0][1], r[1][0], r[1][1], r[2]]
+    np.testing.assert_array_equal(T.min_area_rect(quads), _cv2_rects(quads))
+
+
+def _cv2_rects(quads):
+    return np.array([[r[0][0], r[0][1], r[1][0], r[1][1], r[2]]
                      for r in map(cv2.minAreaRect, quads)], np.float32)
-    np.testing.assert_array_equal(T.min_area_rect(quads), want)
+
+
+def _rect_corners(cx, cy, w, h, theta):
+    """(n, 4, 2) float32 corners of rectangles at angle ``theta`` (rad),
+    computed in float64."""
+    c, s = np.cos(theta), np.sin(theta)
+    pts = [np.stack([cx + sw * w / 2 * c - sh * h / 2 * s,
+                     cy + sw * w / 2 * s + sh * h / 2 * c], -1)
+           for sw, sh in ((1, 1), (-1, 1), (-1, -1), (1, -1))]
+    return np.stack(pts, 1).astype(np.float32)
+
+
+def _near_axis_quads(kind, n=200):
+    """n seeded quads of one near-axis kind: rectangles whose sides lie
+    within a float ulp of the axes, where the calipers' choices tie."""
+    rng = np.random.RandomState(['v1_theta', 'turn90', 'turn180',
+                                 'off_axis', 'rotated'].index(kind))
+    cx, cy = rng.uniform(10, 1000, n), rng.uniform(10, 1000, n)
+    w, h = rng.uniform(2, 300, n), rng.uniform(2, 300, n)
+    if kind == 'v1_theta':           # v1 boxes at theta = -pi/2
+        scored = np.stack([cx, cy, w, h, np.full(n, -math.pi / 2),
+                           np.zeros(n)], -1)
+        return T.obb2poly_np(scored, 'v1')[:, :8].reshape(-1, 4, 2) \
+            .astype(np.float32)
+    if kind in ('turn90', 'turn180'):  # axis-aligned boxes turned
+        x0, y0 = np.round(rng.uniform(0, 500, (2, n)), 1)
+        q = np.stack([np.stack([x0, y0], -1), np.stack([x0 + w, y0], -1),
+                      np.stack([x0 + w, y0 + h], -1),
+                      np.stack([x0, y0 + h], -1)], 1)
+        m = TT.get_rotation_matrix_2d((256.5, 300.25),
+                                      90 if kind == 'turn90' else 180, 1)
+        return TT.transform_points(q.reshape(-1, 2), m).reshape(-1, 4, 2) \
+            .astype(np.float32)
+    if kind == 'off_axis':           # 1e-4 degrees off the axes
+        theta = np.deg2rad(90 * rng.randint(-2, 3, n) +
+                           rng.choice([1e-4, -1e-4], n))
+    else:                            # float32 rotated rectangles
+        theta = rng.uniform(-math.pi, math.pi, n)
+    return _rect_corners(cx, cy, w, h, theta)
+
+
+@pytest.mark.parametrize('kind', ['v1_theta', 'turn90', 'turn180',
+                                  'off_axis', 'rotated'])
+def test_min_area_rect_is_cv2_bit_for_bit_on_near_axis_quads(kind):
+    """200 quads a kind (1000 in all, with the reproducer that OpenCV 5.0's
+    rotatingCalipers once resolved otherwise): the same rectangle, angle
+    and (w, h) order as cv2.minAreaRect, bit for bit."""
+    quads = _near_axis_quads(kind)
+    if kind == 'v1_theta':
+        quads = np.concatenate([quads, np.float32(
+            [[[49.70504, 46.638332], [49.705036, 16.032505],
+              [70.30088, 16.032505], [70.30088, 46.638332]]])])
+    np.testing.assert_array_equal(T.min_area_rect(quads), _cv2_rects(quads))
+
+
+def test_min_area_rect_is_cv2_bit_for_bit_on_degenerate_quads():
+    """Hulls of one and two points (a point, segments along each axis and
+    both diagonals, either way round) and zero-area triangles."""
+    quads = np.float32([
+        [[1, 1]] * 4, [[0, 0]] * 4,
+        [[1, 1], [3, 1], [3, 1], [1, 1]], [[3, 1], [1, 1], [1, 1], [3, 1]],
+        [[1, 1], [1, 4], [1, 4], [1, 1]], [[1, 4], [1, 1], [1, 1], [1, 4]],
+        [[1, 1], [3, 4], [3, 4], [1, 1]], [[3, 4], [1, 1], [1, 1], [3, 4]],
+        [[1, 4], [3, 1], [3, 1], [1, 4]], [[3, 1], [1, 4], [1, 4], [3, 1]],
+        [[1, 1], [3, -4], [2, -1.5], [1, 1]],
+        [[0, 0], [2, 2], [4, 4], [1, 1]]])
+    np.testing.assert_array_equal(T.min_area_rect(quads), _cv2_rects(quads))
 
 
 @pytest.mark.parametrize('version', ['v1', 'v2', 'v3'])
