@@ -100,7 +100,30 @@ Phases, one line each (any failure raises and the exit code is 1):
    one iteration (the loader's next batch and a step). Then rotated
    RetinaNet with PolyRandomRotate (``rretinanet_obb_r50_fpn_1x_dota_
    ms_rr_v3.py``) trains 4 steps, and its first batch from the card's
-   pipeline equals the CPU pipeline's (images bit for bit, boxes exactly).
+   pipeline equals the CPU pipeline's (images bit for bit, boxes exactly);
+8. data parallelism, each rank a process (``chip_smoke.py --ddp-worker``,
+   or torchrun), with a timeout and a process-group timeout.
+   ``[ddp_step]``: R3Det R50 as shipped, bf16 on f32 parameters, seeded
+   weights (rank 1 starts from others: the broadcast gives it rank 0's),
+   DDP_RANKS ranks on card 0 over gloo, each its rows of one
+   ``SyntheticDetData`` batch of DDP_BATCH 1024^2 images (``max_gt=64``),
+   DDP_STEPS steps of the data-parallel ``make_train_step`` against one
+   process stepping the whole batch on the card: losses within
+   TRAIN_LOSS_RTOL, parameters within TRAIN_GRAD_RTOL of the update
+   (relative L2), the ranks bit-identical after every step (a checksum
+   all-gather), K1, K2, K2's backward and K3 once a step on every rank;
+   ms a step and the gradient all-reduce's ms (rank 0), peak memory per
+   rank (ranks sharing a card check the function, not the speed).
+   ``[ddp_nccl]``: the same over NCCL, one rank a card, as many ranks as
+   cards up to 4 (one on a one-card machine, which still runs NCCL's init
+   and all-reduce). ``[ddp_cli]``: ``torchrun --standalone
+   --nproc_per_node 2 -m r3det_tpu_torch.tools.train`` on the shipped R50
+   config over gloo on cuda:0 from a fake-DOTA split, DDP_CLI_STEPS[0]
+   steps with the eval hook, then resumed to DDP_CLI_STEPS[1]: rank 0's
+   log and checkpoint alone, the step, count and LR continued.
+   ``[ddp_eval]``: the test CLI on the last checkpoint with ``--eval mAP``
+   on 2 ranks and on 1: every image once, the detections' agreement
+   (``_agreement``, >= 0.75) and both mAPs.
 
 Prints the kernels' JSON record on the line before the last, and as the
 last line ``{"ok": true, "device": {...}}``. Needs one card; exits non-zero
@@ -151,6 +174,15 @@ TRAIN_CLI_WARMUP = 1              # steps of a run left out of its times
 TRAIN_LOSS_RTOL = 0.02
 TRAIN_GRAD_RTOL = 0.05
 TRAIN_PARAM_RTOL = 0.25
+# [ddp_*]: the global batch of the data-parallel step, split over its ranks;
+# [ddp_step] shares card 0 between DDP_RANKS ranks over gloo
+DDP_BATCH = 4
+DDP_RANKS = 2
+DDP_STEPS = 2
+DDP_CLI_STEPS = (4, 6)            # the train CLI's run 1, then resumed to
+DDP_TIMEOUT = 600                 # s: a phase's processes, a group's waits
+# [ddp_eval]: seeded weights trained 6 steps score below the shipped 0.05
+DDP_SCORE_THR = 0.005
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
 PEAK_OPS_PER_S = {'bf16': 989e12, 'int8': 1979e12, 'f32': 67e12}
 IOU_OPS_PER_PAIR = 500            # f32 operations of one pair's integral (K1)
@@ -2115,6 +2147,372 @@ def train_cli_path(dev, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: data parallelism
+# ---------------------------------------------------------------------------
+
+def _run_ranks(cmds, what, timeout=DDP_TIMEOUT):
+    """Start every command at once, each in a session of its own, its
+    output in a file; wait until all have exited, one has failed or the
+    timeout has passed, then kill every process of each session still
+    running. Raises unless every command exited 0 (printing the end of a
+    failed one's output); returns their outputs."""
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    deadline = time.monotonic() + timeout
+    with tempfile.TemporaryDirectory(prefix='ranks_') as logs:
+        files = [open(os.path.join(logs, f'{i}.log'), 'w+')
+                 for i in range(len(cmds))]
+        procs = [subprocess.Popen(c, cwd=root, env=env, stdout=f,
+                                  stderr=subprocess.STDOUT,
+                                  start_new_session=True)
+                 for c, f in zip(cmds, files)]
+        try:
+            while time.monotonic() < deadline:
+                codes = [p.poll() for p in procs]
+                if any(codes) or None not in codes:
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    os.killpg(p.pid, 9)
+                    p.wait()
+        outs = []
+        for f in files:
+            f.seek(0)
+            outs.append(f.read())
+            f.close()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        # the first that failed by itself, not one killed here
+        i = min((i for i, c in enumerate(codes) if c),
+                key=lambda i: codes[i] == -9)
+        print(outs[i][-3000:], flush=True)
+        raise RuntimeError(f'{what}: exit codes {codes}')
+    return outs
+
+
+def ddp_worker(spec):
+    """One rank of [ddp_step] / [ddp_nccl] (``chip_smoke.py --ddp-worker
+    SPEC``): R3Det R50 (``spec['cfg']`` overrides), bf16 on f32
+    parameters, seeded weights broadcast from rank 0, its rows of one
+    SyntheticDetData batch of ``spec['batch']``, DDP_STEPS steps of the
+    data-parallel make_train_step. Writes losses, ms a step, the
+    all-reduce's ms (timed apart on the last step's gradients), peak
+    memory, launches and whether the ranks' parameters were bit-identical
+    after each step (a checksum all-gather); rank 0 also its parameters."""
+    import torch
+
+    from r3det_tpu_torch import _ext
+    from r3det_tpu_torch.datasets.synthetic import SyntheticDetData
+    from r3det_tpu_torch.models.detectors import (R3DET_R50_V1,
+                                                  build_detector)
+    from r3det_tpu_torch.parallel import dist
+    from r3det_tpu_torch.parallel.train import (make_optimizer,
+                                                make_train_step)
+    from r3det_tpu_torch.utils.convert import seeded_state_dict
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, ranks = spec['rank'], spec['ranks']
+    dev = torch.device('cuda', spec['device'])
+    torch.cuda.set_device(dev)
+    group = dist.init_distributed(spec['backend'], 'file://' + spec['store'],
+                                  ranks, rank, timeout_s=DDP_TIMEOUT)
+    try:
+        cfg = R3DET_R50_V1._replace(**spec['cfg'])
+        size = spec['size']
+        model = build_detector(cfg, dtype=torch.bfloat16, device=dev)
+        model.load_state_dict(seeded_state_dict(model, SEED + rank))
+        opt = make_optimizer(model.parameters())
+        dist.broadcast_state(model, opt, group)       # rank 0's weights
+        local = spec['batch'] // ranks
+        data = SyntheticDetData(batch_size=spec['batch'], size=size,
+                                max_gt=TRAIN_MAX_GT,
+                                num_classes=cfg.num_classes,
+                                seed=SEED).batch()
+        batch = {k: torch.from_numpy(v[rank * local:(rank + 1) * local])
+                 .to(dev) for k, v in data.items()}
+        sizes = tuple((size // s, size // s) for s in cfg.strides)
+        step = make_train_step(model, cfg, sizes, optimizer=opt,
+                               process_group=group)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _ext.reset_launches()
+        losses, ms, same = [], [], []
+        for _ in range(DDP_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(batch)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+            losses.append({k: float(v) for k, v in out.items()})
+            sums = dist.gather_objects(
+                dist.checksum(list(model.parameters()) + opt.trace), group)
+            same.append(all(torch.equal(s, sums[0]) for s in sums))
+        launches = dict(_ext.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        grads = [p.grad for p in model.parameters()]
+        ar = []
+        for _ in range(3):
+            dist.barrier(group)
+            t0 = time.perf_counter()
+            dist.all_reduce_grads(grads, model.parameters(), group)
+            torch.cuda.synchronize()
+            ar.append(1e3 * (time.perf_counter() - t0))
+        out = dict(losses=losses, ms=ms, same=same, launches=launches,
+                   peak=peak, allreduce_ms=sorted(ar)[1],
+                   name=torch.cuda.get_device_name(dev))
+        if rank == 0:
+            out['params'] = {n: p.detach().cpu()
+                             for n, p in model.named_parameters()}
+        torch.save(out, spec['out'])
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def ddp_reference(dev, cfg_overrides=None, size=SIZE, batch=DDP_BATCH):
+    """The single process [ddp_step] and [ddp_nccl] are held to: the same
+    seeded model and the whole batch, DDP_STEPS steps on ``dev``. Returns
+    (losses a step, the parameters before and after, on the host)."""
+    import torch
+
+    from r3det_tpu_torch.datasets.synthetic import SyntheticDetData
+    from r3det_tpu_torch.models.detectors import (R3DET_R50_V1,
+                                                  build_detector)
+    from r3det_tpu_torch.parallel.train import make_train_step
+    from r3det_tpu_torch.utils.convert import seeded_state_dict
+
+    cfg = R3DET_R50_V1._replace(**(cfg_overrides or {}))
+    model = build_detector(cfg, dtype=torch.bfloat16, device=dev)
+    model.load_state_dict(seeded_state_dict(model, SEED))
+    p0 = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    data = SyntheticDetData(batch_size=batch, size=size, max_gt=TRAIN_MAX_GT,
+                            num_classes=cfg.num_classes, seed=SEED).batch()
+    b = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    step = make_train_step(model, cfg, tuple((size // s, size // s)
+                                             for s in cfg.strides))
+    losses = [{k: float(v) for k, v in step(b).items()}
+              for _ in range(DDP_STEPS)]
+    params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    del model, step, b
+    torch.cuda.empty_cache()
+    return losses, p0, params
+
+
+def ddp_step(ranks, backend, devices, reference, work, cfg_overrides=None,
+             size=SIZE, batch=DDP_BATCH):
+    """``ranks`` ranks of ddp_worker over ``backend`` on ``devices`` (one
+    card index a rank) against ``reference`` (ddp_reference's): each
+    step's losses within TRAIN_LOSS_RTOL, the parameters after the last
+    within TRAIN_GRAD_RTOL of the update (relative L2 over all
+    parameters), the ranks bit-identical after every step, K1, K2, K2's
+    backward and K3 once a step on every rank. Returns rank 0's record
+    with the errors and every rank's peak memory."""
+    import torch
+
+    want_losses, p0, want = reference
+    tag = f'{backend}{ranks}'
+    outs = [os.path.join(work, f'{tag}_rank{r}.pt') for r in range(ranks)]
+    cmds = [[sys.executable, os.path.abspath(__file__), '--ddp-worker',
+             json.dumps(dict(rank=r, ranks=ranks, backend=backend,
+                             device=devices[r], batch=batch, size=size,
+                             cfg=cfg_overrides or {},
+                             store=os.path.join(work, f'{tag}_store'),
+                             out=outs[r]))] for r in range(ranks)]
+    _run_ranks(cmds, f'{ranks} {backend} ranks')
+    recs = [torch.load(p, weights_only=False) for p in outs]
+    rec = recs[0]
+    loss_err = max(abs(g[k] - w[k]) / abs(w[k])
+                   for g, w in zip(rec['losses'], want_losses) for k in w)
+    num = sum(float((rec['params'][n] - w).square().sum())
+              for n, w in want.items())
+    den = sum(float((w - p0[n]).square().sum()) for n, w in want.items())
+    rec.update(loss_err=loss_err, param_err=math.sqrt(num / den),
+               peaks=[r['peak'] for r in recs],
+               same=all(s for r in recs for s in r['same']))
+    check(all(math.isfinite(v) for h in rec['losses'] for v in h.values()),
+          f'{tag}: a non-finite loss')
+    check(loss_err <= TRAIN_LOSS_RTOL,
+          f'{tag}: losses {loss_err:.5f} from the single process')
+    check(rec['param_err'] <= TRAIN_GRAD_RTOL,
+          f'{tag}: parameters {rec["param_err"]:.5f} (of the update) from '
+          'the single process')
+    check(rec['same'], f'{tag}: the ranks\' parameters differ')
+    for r, x in enumerate(recs):
+        for name in PATH_KERNELS['train']:
+            check(x['launches'][name] == DDP_STEPS,
+                  f'{tag} rank {r}: kernel {name} ran '
+                  f'{x["launches"][name]} times in {DDP_STEPS} steps')
+    return rec
+
+
+def _log_records(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def ddp_path(dev, card):
+    """Phase 8: [ddp_step], [ddp_nccl], [ddp_cli], [ddp_eval]."""
+    import pickle
+    import tempfile
+
+    import torch
+
+    from r3det_tpu_torch.datasets.dota import DOTADataset
+    from r3det_tpu_torch.parallel.train import make_lr_schedule
+    from r3det_tpu_torch.tools import make_fake_dota
+    from r3det_tpu_torch.utils.config import Config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix='ddp_') as work:
+        reference = ddp_reference(dev)
+        rec = ddp_step(DDP_RANKS, 'gloo', [0] * DDP_RANKS, reference, work)
+        phase('ddp_step', config='R3DET_R50_V1', ranks=DDP_RANKS,
+              backend='gloo', device='cuda:0 (shared)',
+              batch=f'{DDP_BATCH} = {DDP_RANKS} x {DDP_BATCH // DDP_RANKS}',
+              size=SIZE, steps=DDP_STEPS,
+              losses=json.dumps([round(h['total'], 5)
+                                 for h in rec['losses']]),
+              loss_rel_err=f'{rec["loss_err"]:.6f}', tol_loss=TRAIN_LOSS_RTOL,
+              param_rel_l2_of_update=f'{rec["param_err"]:.6f}',
+              tol_param=TRAIN_GRAD_RTOL, ranks_bit_identical=rec['same'],
+              ms_per_step=f'{rec["ms"][-1]:.3f}',
+              allreduce_ms=f'{rec["allreduce_ms"]:.3f}',
+              peak_gb_per_rank=json.dumps([round(p / 2 ** 30, 3)
+                                           for p in rec['peaks']]),
+              note='two ranks sharing one card over gloo check the '
+                   'function, not data-parallel speed', card=card)
+
+        count = torch.cuda.device_count()
+        ranks = max(n for n in (1, 2, 4)
+                    if n <= count and DDP_BATCH % n == 0)
+        rec = ddp_step(ranks, 'nccl', list(range(ranks)), reference, work)
+        del reference
+        phase('ddp_nccl', world_size=ranks, cards=count, backend='nccl',
+              batch=f'{DDP_BATCH} = {ranks} x {DDP_BATCH // ranks}',
+              steps=DDP_STEPS,
+              loss_rel_err=f'{rec["loss_err"]:.6f}', tol_loss=TRAIN_LOSS_RTOL,
+              param_rel_l2_of_update=f'{rec["param_err"]:.6f}',
+              tol_param=TRAIN_GRAD_RTOL, ranks_bit_identical=rec['same'],
+              ms_per_step=f'{rec["ms"][-1]:.3f}',
+              allreduce_ms=f'{rec["allreduce_ms"]:.3f}',
+              peak_gb_per_rank=json.dumps([round(p / 2 ** 30, 3)
+                                           for p in rec['peaks']]),
+              card=card)
+
+        # the train CLI under torchrun: 2 ranks on card 0 over gloo
+        raw, split = os.path.join(work, 'raw'), os.path.join(work, 'split')
+        make_fake_dota.main(['--out', raw, '--split-out', split,
+                             '--num-images', str(EVAL_IMAGES)])
+        data = [f'data.{s}.{k}={split}/{d}/' for s in ('train', 'val', 'test')
+                for k, d in (('ann_file', 'annfiles'),
+                             ('img_prefix', 'images'))]
+        torchrun = [sys.executable, '-m', 'torch.distributed.run',
+                    '--standalone', '--nproc_per_node', str(DDP_RANKS)]
+        dist_args = ['--launcher', 'pytorch', '--dist-backend', 'gloo',
+                     '--device', 'cuda:0']
+
+        def train(out, steps, *extra, options=()):
+            t0 = time.perf_counter()
+            _run_ranks([torchrun + [
+                '-m', 'r3det_tpu_torch.tools.train',
+                os.path.join(root, TRAIN_CLI_CONFIG), *dist_args,
+                '--work-dir', out, '--max-steps', str(steps),
+                '--log-interval', '1', '--seed', str(SEED), *extra,
+                '--cfg-options', *data, *options]], 'the train CLI')
+            return time.perf_counter() - t0
+
+        run1, run2 = os.path.join(work, 'cli1'), os.path.join(work, 'cli2')
+        s1 = train(run1, DDP_CLI_STEPS[0],
+                   options=['evaluation.interval=1'])
+        ckpt = os.path.join(run1, 'ckpt', f'step_{DDP_CLI_STEPS[0]}.pt')
+        s2 = train(run2, DDP_CLI_STEPS[1], '--resume-from', ckpt,
+                   options=['evaluation.interval=0'])
+        first, second = (_log_records(os.path.join(r, 'train_log.jsonl'))
+                         for r in (run1, run2))
+        check(sorted(os.listdir(run1)) == ['ckpt', 'train_log.jsonl'] and
+              os.listdir(os.path.join(run1, 'ckpt')) ==
+              [os.path.basename(ckpt)],
+              'the train CLI wrote other files than rank 0\'s log and '
+              'checkpoint')
+        check([r['step'] for r in first] ==
+              list(range(1, DDP_CLI_STEPS[0] + 1)) + [DDP_CLI_STEPS[0]],
+              'run 1 logged other steps than one record a step and one '
+              'eval (rank 0 alone logs)')
+        cfg = Config.fromfile(os.path.join(root, TRAIN_CLI_CONFIG))
+        sched = make_lr_schedule(
+            base_lr=cfg.optimizer.lr, warmup_iters=cfg.lr_config.warmup_iters,
+            warmup_ratio=cfg.lr_config.warmup_ratio,
+            step_epochs=cfg.lr_config.step, iters_per_epoch=1000)
+        last = torch.load(os.path.join(run2, 'ckpt',
+                                       f'step_{DDP_CLI_STEPS[1]}.pt'),
+                          weights_only=True)
+        check([r['step'] for r in second] ==
+              list(range(DDP_CLI_STEPS[0] + 1, DDP_CLI_STEPS[1] + 1)) and
+              all(r['lr'] == sched(r['step']) for r in second) and
+              last['count'] == last['step'] == DDP_CLI_STEPS[1],
+              'the resumed run did not continue the step, count and LR')
+        check(all(math.isfinite(r['total']) for r in first + second
+                  if 'total' in r), 'a non-finite loss in the train CLI')
+        val = [r for r in first if r.get('mode') == 'val'][0]
+        phase('ddp_cli', config=TRAIN_CLI_CONFIG, ranks=DDP_RANKS,
+              backend='gloo', device='cuda:0 (shared)',
+              batch=f'{DDP_RANKS} x {TRAIN_BATCH}',
+              steps=f'{DDP_CLI_STEPS[0]}+'
+              f'{DDP_CLI_STEPS[1] - DDP_CLI_STEPS[0]} (resumed)',
+              run1_s=f'{s1:.1f}', run2_s=f'{s2:.1f}',
+              imgs_per_sec_logged=json.dumps(
+                  [r['imgs_per_sec'] for r in first + second
+                   if 'imgs_per_sec' in r]),
+              losses=json.dumps([round(r['total'], 5) for r in first + second
+                                 if 'total' in r]),
+              run1_val_map=f'{val["mAP"]:.4f}', card=card)
+
+        # the test CLI on that checkpoint: 2 ranks, then 1
+        weights = os.path.join(run2, 'ckpt', f'step_{DDP_CLI_STEPS[1]}.pt')
+        test = ['-m', 'r3det_tpu_torch.tools.test',
+                os.path.join(root, TRAIN_CLI_CONFIG), weights, '--eval',
+                'mAP', '--batch-size', str(TRAIN_BATCH), '--cfg-options',
+                *data, f'test_cfg.score_thr={DDP_SCORE_THR}']
+        results, secs = [], []
+        for n in (DDP_RANKS, 1):
+            out = os.path.join(work, f'results{n}.pkl')
+            cmd = (torchrun[:-1] + [str(n)] + test + ['--out', out] +
+                   dist_args if n > 1 else
+                   [sys.executable] + test + ['--out', out])
+            t0 = time.perf_counter()
+            _run_ranks([cmd], f'the test CLI on {n} ranks')
+            secs.append(time.perf_counter() - t0)
+            with open(out, 'rb') as f:
+                results.append(pickle.load(f))
+        ds = DOTADataset(f'{split}/annfiles/', f'{split}/images/',
+                         version='v1', filter_empty=False,
+                         classes=cfg.data.test.get('classes'))
+        check(all(len(r) == len(ds) for r in results) and
+              all(x is not None for r in results for x in r),
+              'the gathered results miss an image')
+        dets = sum(len(c) for r in results[1] for c in r)
+        agree = _agreement(_padded_results(results[0]),
+                           _padded_results(results[1]))
+        maps = [ds.evaluate(r, logger=None)['mAP'] for r in results]
+        phase('ddp_eval', config=TRAIN_CLI_CONFIG, images=len(ds),
+              ranks=f'{DDP_RANKS} (gloo, cuda:0) vs 1',
+              score_thr=DDP_SCORE_THR, detections=dets,
+              agreement=f'{agree:.4f}', tol=0.75,
+              map_2_ranks=f'{maps[0]:.4f}', map_1_rank=f'{maps[1]:.4f}',
+              seconds=json.dumps([round(s, 1) for s in secs]), card=card)
+        check(dets > 0, 'the test CLI found no detection to compare')
+        check(agree >= 0.75, 'the 2-rank results disagree with the '
+              '1-rank results')
+
+
 def main():
     import torch
 
@@ -2155,6 +2553,7 @@ def main():
     torch.cuda.empty_cache()
     launches['train'] = train_path(dev, smi)
     launches['train_cli'] = train_cli_path(dev, smi)
+    ddp_path(dev, smi)
     kernels = [dict(name=k, route='cuda', source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches[PATH_OF[k]][k],
                     max_abs_err=rec[k]['max_abs_err'], ms=rec[k]['ms'],
@@ -2169,4 +2568,7 @@ def main():
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--ddp-worker']:     # one rank of phase 8
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(ddp_worker(json.loads(sys.argv[2])))
     sys.exit(main())

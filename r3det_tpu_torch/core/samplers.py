@@ -66,11 +66,20 @@ def random_sample_masks(assigned, u_pos, u_neg, num=256, pos_fraction=0.5,
 
 
 def random_sample(generator, assigned, num=256, pos_fraction=0.5,
-                  neg_pos_ub=-1.0) -> SampleResult:
+                  neg_pos_ub=-1.0, shard=(0, 1)) -> SampleResult:
     """RRandomSampler: two uniform [0, 1) f32 draws of ``assigned``'s
     shape from ``generator`` (positives', then negatives' scores), then
-    :func:`random_sample_masks`."""
-    u_pos, u_neg = (torch.rand(assigned.shape, generator=generator,
-                               device=assigned.device) for _ in range(2))
+    :func:`random_sample_masks`.
+
+    ``shard``, (rank, ranks): ``assigned`` holds this rank's images of a
+    global batch of ``ranks`` equal local batches. Each draw then covers
+    the global batch and the rank keeps its own rows, so every rank's
+    masks are the single process's on the global batch."""
+    rank, ranks = shard
+    b = assigned.shape[0]
+    shape = (b * ranks,) + tuple(assigned.shape[1:])
+    u_pos, u_neg = (torch.rand(shape, generator=generator,
+                               device=assigned.device)[rank * b:(rank + 1) * b]
+                    for _ in range(2))
     return random_sample_masks(assigned, u_pos, u_neg, num, pos_fraction,
                                neg_pos_ub)

@@ -78,15 +78,18 @@ def _overlaps(anchors, gt_bboxes, cfg, kernels):
 
 def anchor_targets(anchors, gt_bboxes, gt_labels, gt_mask, encode_fn,
                    num_classes, cfg: TargetConfig, per_image_anchors=False,
-                   generator=None, kernels=True) -> AnchorTargets:
+                   generator=None, kernels=True,
+                   shard=(0, 1)) -> AnchorTargets:
     """Batched targets.
 
     anchors: (A, 5) anchors shared by the batch, or (B, A, 5) per-image
     rois when ``per_image_anchors`` (refine stages). gt_bboxes (B, G, 5),
     gt_labels (B, G) int, gt_mask (B, G) bool. ``encode_fn``: a coder's
     encode. ``generator``: the ``torch.Generator`` of the sampler's draws,
-    needed when ``cfg.sampler`` is set. ``kernels`` off takes the plain
-    rotated IoU on a card.
+    needed when ``cfg.sampler`` is set; ``shard``, (rank, ranks), says
+    which rows of the global batch's draws are this batch's
+    (``samplers.random_sample``). ``kernels`` off takes the plain rotated
+    IoU on a card.
     """
     if cfg.hbb_anchors:
         raise NotImplementedError('horizontal (xyxy) anchors are not ported')
@@ -103,7 +106,7 @@ def anchor_targets(anchors, gt_bboxes, gt_labels, gt_mask, encode_fn,
         s = cfg.sampler
         pos, neg = random_sample(generator, res.assigned, num=s.num,
                                  pos_fraction=s.pos_fraction,
-                                 neg_pos_ub=s.neg_pos_ub)
+                                 neg_pos_ub=s.neg_pos_ub, shard=shard)
     else:
         pos = res.assigned > 0
         neg = res.assigned == 0

@@ -34,6 +34,7 @@ from ..core import coders
 from ..core.anchors import RAnchorGenerator
 from ..core.targets import TargetConfig, anchor_targets, num_total_samples
 from ..ops.nms import multiclass_nms_rotated_batched
+from ..parallel import dist
 from .fpn import FPN
 from .frm import FeatureRefineModule
 from .losses import (l1_loss, sigmoid_bce_loss, sigmoid_focal_loss,
@@ -299,9 +300,16 @@ def _flatten_levels(cls_scores, bbox_preds, num_classes):
 
 def head_loss(cls_scores, bbox_preds, anchors, gt_bboxes, gt_labels,
               gt_mask, cfg: DetectorConfig, stage: StageTrainCfg, coder,
-              per_image_anchors=False, generator=None, kernels=True):
+              per_image_anchors=False, generator=None, kernels=True,
+              process_group=None):
     """``(loss_cls, loss_bbox)`` of one head over all levels at once (one
-    global avg_factor, so the reference's per-level sum is the same)."""
+    global avg_factor, so the reference's per-level sum is the same).
+
+    With ``process_group`` the batch is this rank's part of the global
+    batch: the avg_factor is summed over the group's ranks (each rank's
+    losses are its own sums over the global avg_factor, so their sum is
+    the global batch's loss) and a sampler keeps this rank's rows of the
+    global draws."""
     cls_flat, reg_flat = _flatten_levels(cls_scores, bbox_preds,
                                          cfg.num_classes)
     tcfg = TargetConfig(
@@ -309,14 +317,18 @@ def head_loss(cls_scores, bbox_preds, anchors, gt_bboxes, gt_labels,
         min_pos_iou=stage.min_pos_iou,
         assign_by_circumhbbox=stage.assign_by_circumhbbox,
         angle_version=cfg.angle_version, sampler=stage.sampler)
+    shard = (0, 1) if process_group is None else (
+        dist.rank(process_group), dist.world_size(process_group))
     tgts = anchor_targets(anchors, gt_bboxes, gt_labels, gt_mask,
                           coder.encode, cfg.num_classes, tcfg,
                           per_image_anchors=per_image_anchors,
-                          generator=generator, kernels=kernels)
+                          generator=generator, kernels=kernels, shard=shard)
     # focal: num_total_pos; with a sampler pos + neg (each sum of max(n, 1))
     nts = num_total_samples(tgts.num_pos)
     if stage.sampler is not None:
         nts = nts + num_total_samples(tgts.num_neg)
+    if process_group is not None:
+        nts = dist.all_reduce_sum(nts, process_group)
     logits = cls_flat.reshape(-1, cfg.num_classes)
     labels = tgts.labels.reshape(-1)
     lw = tgts.label_weights.reshape(-1)
@@ -336,14 +348,18 @@ def head_loss(cls_scores, bbox_preds, anchors, gt_bboxes, gt_labels,
 
 
 def detector_loss(outputs, cfg: DetectorConfig, featmap_sizes, gt_bboxes,
-                  gt_labels, gt_mask, generator=None, kernels=True):
+                  gt_labels, gt_mask, generator=None, kernels=True,
+                  process_group=None):
     """The train loss: the base head ('s0') and each refine stage ('sr{i}',
     weighted by ``stage_loss_weights``), keys ``s0.loss_cls``,
     ``s0.loss_bbox``, ``sr0.loss_cls``, ... and their sum ``total``.
 
     ``generator`` feeds the RRandomSampler of stages that configure one
     (a generator seeded 0 when none is given); ``kernels`` off takes the
-    plain rotated IoU of the refine stages' assignment on a card."""
+    plain rotated IoU of the refine stages' assignment on a card. With
+    ``process_group`` the batch is this rank's part of the global batch
+    (``head_loss``): the losses are this rank's share of the global
+    batch's, and summed over the ranks they are the global losses."""
     coder = cfg.coder()
     dev = gt_bboxes.device
     anchors = torch.cat(level_anchors(cfg, featmap_sizes, dev), 0)
@@ -356,7 +372,7 @@ def detector_loss(outputs, cfg: DetectorConfig, featmap_sizes, gt_bboxes,
     cls0, reg0 = outputs['s0']
     lc, lb = head_loss(cls0, reg0, anchors, gt_bboxes, gt_labels, gt_mask,
                        cfg, cfg.s0_train, coder, generator=generator,
-                       kernels=kernels)
+                       kernels=kernels, process_group=process_group)
     losses['s0.loss_cls'] = lc
     losses['s0.loss_bbox'] = lb
     refine_coder = coders.DeltaXYWHAOBBoxCoder(
@@ -367,7 +383,7 @@ def detector_loss(outputs, cfg: DetectorConfig, featmap_sizes, gt_bboxes,
         lc, lb = head_loss(cls_i, reg_i, rois, gt_bboxes, gt_labels, gt_mask,
                            cfg, cfg.sr_train[i], refine_coder,
                            per_image_anchors=True, generator=generator,
-                           kernels=kernels)
+                           kernels=kernels, process_group=process_group)
         losses[f'sr{i}.loss_cls'] = lc * w
         losses[f'sr{i}.loss_bbox'] = lb * w
     losses['total'] = sum(losses.values())

@@ -1,7 +1,10 @@
 """Inference step: a batch of NHWC images in, padded detections out.
 
-Port of ``r3det_tpu/parallel/mesh.py::make_predict_step`` for one device:
-no mesh and no jit; the model carries its own weights.
+Port of ``r3det_tpu/parallel/mesh.py::make_predict_step`` on one device:
+no mesh and no jit; the model carries its own weights. Under data
+parallelism each rank runs its own step on its own images, and
+``utils/eval_loop.py`` gathers the results (the mesh step's batch
+sharding).
 """
 import torch
 

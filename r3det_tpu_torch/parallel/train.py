@@ -1,8 +1,8 @@
-"""Training on one card: the LR schedule, the optimizer and the train step.
+"""Training: the LR schedule, the optimizer and the train step, in one
+process or data-parallel over the ranks of a process group.
 
-Port of ``r3det_tpu/parallel/mesh.py:93-168`` for one device (data
-parallelism comes later). It reproduces optax's arithmetic, not torch's
-defaults:
+Port of ``r3det_tpu/parallel/mesh.py:93-168``. It reproduces optax's
+arithmetic, not torch's defaults:
 
 - ``make_lr_schedule``: a linear warmup from ``base_lr * warmup_ratio``,
   then a step decay (optax's ``piecewise_constant_schedule``), each in f32
@@ -24,10 +24,22 @@ draws from a ``torch.Generator`` seeded with the update count, as the JAX
 step folds the global step into ``PRNGKey(0)`` (another stream; the same
 role); stages without one draw nothing. It runs on the card and raises
 without one unless the caller asks for the CPU (``device='cpu'``).
+
+With a ``process_group`` of R ranks, a step computes the JAX package's
+SPMD step on the global batch, the ranks' local batches concatenated in
+rank order (``mesh.py::shard_batch``), not the mean of R steps: the loss
+normaliser is summed over the ranks (``head_loss``), each rank's
+gradients are those of its share of the global loss and are summed, not
+averaged (``dist.all_reduce_grads``), the sampler's draws cover the
+global batch, and the clip and the update then run on the same summed
+gradients on every rank, so the parameters stay bit-identical across
+ranks. The returned losses are the global losses (summed over the
+ranks). The ranks must start equal (``dist.broadcast_state``).
 """
 import torch
 
 from ..models.detectors import detector_loss
+from . import dist
 
 
 def _f32(v):
@@ -100,27 +112,42 @@ def make_optimizer(params, lr_schedule=None, momentum=0.9,
                weight_decay, clip_norm)
 
 
-def loss_and_grads(model, cfg, featmap_sizes, batch, generator=None):
+def loss_and_grads(model, cfg, featmap_sizes, batch, generator=None,
+                   process_group=None):
     """Forward, ``detector_loss`` and backward on ``batch`` (a dict of
     tensors: 'image' NHWC, 'gt_bboxes', 'gt_labels', 'gt_mask'). Returns
     the detached loss dict and the gradients of ``model.parameters()`` in
-    order (``None`` where a parameter got none: the frozen ones)."""
+    order (``None`` where a parameter got none: the frozen ones).
+
+    With ``process_group``, ``batch`` is this rank's local batch: the
+    losses and the gradients returned are the global batch's, summed over
+    the ranks (zeros, not ``None``, for the frozen parameters)."""
     model.zero_grad(set_to_none=True)
     out = model(batch['image'])
     losses = detector_loss(out, cfg, featmap_sizes, batch['gt_bboxes'],
                            batch['gt_labels'], batch['gt_mask'],
-                           generator=generator, kernels=model.kernels)
+                           generator=generator, kernels=model.kernels,
+                           process_group=process_group)
     losses['total'].backward()
-    return ({k: v.detach() for k, v in losses.items()},
-            [p.grad for p in model.parameters()])
+    losses = {k: v.detach() for k, v in losses.items()}
+    grads = [p.grad for p in model.parameters()]
+    if process_group is not None:
+        summed = dist.all_reduce_sum(torch.stack(list(losses.values())),
+                                     process_group)
+        losses = dict(zip(losses, summed))
+        grads = dist.all_reduce_grads(grads, model.parameters(),
+                                      process_group)
+    return losses, grads
 
 
 def make_train_step(model, cfg, featmap_sizes, optimizer=None,
-                    device='cuda'):
+                    device='cuda', process_group=None):
     """``step(batch) -> losses``: one SGD update of ``model`` (by
     ``optimizer``, the shipped one by default) on ``batch``, the batch's
     tensors on the model's device. The model must lie on ``device``, the
-    card by default (it raises without one)."""
+    card by default (it raises without one). With ``process_group``,
+    ``batch`` is this rank's local batch and the step is the global
+    batch's (``loss_and_grads``)."""
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError("make_train_step: no CUDA card; pass "
@@ -132,7 +159,8 @@ def make_train_step(model, cfg, featmap_sizes, optimizer=None,
 
     def step(batch):
         gen = torch.Generator(param_dev).manual_seed(opt.count)
-        losses, grads = loss_and_grads(model, cfg, featmap_sizes, batch, gen)
+        losses, grads = loss_and_grads(model, cfg, featmap_sizes, batch, gen,
+                                       process_group)
         opt.step(grads)
         return losses
     return step

@@ -1,30 +1,44 @@
 """Evaluate or format results of a rotated detector through the port.
 
-    python -m r3det_tpu_torch.tools.test CONFIG [--eval mAP | --format-only]
+    python -m r3det_tpu_torch.tools.test CONFIG [CHECKPOINT]
+        [--eval mAP | --format-only]
+    torchrun --nproc_per_node N -m r3det_tpu_torch.tools.test CONFIG \
+        [CHECKPOINT] --launcher pytorch [--dist-backend nccl|gloo] ...
 
 Port of ``tools/test.py``: build the detector from a config, run it over
 the config's ``data.test`` split, then ``--eval mAP`` (DOTA polygon mAP)
 or ``--format-only`` (merge patches, write the Task1 submission and its
 zip). The arguments are the JAX CLI's, plus ``--device`` (the card by
-default; without one it raises unless given ``--device cpu``) and
-``--seed``, the numpy seed of the weights (``seeded_state_dict``), which
-stand in for a checkpoint as the JAX CLI's ``model.init`` weights do. The
-model computes in bf16 on the card and in f32 on the CPU.
+default; without one it raises unless given ``--device cpu``), ``--seed``,
+the numpy seed of the weights (``seeded_state_dict``) used where no
+checkpoint is given, as the JAX CLI's ``model.init`` weights are, and the
+process group's (``dist.add_launcher_args``, as the train CLI's). The
+checkpoint is ``tools.train``'s (``save_checkpoint``) or a published one
+(``publish_checkpoint``); an int8 model keeps its own activation ranges
+where the checkpoint has none (``load_weights``), and ``--calibrate-int8``
+sets them. The model computes in bf16 on the card and in f32 on the CPU.
 
-Two differences from the JAX CLI: the stem is fused (K3) by default, so
-``--fused-kernels`` keeps it so; and a checkpoint argument raises until
-the port reads checkpoints (ROADMAP.md, Queue 1 item 4).
+Under a group of R ranks (the JAX CLI's mesh eval), every rank takes rank
+0's weights, calibrates on the same first batches (checked equal across
+ranks), runs its stride of the images and holds the gathered results;
+rank 0 alone writes ``--out``, the submission and the metrics.
+
+One difference from the JAX CLI: the stem is fused (K3) by default, so
+``--fused-kernels`` keeps it so.
 """
 import argparse
 import pickle
 import time
+
+from ..parallel import dist
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description='Test a rotated detector')
     p.add_argument('config')
     p.add_argument('checkpoint', nargs='?', default=None,
-                   help='checkpoint (not ported yet: raises)')
+                   help="a checkpoint of tools.train or publish_model "
+                        "(default: weights from --seed)")
     p.add_argument('--out', default=None, help='dump raw results pickle')
     p.add_argument('--eval', default=None, choices=[None, 'mAP'])
     p.add_argument('--format-only', action='store_true')
@@ -45,6 +59,7 @@ def parse_args(argv=None):
                    help="'cuda' (default) or 'cpu'")
     p.add_argument('--seed', type=int, default=0,
                    help='numpy seed of the weights')
+    dist.add_launcher_args(p)
     return p.parse_args(argv)
 
 
@@ -78,27 +93,36 @@ def calibration_batches(ds, n_batches, batch_size, hw, device):
 
 
 def main(argv=None):
+    """Run the CLI; returns the metrics of ``--eval mAP`` (rank 0's under
+    a group), else None."""
     args = parse_args(argv)
+    with dist.launched(args, 'test') as (group, device):
+        return _test(args, device, group)
+
+
+def _test(args, device, group):
     import torch
 
     from ..datasets.dota import DOTADataset
     from ..models.quant import calibrate
     from ..utils.builder import build_from_config
+    from ..utils.checkpoint import load_weights
     from ..utils.config import Config
     from ..utils.convert import seeded_state_dict
     from ..utils.eval_loop import evaluate_dataset
 
-    if args.checkpoint:
-        raise NotImplementedError(
-            f'checkpoint {args.checkpoint!r}: r3det_tpu_torch does not read '
-            'checkpoints yet (ROADMAP.md, Queue 1 item 4); omit it for '
-            'seeded weights')
+    lead = dist.rank(group) == 0
+    say = print if lead else (lambda *a, **k: None)
     cfg = Config.fromfile(args.config)
     cfg.merge_from_options(dict(kv.split('=', 1) for kv in args.cfg_options))
-    device = torch.device(args.device)
     dtype = torch.bfloat16 if device.type == 'cuda' else torch.float32
     model, det_cfg = build_from_config(cfg, dtype=dtype, device=device)
-    model.load_state_dict(seeded_state_dict(model, args.seed))
+    if args.checkpoint:
+        load_weights(args.checkpoint, model)
+        say(f'loaded {args.checkpoint}')
+    else:
+        model.load_state_dict(seeded_state_dict(model, args.seed))
+    dist.broadcast_state(model, None, group)
 
     # evaluate whatever split the config's test dict points at, like the
     # reference; point data.test at an annotated split to --eval it
@@ -107,29 +131,34 @@ def main(argv=None):
                      version=det_cfg.angle_version, filter_empty=False,
                      test_mode=not args.eval,
                      classes=test_d.get('classes'))
-    print(f'{len(ds)} images')
+    say(f'{len(ds)} images')
     hw = pipeline_image_size(test_d, args.img_size)
     bs = max(args.batch_size, 1)
 
     if det_cfg.quantize and args.calibrate_int8:
         # freeze per-conv activation scales from real data so serving
-        # skips the dynamic max|x| pass (models/quant.py)
+        # skips the dynamic max|x| pass (models/quant.py); every rank
+        # calibrates on the same first batches, so the ranges agree
         batches = calibration_batches(ds, args.calibrate_int8, bs, hw,
                                       device)
         with torch.no_grad():
             calibrate(model, batches)
-        print(f'int8 activation scales calibrated over '
-              f'{len(batches)} batches')
+        dist.check_replicas(model, None, group)
+        say(f'int8 activation scales calibrated over '
+            f'{len(batches)} batches')
 
     t0 = time.time()
 
     def progress(done, total):
         if done % (20 * bs) < bs or done == total:
-            print(f'{done}/{total}  '
-                  f'({done / (time.time() - t0):.1f} img/s)')
+            say(f'{done}/{total}  '
+                f'({done / (time.time() - t0):.1f} img/s)')
 
     results = evaluate_dataset(model, det_cfg, ds, img_size=hw,
-                               batch_size=bs, progress=progress)
+                               batch_size=bs, progress=progress,
+                               process_group=group)
+    if not lead:
+        return None
     if args.out:
         with open(args.out, 'wb') as f:
             pickle.dump(results, f)

@@ -2,11 +2,16 @@
 
     python -m r3det_tpu_torch.tools.train CONFIG [--work-dir DIR]
         [--resume-from CKPT] [--max-steps N] [--synthetic] [--device cuda]
+    torchrun --nproc_per_node N -m r3det_tpu_torch.tools.train CONFIG \
+        --launcher pytorch [--dist-backend nccl|gloo] ...
 
-Port of ``tools/train.py`` on one card (data parallelism is not ported
-yet: ROADMAP.md, Queue 1 item 4). The arguments are the JAX CLI's, plus
-``--device`` (the card by default; without one it raises unless given
-``--device cpu``). The model computes in bf16 on f32 parameters on the
+Port of ``tools/train.py``, on one card or data-parallel over the ranks
+of a process group. The arguments are the JAX CLI's, plus ``--device``
+(the card by default; without one it raises unless given ``--device
+cpu``) and the process group's (``dist.add_launcher_args``:
+``--launcher pytorch`` under torchrun, ``--dist-backend``, or
+``--dist-url`` with ``--world-size`` and ``--rank``). The model computes
+in bf16 on f32 parameters on the
 card and in f32 on the CPU; its weights come from ``--seed``
 (``seeded_state_dict``), as the JAX CLI's from ``model.init``, and
 ``--pretrained-backbone`` overwrites the backbone with a torchvision
@@ -24,12 +29,26 @@ every ``--log-interval`` steps), checkpoints every
 momentum and the update count, so the LR schedule and the sampler's
 generator go on from the saved step; its loader starts a new epoch, as
 the JAX CLI's does.
+
+Under a group of R ranks (the JAX CLI's multi-process mesh), each rank
+trains on ``samples_per_gpu`` images, its stride of the epoch
+(``DetLoader``'s ``process_index`` / ``process_count``; synthetic data:
+its rows of a global batch), so the global batch is R times that and an
+epoch is the per-rank loader's length; the step is the global batch's
+(``parallel/train.py``). The ranks start from rank 0's weights and
+momentum (``dist.broadcast_state``, after the seed, the backbone or the
+resume). Rank 0 alone prints, writes ``train_log.jsonl`` and saves the
+checkpoints; the eval hook runs strided on every rank and rank 0 scores
+it. ``--device cuda`` puts rank r on ``cuda:LOCAL_RANK``; ``--device
+cuda:0`` puts every rank on card 0 (over gloo only).
 """
 import argparse
 import json
 import os
 import os.path as osp
 import time
+
+from ..parallel import dist
 
 
 def parse_args(argv=None):
@@ -54,7 +73,9 @@ def parse_args(argv=None):
     p.add_argument('--cfg-options', nargs='+', default=[],
                    help='key=value dotted-path config overrides')
     p.add_argument('--device', default='cuda',
-                   help="'cuda' (default) or 'cpu'")
+                   help="'cuda' (default; cuda:LOCAL_RANK under a group), "
+                        "'cuda:N' or 'cpu'")
+    dist.add_launcher_args(p)
     return p.parse_args(argv)
 
 
@@ -87,19 +108,23 @@ def train_pipeline_cfg(cfg, img_size=None):
 
 
 def build_train_loader(cfg, det_cfg, batch_size, seed, device,
-                       img_size=None, synthetic=False):
+                       img_size=None, synthetic=False, rank=0, ranks=1):
     """The CLI's data: (iterable of batches on ``device``, iterations an
-    epoch, (h, w) canvas). ``synthetic`` gives ``SyntheticDetData`` on a
-    square canvas, 100 iterations an epoch."""
+    epoch, (h, w) canvas), ``batch_size`` images a batch for rank ``rank``
+    of ``ranks``. ``synthetic`` gives ``SyntheticDetData`` on a square
+    canvas, 100 iterations an epoch; under ranks each rank takes its rows
+    of the global batch."""
     import torch
     pipeline_cfg, canvas = train_pipeline_cfg(cfg, img_size)
     if synthetic:
         from ..datasets.synthetic import SyntheticDetData
-        data = SyntheticDetData(batch_size=batch_size, size=max(canvas),
+        data = SyntheticDetData(batch_size=batch_size * ranks,
+                                size=max(canvas),
                                 num_classes=det_cfg.num_classes,
                                 version=det_cfg.angle_version, seed=seed)
-        loader = ({k: torch.from_numpy(v).to(device) for k, v in b.items()}
-                  for b in data)
+        rows = slice(rank * batch_size, (rank + 1) * batch_size)
+        loader = ({k: torch.from_numpy(v[rows]).to(device)
+                   for k, v in b.items()} for b in data)
         return loader, 100, (max(canvas), max(canvas))
     from ..datasets.dota import DOTADataset
     from ..datasets.loader import DetLoader
@@ -113,6 +138,7 @@ def build_train_loader(cfg, det_cfg, batch_size, seed, device,
         device=device)
     pipeline.pad_to(*canvas)                 # one shape for every sample
     loader = DetLoader(ds, pipeline, batch_size=batch_size, seed=seed,
+                       process_index=rank, process_count=ranks,
                        device=device)
     return loader, len(loader), canvas
 
@@ -120,11 +146,17 @@ def build_train_loader(cfg, det_cfg, batch_size, seed, device,
 def main(argv=None):
     """Run the CLI; returns a dict: ``model``, ``optimizer``, ``step``,
     ``history`` (the train log's records), ``metrics`` (the last eval's,
-    or None), ``canvas``, and per step the seconds the loop waited for
-    its batch (``wait_s``) and the seconds from that wait to the end of
-    the step's log (``iter_s``: the wait, the step and, on a log step,
-    the sync that reads its losses; checkpoints and evals left out)."""
+    or None; rank 0's under a group), ``canvas``, and per step the
+    seconds the loop waited for its batch (``wait_s``) and the seconds
+    from that wait to the end of the step's log (``iter_s``: the wait, the
+    step and, on a log step, the sync that reads its losses; checkpoints
+    and evals left out)."""
     args = parse_args(argv)
+    with dist.launched(args, 'train') as (group, device):
+        return _train(args, device, group)
+
+
+def _train(args, device, group):
     import torch
 
     from ..parallel.train import (make_lr_schedule, make_optimizer,
@@ -136,10 +168,9 @@ def main(argv=None):
     from ..utils.config import Config
     from ..utils.convert import seeded_state_dict
 
-    device = torch.device(args.device)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError('train: no CUDA card; pass --device cpu to '
-                           'train on the CPU')
+    rank, ranks = dist.rank(group), dist.world_size(group)
+    lead = rank == 0
+    say = print if lead else (lambda *a, **k: None)
     cfg = Config.fromfile(args.config)
     cfg.merge_from_options(dict(kv.split('=', 1) for kv in args.cfg_options))
     work_dir = args.work_dir or osp.join(
@@ -149,16 +180,18 @@ def main(argv=None):
     dtype = torch.bfloat16 if device.type == 'cuda' else torch.float32
     model, det_cfg = build_from_config(cfg, dtype=dtype, device=device)
     model.load_state_dict(seeded_state_dict(model, args.seed))
-    print(f'model: {type(model).__name__}  angle={det_cfg.angle_version}  '
-          f'refine_stages={det_cfg.num_refine_stages}')
-    print('device:', torch.cuda.get_device_name(device)
-          if device.type == 'cuda' else 'cpu')
+    say(f'model: {type(model).__name__}  angle={det_cfg.angle_version}  '
+        f'refine_stages={det_cfg.num_refine_stages}')
+    say('device:', torch.cuda.get_device_name(device)
+        if device.type == 'cuda' else 'cpu')
+    if group is not None:
+        say(f'ranks: {ranks} over {args.dist_backend}')
 
     # ---- data -------------------------------------------------------
     batch_size = cfg.get('data', Config({})).get('samples_per_gpu', 2)
     loader, iters_per_epoch, canvas = build_train_loader(
         cfg, det_cfg, batch_size, args.seed, device, args.img_size,
-        args.synthetic)
+        args.synthetic, rank, ranks)
 
     max_epochs = cfg.get('runner', Config({})).get('max_epochs', 12)
     total_steps = args.max_steps or max_epochs * iters_per_epoch
@@ -182,15 +215,17 @@ def main(argv=None):
         load_pretrained_backbone(
             model, load_state_dict_file(args.pretrained_backbone),
             det_cfg.backbone_depth)
-        print(f'loaded pretrained backbone from {args.pretrained_backbone}')
+        say(f'loaded pretrained backbone from {args.pretrained_backbone}')
     step_i = 0
     if args.resume_from:
-        step_i = restore_checkpoint(args.resume_from, model, opt)
-        print(f'resumed from {args.resume_from} @ step {step_i}')
+        step_i = restore_checkpoint(args.resume_from, model, opt, group)
+        say(f'resumed from {args.resume_from} @ step {step_i}')
+    else:
+        dist.broadcast_state(model, opt, group)
     featmap_sizes = tuple((canvas[0] // s, canvas[1] // s)
                           for s in det_cfg.strides)
     step_fn = make_train_step(model, det_cfg, featmap_sizes, optimizer=opt,
-                              device=device)
+                              device=device, process_group=group)
 
     # ---- eval hook (the reference's EvalHook: evaluation.interval) ---
     eval_cfg = cfg.get('evaluation', Config({}))
@@ -210,8 +245,9 @@ def main(argv=None):
                                  filter_empty=False,
                                  classes=val_d.get('classes'))
         results = evaluate_dataset(model, det_cfg, val_ds, img_size=canvas,
-                                   batch_size=batch_size)
-        return val_ds.evaluate(results)
+                                   batch_size=batch_size,
+                                   process_group=group)
+        return val_ds.evaluate(results) if lead else None
 
     # ---- loop -------------------------------------------------------
     log_path = osp.join(work_dir, 'train_log.jsonl')
@@ -221,7 +257,7 @@ def main(argv=None):
     prof = None
     t0 = time.perf_counter()
     data_iter = iter(loader)
-    logf = open(log_path, 'a')
+    logf = open(log_path, 'a') if lead else None
     try:
         while step_i < total_steps:
             t_wait = time.perf_counter()
@@ -231,7 +267,7 @@ def main(argv=None):
                 data_iter = iter(loader)
                 batch = next(data_iter)
             wait_s.append(time.perf_counter() - t_wait)
-            if args.profile and step_i == 10:
+            if args.profile and step_i == 10 and lead:
                 from torch.profiler import ProfilerActivity, profile
                 prof = profile(activities=[ProfilerActivity.CPU] + (
                     [ProfilerActivity.CUDA] if device.type == 'cuda'
@@ -251,33 +287,37 @@ def main(argv=None):
             if step_i % args.log_interval == 0 or step_i == total_steps:
                 losses = {k: float(v) for k, v in losses.items()}
                 dt = time.perf_counter() - t0
-                ips = args.log_interval * batch['image'].shape[0] / dt
+                ips = args.log_interval * batch['image'].shape[0] * \
+                    ranks / dt
                 rec = dict(step=step_i, imgs_per_sec=round(ips, 2),
                            lr=float(lr_schedule(step_i)), **losses)
-                print('  '.join(f'{k}={v:.4f}' if isinstance(v, float)
-                                else f'{k}={v}' for k, v in rec.items()))
-                logf.write(json.dumps(rec) + '\n')
-                logf.flush()
                 history.append(rec)
+                if lead:
+                    print('  '.join(f'{k}={v:.4f}' if isinstance(v, float)
+                                    else f'{k}={v}' for k, v in rec.items()))
+                    logf.write(json.dumps(rec) + '\n')
+                    logf.flush()
                 t0 = time.perf_counter()
             iter_s.append(time.perf_counter() - t_wait)
             if step_i % max(ckpt_interval, 1) == 0 or step_i == total_steps:
                 path = save_checkpoint(osp.join(work_dir, 'ckpt'), step_i,
-                                       model, opt)
-                print(f'checkpoint -> {path}')
+                                       model, opt, group)
+                say(f'checkpoint -> {path}')
             if eval_interval and (step_i % eval_interval == 0 or
                                   step_i == total_steps):
                 metrics = run_eval()
-                rec = dict(step=step_i, mode='val',
-                           **{k: float(v) for k, v in metrics.items()})
-                print(f'val mAP @ step {step_i}: '
-                      f'{metrics.get("mAP", float("nan")):.4f}')
-                logf.write(json.dumps(rec) + '\n')
-                logf.flush()
+                if lead:
+                    rec = dict(step=step_i, mode='val',
+                               **{k: float(v) for k, v in metrics.items()})
+                    print(f'val mAP @ step {step_i}: '
+                          f'{metrics.get("mAP", float("nan")):.4f}')
+                    logf.write(json.dumps(rec) + '\n')
+                    logf.flush()
     finally:
         if prof is not None:                 # the run ended before step 15
             prof.stop()
-        logf.close()
+        if logf is not None:
+            logf.close()
         data_iter.close()                    # stops the loader's threads
     return dict(model=model, optimizer=opt, step=step_i, history=history,
                 metrics=metrics, canvas=canvas, wait_s=wait_s, iter_s=iter_s)

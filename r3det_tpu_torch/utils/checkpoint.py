@@ -6,7 +6,10 @@ the JAX package writes orbax directories:
 - ``save_checkpoint`` / ``restore_checkpoint``: the model's state dict,
   the optimizer's momentum (``SGD.trace``) and update count
   (``SGD.count``, which the LR schedule and the sampler's generator read)
-  and the step, restored in place bit for bit;
+  and the step, restored in place bit for bit. Under a process group
+  rank 0 alone writes, and every rank restores onto its own device, then
+  takes rank 0's state (``dist.broadcast_state``) and checks it;
+- ``load_weights``: either file's weights into a model (the test CLI);
 - ``publish_checkpoint``: the state dict alone, the file name suffixed
   with the first 8 hex digits of a sha256 over its tensors (the
   reference's publish_model);
@@ -24,27 +27,34 @@ import numpy as np
 import torch
 
 from ..models.resnet import STAGE_BLOCKS, fold_stem_kernel
+from ..parallel import dist
 
 
-def save_checkpoint(ckpt_dir, step, model, optimizer):
-    """Write ``ckpt_dir/step_<step>.pt``; returns its path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+def save_checkpoint(ckpt_dir, step, model, optimizer, process_group=None):
+    """Write ``ckpt_dir/step_<step>.pt``; returns its path. With
+    ``process_group`` rank 0 writes and every rank waits for it."""
     path = osp.abspath(osp.join(ckpt_dir, f'step_{step}.pt'))
-    payload = {'step': int(step),
-               'state_dict': {k: v.detach().cpu()
-                              for k, v in model.state_dict().items()},
-               'trace': [t.detach().cpu() for t in optimizer.trace],
-               'count': int(optimizer.count)}
-    tmp = f'{path}.{os.getpid()}.tmp'
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    if dist.rank(process_group) == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        payload = {'step': int(step),
+                   'state_dict': {k: v.detach().cpu()
+                                  for k, v in model.state_dict().items()},
+                   'trace': [t.detach().cpu() for t in optimizer.trace],
+                   'count': int(optimizer.count)}
+        tmp = f'{path}.{os.getpid()}.tmp'
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    if process_group is not None:
+        dist.barrier(process_group)
     return path
 
 
-def restore_checkpoint(path, model, optimizer):
+def restore_checkpoint(path, model, optimizer, process_group=None):
     """Load ``path`` into ``model`` and ``optimizer`` in place (each
-    tensor keeps its device and dtype); returns the saved step."""
-    payload = torch.load(path, map_location='cpu', weights_only=True)
+    tensor keeps its device and dtype); returns the saved step. With
+    ``process_group`` every rank then holds rank 0's state, checked."""
+    payload = torch.load(path, map_location=next(model.parameters()).device,
+                         weights_only=True)
     model.load_state_dict(payload['state_dict'])
     if len(payload['trace']) != len(optimizer.trace):
         raise ValueError(f'{path}: {len(payload["trace"])} momentum '
@@ -53,7 +63,29 @@ def restore_checkpoint(path, model, optimizer):
         for t, saved in zip(optimizer.trace, payload['trace']):
             t.copy_(saved)
     optimizer.count = payload['count']
+    if process_group is not None:
+        dist.broadcast_state(model, optimizer, process_group)
     return payload['step']
+
+
+# an int8 model's activation ranges (``QConv.act_absmax``, the stem's
+# ``in_absmax``): set by calibration, absent from a float model's state
+QUANT_STATS = ('act_absmax', 'in_absmax')
+
+
+def load_weights(path, model):
+    """The state dict of a checkpoint, ``save_checkpoint``'s or
+    ``publish_checkpoint``'s, into ``model`` in place (each tensor keeps
+    its device and dtype). An int8 model keeps its own activation ranges
+    where the checkpoint has none, as the JAX test CLI keeps its
+    ``quant_stats``; any other tensor missing or left over raises."""
+    sd = torch.load(path, map_location=next(model.parameters()).device,
+                    weights_only=True)['state_dict']
+    own = model.state_dict()
+    kept = {k: v for k, v in own.items() if k not in sd and
+            k.rsplit('.', 1)[-1] in QUANT_STATS}
+    model.load_state_dict({**kept, **sd})
+    return model
 
 
 def publish_checkpoint(in_path, out_path):

@@ -1,7 +1,8 @@
-"""Dataset inference loop on one device.
+"""Dataset inference loop, on one card or strided over the ranks of a
+process group.
 
-Port of ``r3det_tpu/utils/eval_loop.py::evaluate_dataset`` for one card:
-each batch's samples are read and decoded on the host, their uint8 images
+Port of ``r3det_tpu/utils/eval_loop.py::evaluate_dataset``: each batch's
+samples are read and decoded on the host, their uint8 images
 copied to the model's device, transformed there (``RResize``,
 ``Normalize``, ``Pad``: bit-equal to the CPU) and stacked; the port's
 predict step runs on the batch (the tail batch padded by repeating its
@@ -9,9 +10,10 @@ last image); the padded detections come back to the host, where
 ``scale_factor`` is undone on ``[:4]`` (not the angle) and
 ``rbbox2result`` splits them by class.
 
-Gathering results across processes comes with data parallelism (ROADMAP
-Queue 1 item 4): under an initialized process group of more than one rank
-it raises.
+With a process group of R ranks, rank r runs images ``r::R`` (the JAX
+loop's process stride) in batches of its own, and the results are
+gathered so that every rank returns the full list (the JAX loop's
+``_allgather_results``), each image exactly once.
 """
 import time
 
@@ -20,14 +22,8 @@ import torch
 
 from ..core.rtransforms_np import rbbox2result
 from ..datasets.transforms import Normalize, Pad, RResize
+from ..parallel import dist
 from ..parallel.predict import make_predict_step
-
-
-def _world_size():
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
 
 
 def test_pipeline(hw):
@@ -52,11 +48,14 @@ def transform_batch(samples, pipeline, device):
 
 
 def evaluate_dataset(model, det_cfg, ds, img_size=1024, batch_size=4,
-                     progress=None, times=None):
+                     progress=None, times=None, process_group=None):
     """Run inference over every image of ``ds`` on the model's device.
 
     Returns a list (len(ds)) of per-class numpy det lists (the
     rbbox2result format the DOTA evaluator and submission writer eat).
+    With ``process_group`` this rank runs its stride of the images
+    (``batch_size`` a rank) and every rank returns the full list;
+    ``progress`` then counts this rank's images.
 
     img_size: int (square) or (h, w); the anchor grid and the fixed pad
     canvas derive from its divisor-rounded form. ``times``, a dict, gets
@@ -65,10 +64,6 @@ def evaluate_dataset(model, det_cfg, ds, img_size=1024, batch_size=4,
     predict step and its results back on the host), with the device
     synchronized at each phase's edges (leave it None when not timing).
     """
-    if _world_size() > 1:
-        raise NotImplementedError(
-            'evaluate_dataset runs on one device; gathering results across '
-            'processes is not ported yet (ROADMAP.md, Queue 1 item 4)')
     hw = (img_size, img_size) if isinstance(img_size, int) \
         else tuple(img_size)
     pipeline, canvas = test_pipeline(hw)
@@ -88,9 +83,12 @@ def evaluate_dataset(model, det_cfg, ds, img_size=1024, batch_size=4,
             times[phase] = times.get(phase, 0.0) + now - clock[0]
             clock[0] = now
 
-    results = [None] * len(ds)
-    for start in range(0, len(ds), batch_size):
-        idxs = list(range(start, min(start + batch_size, len(ds))))
+    rank, ranks = (0, 1) if process_group is None else (
+        dist.rank(process_group), dist.world_size(process_group))
+    mine = list(range(rank, len(ds), ranks))
+    results = {}
+    for start in range(0, len(mine), batch_size):
+        idxs = mine[start:start + batch_size]
         samples = [ds.get_sample(i) for i in idxs]
         lap('decode')
         imgs = transform_batch(samples, pipeline, device)
@@ -107,5 +105,14 @@ def evaluate_dataset(model, det_cfg, ds, img_size=1024, batch_size=4,
                                       det_cfg.num_classes)
         lap('predict')
         if progress is not None:
-            progress(idxs[-1] + 1, len(ds))
-    return results
+            progress(start + len(idxs), len(mine))
+    if ranks > 1:
+        gathered = {}
+        for part in dist.gather_objects(results, process_group):
+            if gathered.keys() & part.keys():
+                raise RuntimeError('an image was run on two ranks')
+            gathered.update(part)
+        results = gathered
+    if sorted(results) != list(range(len(ds))):
+        raise RuntimeError(f'{len(results)} results for {len(ds)} images')
+    return [results[i] for i in range(len(ds))]

@@ -7,6 +7,8 @@
   another seed: every parameter, buffer and momentum tensor bit for bit,
   the update count and the step; a step taken after the restore equals
   the step the saved state takes, bit for bit;
+- ``load_weights`` reads a checkpoint's weights into an int8 model and
+  keeps its activation ranges;
 - ``publish_checkpoint`` keeps the state dict alone, under a name suffixed
   with its hash, the same hash for the same tensors;
 - ``load_pretrained_backbone`` copies a synthetic torchvision ResNet-50
@@ -160,6 +162,34 @@ def _resnet50_state_dict(seed):
     sd['fc.bias'] = np.zeros(1000)
     return {k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in
             sd.items()}
+
+
+def test_load_weights_keeps_an_int8_models_ranges(trained):
+    """``load_weights`` of a float model's checkpoint into an int8 model
+    (the test CLI's ``quantize_int8`` path): every weight from the file,
+    the calibrated ``act_absmax`` / ``in_absmax`` kept; a tensor the model
+    lacks raises."""
+    model, _, path = trained
+    q = T.build_detector(CFG._replace(quantize='static'),
+                         dtype=torch.float32, device='cpu', int8_act=True)
+    with torch.no_grad():
+        for name, t in q.state_dict().items():
+            if name.rsplit('.', 1)[-1] in C.QUANT_STATS:
+                t.fill_(3.5)
+    ranges = {k: v.clone() for k, v in q.state_dict().items()
+              if k.rsplit('.', 1)[-1] in C.QUANT_STATS}
+    assert len(ranges) > 10 and any(k.endswith('in_absmax') for k in ranges)
+    C.load_weights(path, q)
+    sd, own = model.state_dict(), q.state_dict()
+    assert set(own) == set(sd) | set(ranges)
+    for k, v in sd.items():
+        assert torch.equal(own[k], v), k
+    for k, v in ranges.items():
+        assert torch.equal(own[k], v), k
+    with pytest.raises(RuntimeError, match='Missing key'):
+        C.load_weights(path, T.build_detector(
+            CFG._replace(stacked_convs=2), dtype=torch.float32,
+            device='cpu'))
 
 
 def test_load_pretrained_backbone_into_r50():

@@ -15,9 +15,10 @@ package's.
 - ``python -m r3det_tpu_torch.tools.test --device cpu`` end to end on the
   debug config shrunk with ``--cfg-options`` and ``--img-size``, with
   ``--eval mAP`` and ``--format-only``; it raises without a card by
-  default and on a checkpoint;
-- every module of the port imports with jax, r3det_tpu, cv2, PIL and
-  torchvision blocked.
+  default; it evaluates a checkpoint's weights;
+- every module of the port, the data-parallel module and the analysis
+  tools among them, imports with jax, r3det_tpu, cv2, PIL, torchvision
+  and matplotlib blocked.
 """
 import glob
 import os
@@ -269,12 +270,56 @@ def test_test_cli_runs_on_cpu(split, tmp_path):
 
 
 def test_test_cli_raises_without_a_card_and_on_a_checkpoint(split):
-    with pytest.raises(NotImplementedError, match='checkpoint'):
-        test_cli.main([DEBUG_CONFIG, 'ckpt_dir', '--device', 'cpu'])
+    """No card by default: it raises. A checkpoint that is not there: it
+    raises (the test CLI reads checkpoints, below)."""
+    with pytest.raises(FileNotFoundError, match='ckpt_dir'):
+        test_cli.main([DEBUG_CONFIG, 'ckpt_dir', '--device', 'cpu',
+                       *_cli_args(split)])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='no CUDA card'):
             test_cli.main([os.path.join(ROOT, DEBUG_CONFIG),
                            *_cli_args(split)])
+
+
+def test_test_cli_evaluates_a_checkpoint(split, tmp_path):
+    """A checkpoint (``save_checkpoint``'s, and its published form) of
+    weights from seed 3 with the refine cls bias raised, so that they
+    detect: the CLI's results on it equal ``evaluate_dataset``'s on the
+    model saved, exactly; the CLI's seeded weights give others."""
+    from r3det_tpu_torch.parallel.train import make_optimizer
+    from r3det_tpu_torch.utils.checkpoint import (publish_checkpoint,
+                                                  save_checkpoint)
+    from r3det_tpu_torch.utils.convert import seeded_state_dict
+    cfg = TConfig.fromfile(os.path.join(ROOT, DEBUG_CONFIG))
+    cfg.merge_from_options({'model.backbone.depth': 10,
+                            'model.bbox_head.feat_channels': 32})
+    model, det_cfg = TB.build_from_config(cfg, dtype=torch.float32,
+                                          device='cpu')
+    model.load_state_dict(seeded_state_dict(model, 3))
+    with torch.no_grad():
+        model.refine_head_0.retina_cls.bias.fill_(4.0)
+    ckpt = save_checkpoint(str(tmp_path / 'ckpt'), 5, model,
+                           make_optimizer(model.parameters()))
+    published = publish_checkpoint(ckpt, str(tmp_path / 'pub.pt'))
+
+    def run(*extra):
+        out = tmp_path / f'r{len(os.listdir(tmp_path))}.pkl'
+        test_cli.main([DEBUG_CONFIG, *extra, '--device', 'cpu', '--out',
+                       str(out), *_cli_args(split)])
+        with open(out, 'rb') as f:
+            return pickle.load(f)
+
+    def same(a, b):
+        return all(np.array_equal(x, y) for ra, rb in zip(a, b)
+                   for x, y in zip(ra, rb))
+
+    tds = TD.DOTADataset(split + '/annfiles/', split + '/images/',
+                         filter_empty=False, classes=CLASSES)
+    want = t_evaluate(model, det_cfg, tds, img_size=64, batch_size=4)
+    assert sum(len(c) for r in want for c in r) > 0
+    assert same(run(ckpt), want)
+    assert same(run(published), want)
+    assert not same(run('--seed', '3'), want)
 
 
 def test_pipeline_image_size_follows_the_config():
@@ -291,7 +336,7 @@ def test_pipeline_image_size_follows_the_config():
 IMPORT_CHECK = r'''
 import importlib, importlib.abc, os, pkgutil, sys
 BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'r3det_tpu', 'cv2', 'PIL',
-           'torchvision')
+           'torchvision', 'matplotlib')
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split('.')[0] in BLOCKED:
@@ -307,6 +352,9 @@ mods = ['r3det_tpu_torch'] + [
                                           'r3det_tpu_torch.')]
 for m in mods:
     importlib.import_module(m)
+for m in ('parallel.dist', 'tools.benchmark', 'tools.get_flops',
+          'tools.print_config', 'tools.analyze_logs'):
+    assert 'r3det_tpu_torch.' + m in mods, m
 import chip_smoke
 bad = [m for m in sys.modules if m.split('.')[0] in BLOCKED]
 assert not bad, bad

@@ -1157,3 +1157,19 @@ def test_train_loader_on_card_equals_cpu(cuda, tmp_path):
     for a, b in zip(*runs):
         for k in a:
             assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.gpu
+def test_ddp_step_two_gloo_ranks_on_one_card(cuda, tmp_path):
+    """Two ranks of the data-parallel train step sharing the card over
+    gloo (chip_smoke's [ddp_step] on a small R3Det at 256^2, a global
+    batch of 4), against one process stepping the whole batch: losses
+    within 2%, parameters within 5% of the update (relative L2), the
+    ranks bit-identical after every step, K1, K2, K2's backward and K3
+    once a step on each rank (all checked inside ``ddp_step``)."""
+    import chip_smoke
+    small = dict(backbone_depth=10, feat_channels=32, stacked_convs=1)
+    ref = chip_smoke.ddp_reference(cuda, small, size=256, batch=4)
+    rec = chip_smoke.ddp_step(2, 'gloo', [cuda.index, cuda.index], ref,
+                              str(tmp_path), small, size=256, batch=4)
+    assert rec['same'] and len(rec['losses']) == chip_smoke.DDP_STEPS
