@@ -38,6 +38,20 @@ Phases, one line each (any failure raises and the exit code is 1):
    that run. The same batches then go through the plain versions on the
    card, and K1 alone runs on the big batch's own NMS candidates
    (``shape=main_path``: bit-equal, timed, with their near-pair share).
+   Then ``[nms_stream]``: the same model and batch with
+   ``nms_candidates=STREAM_CANDIDATES`` (8000) and the refine cls bias set
+   for about STREAM_LIVE (6000) live candidates an image: the big
+   branch streams (K, 512) IoU slabs, K1 once a block (16 times a predict
+   step); NMS with K1 keeps what the plain IoU keeps; the streamed sweep
+   alone on the first STREAM_CUT sorted candidates keeps what the dense
+   sweep keeps; ms a step, patches/s and peak memory beside the dense
+   (8, 8000, 8000) f32 matrix it replaces (computed); K1 alone on the
+   costliest slab (bit-equal, timed, its bound and near pairs). Then
+   ``[nms_family]``: on seeded scenes of NMS_FAMILY_K boxes, ``rnms``,
+   ``batched_rnms``, ``ml_nms_rotated``, ``obb_batched_nms`` and
+   ``multiclass_nms_rotated`` (v1/v2/v3/mmcv) keep the same boxes with K1
+   as with the plain IoU, ``rbbox_overlaps_v1/v2/v3`` equal their plain
+   forms, ``poly_nms`` reports its count.
    Then the int8 serving path (``quantize='static'``,
    ``quantize_head='static'``, ``int8_act``, fused stem) on the same
    weights, calibrated with ``calibrate`` on the seeded batch: its kernels
@@ -69,7 +83,10 @@ Phases, one line each (any failure raises and the exit code is 1):
    batch 1: only NMS's IoU kernel may launch, and its outputs must equal
    its plain route's; and in bf16 with ``frm_points=5`` at batch 2 (the
    ``[frm5]`` line): K2 once a forward, outputs equal to the FRM's plain
-   route;
+   route; and the FRM build options at batch 2 (``[frm_options]``):
+   ``frm_fuse_convs`` runs K2 once a forward and equals its FRM's plain
+   route (its relative distance from the unfused model printed), and
+   ``frm_sample_kernel='band'`` equals the default model bit for bit;
 5. opt-in routes, batch 2: bf16 with ``fused_blocks`` and the unfused stem
    with ``stem_pool_kernel`` (launches K5 and K4), and int8 with
    ``fused_blocks`` (launches K5 int8), each held to the unfused model;
@@ -84,7 +101,10 @@ Phases, one line each (any failure raises and the exit code is 1):
    backward and K3 once a step, ms a step, images/s and peak memory. The
    ``[train_f32]`` line holds each bf16 route's gradients against one f32
    step of the same weights and batch (relative L2, overall and the worst
-   five parameters; which route lies nearer);
+   five parameters; which route lies nearer). ``[hbb_train]``: one train
+   step of rotated RetinaNet v1 with ``hbb_anchors`` (R50, batch 2 of
+   1024^2, seeded): finite losses, K1 once in the rotated assignment, K3
+   once, ms a step;
 7. the train CLI from DOTA files (``[train_cli]``), in a temporary
    directory: the port's fake-DOTA maker writes EVAL_IMAGES scenes split
    into 512^2 patches; ``tools/train.py``'s ``main`` trains R3Det R50 as
@@ -144,6 +164,10 @@ IOU_BUDGETS = (4000, 2000)        # NMS candidate budgets: full and small
 FRM_SIZES = (128, 64, 32, 16, 8)  # P3..P7 at 1024^2
 FRM_CHANNELS = 256
 LIVE_TARGETS = {'big': 3000, 'small': 1000}   # live candidates per image
+STREAM_CANDIDATES = 8000          # nms_candidates of the streamed-sweep run
+STREAM_LIVE = 6000                # its live candidates per image (about)
+STREAM_CUT = 4000                 # candidates of the streamed-vs-dense check
+NMS_FAMILY_K = 2000               # boxes of each [nms_family] scene
 # R50 identity bottlenecks at 1024^2: (name, (B, H, W, 4F), F)
 BOTTLENECKS = (('C2', (BATCH, 256, 256, 256), 64),
                ('C3', (BATCH, 128, 128, 512), 128),
@@ -232,6 +256,13 @@ PATH_KERNELS = {
     # backward, once each
     'train': ('rotated_iou', 'frm_sample', 'frm_sample_bwd',
               'stem_conv_pool'),
+    # a predict step with nms_candidates=8000: K1 once a streamed block
+    'stream': ('rotated_iou', 'frm_sample', 'stem_conv_pool'),
+    # R3Det* with frm_fuse_convs: the fused branch conv is cuDNN's
+    'frm_fused': ('rotated_iou', 'frm_sample', 'stem_conv_pool'),
+    # a train step of rotated RetinaNet with hbb_anchors: K1 in the rotated
+    # assignment on hbb2obb anchors, K3 in the frozen stem
+    'hbb_train': ('rotated_iou', 'stem_conv_pool'),
 }
 
 
@@ -281,21 +312,28 @@ def add_bound(rec, nbytes, ops, kind):
     return ms, by
 
 
-def iou_work(boxes, vc, out):
-    """K1's work on one NMS-shaped call (self-IoU, ``upper_only``, valid
-    counts ``vc``): the live upper-triangle pairs, the pairs its cull
-    tests (those of the tiles the zero-fill rules keep), the near pairs it
-    integrates, and its bound: the boxes read and ``out`` written, against
-    IOU_OPS_PER_PAIR a near pair and CULL_OPS_PER_PAIR a tested one.
-    ``bound_all_pairs_ms`` counts the integral for every live pair (the
-    bound before the cull)."""
+def iou_work(boxes, vc, out, boxes2=None):
+    """K1's work on one NMS-shaped call with valid counts ``vc``: the
+    dense sweep's self-IoU with ``upper_only`` (``boxes2`` None), or a
+    streamed sweep's slab ``boxes`` x ``boxes2``. The live pairs (the
+    upper triangle of the live prefix, or the slab's rows below ``vc``),
+    the pairs its cull tests (those of the tiles the zero-fill rules
+    keep), the near pairs it integrates, and its bound: the boxes read and
+    ``out`` written, against IOU_OPS_PER_PAIR a near pair and
+    CULL_OPS_PER_PAIR a tested one. ``bound_all_pairs_ms`` counts the
+    integral for every live pair (the bound before the cull)."""
     from r3det_tpu_torch.ops import rotated_iou as K1
     n = boxes.shape[1]
-    kept = ~K1._skip_mask(n, n, True, vc, boxes.device)
+    upper = boxes2 is None
+    other = boxes if upper else boxes2
+    m = other.shape[1]
+    kept = ~K1._skip_mask(n, m, upper, vc, boxes.device)
     tested = int(kept.sum())
-    near = int((kept & ~K1.far_pairs(boxes, boxes)).sum())
-    live = sum(v * (v + 1) // 2 for v in vc.tolist())
-    nbytes = 2 * boxes.numel() * 4 + vc.numel() * 4 + out.numel() * 4
+    near = int((kept & ~K1.far_pairs(boxes, other)).sum())
+    live = sum(v * (v + 1) // 2 if upper else min(v, n) * m
+               for v in vc.tolist())
+    nbytes = (boxes.numel() + other.numel()) * 4 + vc.numel() * 4 + \
+        out.numel() * 4
     b_ms, by = bound(nbytes, near * IOU_OPS_PER_PAIR
                      + tested * CULL_OPS_PER_PAIR, 'f32')
     all_ms, _ = bound(nbytes, live * IOU_OPS_PER_PAIR, 'f32')
@@ -1022,8 +1060,9 @@ def _sr_logits(model, images):
 def calibrate_cls(model, images, featmap_sizes):
     """Set the refine head's final cls layer from the seeded forward pass:
     weights rescaled so its logits spread with unit std, and one bias per
-    target so each batch reaches its live-candidate count. Returns
-    {branch: bias}."""
+    target so each batch reaches its live-candidate count (LIVE_TARGETS,
+    and STREAM_LIVE for the streamed sweep's run). Returns {branch:
+    bias}."""
     import torch
     head = model.refine_head_0.retina_cls
     base = float(head.bias.detach()[0])
@@ -1045,7 +1084,7 @@ def calibrate_cls(model, images, featmap_sizes):
                       descending=True).values
     thr = math.log(model.cfg.test.score_thr / (1 - model.cfg.test.score_thr))
     biases = {}
-    for branch, target in LIVE_TARGETS.items():
+    for branch, target in dict(LIVE_TARGETS, stream=STREAM_LIVE).items():
         # the image with the most live candidates decides the branch
         biases[branch] = thr - float(flat[:, target].max()) \
             if branch == 'small' else thr - float(flat[:, target].min())
@@ -1236,6 +1275,349 @@ def end_to_end(dev, card):
     profile_step(step, images, 'bf16', card)
     return dict(launches=launches, model=model, images=images, sizes=sizes,
                 biases=biases, cfg=cfg, step=step)
+
+
+def _spy(module, name, calls):
+    """Replace ``module.name`` by a wrapper recording each call's (args,
+    kwargs) in ``calls``; returns the function that undoes it."""
+    real = getattr(module, name)
+
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+    setattr(module, name, spy)
+    return lambda: setattr(module, name, real)
+
+
+def iou_slab(b1, b2, vc, card):
+    """K1 alone on one streamed-sweep slab of a main-path run (all the
+    sorted candidates against one block, ``valid_count``), against its
+    plain version (bit-equal), timed, with its near pairs."""
+    import torch
+
+    from r3det_tpu_torch.ops import rotated_iou as K1
+    got = K1.rotated_iou_cuda(b1, b2, valid_count=vc)
+    want = K1.rotated_iou_reference(b1, b2, valid_count=vc)
+    err = float((got - want).abs().max())
+    ms = cuda_ms(lambda: K1.rotated_iou_cuda(b1, b2, valid_count=vc), 20)
+    plain_ms = cuda_ms(
+        lambda: K1.rotated_iou_reference(b1, b2, valid_count=vc), 3)
+    work = iou_work(b1, vc, got, boxes2=b2)
+    phase('kernel', name='rotated_iou',
+          shape=f'({b1.shape[0]},{b1.shape[1]},{b2.shape[1]})',
+          candidates=STREAM_CANDIDATES, valid_count=vc.tolist(),
+          max_abs_err=err, tol=0.0, ms=f'{ms:.4f}',
+          plain_ms=f'{plain_ms:.4f}', card=card,
+          **{n: f'{v:.4f}' if isinstance(v, float) else v
+             for n, v in work.items()})
+    check(err == 0.0 and torch.equal(got, want),
+          'rotated_iou disagrees with its plain version on a streamed slab')
+
+
+def nms_stream(dev, card, base):
+    """Phase 4, the streamed sweep: the bf16 path's model at batch 8 with
+    ``nms_candidates=STREAM_CANDIDATES`` and the refine cls bias set for
+    STREAM_LIVE live candidates an image. The big branch must run and
+    stream (K1 once a block of 512 sorted candidates in the predict
+    step); NMS with K1 keeps what the plain IoU keeps; the streamed sweep
+    called alone on the first STREAM_CUT sorted candidates keeps what the
+    dense sweep keeps. Prints ms a step, patches/s, the peak memory beside
+    the dense (B, K, K) f32 matrix it replaces (computed, not allocated),
+    and K1 alone on the costliest slab. Returns the run's launch counts."""
+    import torch
+
+    from r3det_tpu_torch import _ext
+    from r3det_tpu_torch.models.detectors import detector_predict
+    from r3det_tpu_torch.ops import nms
+    from r3det_tpu_torch.parallel.predict import make_predict_step
+
+    model, images, sizes = base['model'], base['images'], base['sizes']
+    cfg = base['cfg']._replace(test=base['cfg'].test._replace(
+        nms_candidates=STREAM_CANDIDATES))
+    small_k = max(cfg.test.max_per_img, cfg.test.nms_pre)
+    blocks = -(-STREAM_CANDIDATES // nms.STREAM_BLOCK)
+    step = make_predict_step(model, cfg, sizes, img_shape=(SIZE, SIZE))
+    _set_bias(model, base['biases']['stream'])
+    step(images)                                          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _ext.reset_launches()
+    result = step(images, return_branch=True)
+    torch.cuda.synchronize()
+    launches = dict(_ext.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    phase('launches', path='stream', **launches)
+    for name in PATH_KERNELS['stream']:
+        check(launches[name] > 0,
+              f'kernel {name} was not launched on the streamed path')
+    check(launches['rotated_iou'] == blocks,
+          f'K1 ran {launches["rotated_iou"]} times in a streamed predict '
+          f'step, not once a block ({blocks})')
+    live, branch = result[3]
+    check(branch == 'big' and live > small_k,
+          f'the streamed run took the {branch} branch (live {live})')
+    _check_dets(result, cfg, BATCH, 'stream')
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step(images)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = 1e3 * sum(times) / len(times)
+
+    # NMS alone on the same head outputs: K1 against the plain IoU; the
+    # sweep's sorted candidates and K1's slabs recorded
+    with torch.no_grad():
+        out = model(images)
+    cores, slabs = [], []
+    undo = [_spy(nms, 'nms_core_presorted', cores),
+            _spy(nms, 'rotated_iou', slabs)]
+    try:
+        k = detector_predict(out, cfg, sizes, img_shape=(SIZE, SIZE))
+    finally:
+        for u in undo:
+            u()
+    p = detector_predict(out, cfg, sizes, img_shape=(SIZE, SIZE),
+                         kernels=False)
+    same = all(torch.equal(u, v) for u, v in zip(k, p))
+    check(len(cores) == 1 and len(slabs) == blocks,
+          f'{len(cores)} sweeps, {len(slabs)} K1 calls')
+    boxes, valid, labels = (a[:, :STREAM_CUT] for a in cores[0][0][:3])
+    ar = torch.arange(STREAM_CUT, device=dev)
+    vcount = torch.where(valid, ar + 1, torch.zeros_like(ar)).amax(1)
+    thr = cfg.test.nms_iou_thr
+    keep_s = nms.greedy_keep_streamed(boxes, valid, labels, thr, vcount)
+    keep_d = nms.greedy_keep_dense(boxes, valid, labels, thr, vcount)
+    cut_same = torch.equal(keep_s, keep_d)
+    phase('nms_stream', config='R3DET_R50_V1 stacked_convs=2',
+          batch=BATCH, nms_candidates=STREAM_CANDIDATES, live=live,
+          branch=branch, k1_launches=launches['rotated_iou'], blocks=blocks,
+          num=result[2].tolist(), identical_to_plain=same,
+          cut=STREAM_CUT, cut_kept=keep_s.sum(1).tolist(),
+          streamed_equals_dense=cut_same, ms_per_step=f'{ms:.3f}',
+          patches_per_s=f'{BATCH * 1e3 / ms:.2f}',
+          max_memory_allocated_gb=f'{peak / 2 ** 30:.3f}',
+          dense_iou_gb=f'{BATCH * STREAM_CANDIDATES ** 2 * 4 / 2 ** 30:.3f}',
+          card=card)
+    check(same, 'the streamed NMS with K1 differs from the plain IoU')
+    check(cut_same, 'the streamed sweep differs from the dense sweep')
+    # K1 alone on the slab with the most live rows
+    i = max(range(len(slabs)),
+            key=lambda j: int(slabs[j][1]['valid_count'].sum()))
+    (b1, b2), kw = slabs[i]
+    iou_slab(b1, b2, kw['valid_count'], card)
+    del out, k, p, cores, slabs, b1, b2
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _flat(x):
+    """The tensors of a nested tuple, in order."""
+    if isinstance(x, (tuple, list)):
+        return [t for y in x for t in _flat(y)]
+    return [x]
+
+
+def nms_family(dev, card):
+    """Phase 4, the single-image NMS family and the IoU calculators on
+    seeded scenes of NMS_FAMILY_K boxes on the card: each with K1 against
+    its plain route (``kernels=False``), which must keep the same boxes,
+    and rbbox_overlaps_v1/v2/v3 equal to their plain forms. poly_nms
+    (plain torch ops) runs and reports its count. Returns the kernel
+    route's launch counts."""
+    import numpy as np
+    import torch
+
+    from r3det_tpu_torch import _ext
+    from r3det_tpu_torch.core import iou_calculators as IC
+    from r3det_tpu_torch.ops import nms
+    from r3det_tpu_torch.ops.rotated_iou import rbbox_overlaps
+    from r3det_tpu_torch.core.rtransforms import obb2poly
+
+    rng = np.random.RandomState(SEED)
+    k = NMS_FAMILY_K
+    centres = rng.uniform(0, SIZE, (k // 4, 2)).repeat(4, 0)
+    boxes = np.concatenate([centres + rng.uniform(-10, 10, (k, 2)),
+                            rng.uniform(8, 80, (k, 2)),
+                            rng.uniform(-math.pi / 2, math.pi / 2, (k, 1))],
+                           -1)
+    small = rng.uniform(size=k) < 0.05
+    boxes[small, 2] = 5e-4
+    scores = rng.uniform(0.05, 1.0, k)
+    labels = rng.randint(0, 15, k)
+    n_pos, c = k // 2, 3
+    mboxes = boxes[:n_pos]
+    mscores = np.concatenate([rng.uniform(0, 1, (n_pos, c)),
+                              np.zeros((n_pos, 1))], -1)
+
+    def dev_t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+    bx, sc, lb = dev_t(boxes), dev_t(scores), dev_t(labels, torch.long)
+    dets = torch.cat([bx, sc[:, None]], 1)
+    calls = {
+        'rnms': lambda kr: nms.rnms(dets, 0.1, kernels=kr),
+        'rnms_negate': lambda kr: nms.rnms(dets, 0.1, negate_angle=True,
+                                           kernels=kr),
+        **{name: (lambda kr, f=getattr(nms, name): f(bx, sc, lb, 0.1,
+                                                     kernels=kr))
+           for name in ('batched_rnms', 'ml_nms_rotated', 'obb_batched_nms')},
+        **{f'multiclass_{v}': (
+            lambda kr, v=v: nms.multiclass_nms_rotated(
+                dev_t(mboxes), dev_t(mscores), 0.05, 0.1, version=v,
+                pre_topk=k, kernels=kr))
+           for v in ('v1', 'v2', 'v3', 'mmcv')},
+    }
+    # the calculators against their policy restated on the plain route
+    for v in ('v1', 'v2', 'v3'):
+        cls = getattr(IC, f'RBboxOverlaps2D_{v}')
+        calls[f'rbbox_overlaps_{v}'] = (
+            lambda kr, v=v, cls=cls: getattr(IC, f'rbbox_overlaps_{v}')(
+                dets, bx) if kr else rbbox_overlaps(
+                    dets, bx, small_box_thr=cls.small_box_thr,
+                    negate_angle=cls.negate_angle, kernels=False))
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    t0 = time.perf_counter()
+    got = {name: fn(True) for name, fn in calls.items()}
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(_ext.LAUNCHES)
+    phase('launches', path='nms_family', **launches)
+    check(launches['rotated_iou'] == len(got),
+          f'K1 ran {launches["rotated_iou"]} times for {len(got)} calls')
+    kept, equal = {}, {}
+    for name, fn in calls.items():
+        plain = fn(False)
+        equal[name] = all(torch.equal(a, b) for a, b in
+                          zip(_flat(got[name]), _flat(plain)))
+        if not name.startswith('rbbox'):
+            kept[name] = int(_flat(got[name])[-1])
+    poly = nms.poly_nms(torch.cat([obb2poly(bx), sc[:, None]], 1), 0.1)
+    phase('nms_family', boxes=k, kept=json.dumps(kept),
+          equal_to_plain=json.dumps(equal), poly_nms_kept=int(poly[1]),
+          kernel_route_s=f'{seconds:.3f}', card=card)
+    check(all(equal.values()), 'an NMS or IoU call with K1 differs from '
+                               'its plain route')
+    check(all(v > 0 for v in kept.values()) and int(poly[1]) > 0,
+          'an NMS call kept nothing')
+    return launches
+
+
+def frm_options(dev, card, base):
+    """Phase 4, the FRM build options on the bf16 path's weights at batch
+    ROUTE_BATCH: ``frm_fuse_convs`` (the branch as one cuDNN 5x5 conv) runs
+    K2 once a forward and equals its FRM's plain route as ``[frm5]``
+    requires; its refine logits lie a printed relative distance from the
+    unfused model's (a reassociation, another bf16 function); with
+    ``frm_sample_kernel='band'`` the model equals the default's bit for
+    bit. Returns the fused run's launch counts."""
+    import torch
+
+    from r3det_tpu_torch import _ext
+    from r3det_tpu_torch.models.frm import FeatureRefineModule
+    from r3det_tpu_torch.parallel.predict import make_predict_step
+
+    cfg, images, sizes = base['cfg'], base['images'][:ROUTE_BATCH], \
+        base['sizes']
+    _set_bias(base['model'], base['biases']['big'])
+    state = base['model'].state_dict()
+
+    def run(model):
+        step = make_predict_step(model, cfg, sizes, img_shape=(SIZE, SIZE))
+        return _sr_logits(model, images), step(images)
+
+    fused = _copy_model(cfg, state, dev, frm_fuse_convs=True)
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    logits, dets = run(fused)
+    torch.cuda.synchronize()
+    launches = dict(_ext.LAUNCHES)
+    phase('launches', path='frm_fused', **launches)
+    for name in PATH_KERNELS['frm_fused']:
+        check(launches[name] > 0,
+              f'kernel {name} was not launched with frm_fuse_convs')
+    check(launches['frm_sample'] == 2 * cfg.num_refine_stages,
+          f'K2 ran {launches["frm_sample"]} times in two fused forwards')
+    _check_dets(dets, cfg, ROUTE_BATCH, 'frm_fused')
+    for m in fused.modules():
+        if isinstance(m, FeatureRefineModule):
+            m.kernels = False
+    plain_logits, plain_dets = run(fused)
+    same = torch.equal(logits, plain_logits) and all(
+        torch.equal(a, b) for a, b in zip(dets, plain_dets))
+    del fused
+    # the same build without the options
+    default_logits, default_dets = run(_copy_model(cfg, state, dev))
+    rel = _rel(logits, default_logits)
+    band = _copy_model(cfg, state, dev, frm_sample_kernel='band')
+    band_logits, band_dets = run(band)
+    band_same = torch.equal(band_logits, default_logits) and all(
+        torch.equal(a, b) for a, b in zip(band_dets, default_dets))
+    del band
+    torch.cuda.empty_cache()
+    phase('frm_options', batch=ROUTE_BATCH,
+          fused_frm_launches=launches['frm_sample'],
+          fused_equal_to_plain=same,
+          fused_sr_logits_rel_to_unfused=f'{rel:.5f}',
+          num=dets[2].tolist(), band_equal_to_default=band_same, card=card)
+    check(same, 'the fused-conv FRM differs from its plain route')
+    check(band_same, "frm_sample_kernel='band' differs from the default")
+    return launches
+
+
+def hbb_train(dev, card):
+    """Phase 6, horizontal anchors: one train step of rotated RetinaNet v1
+    (R50, ``hbb_anchors``, the rotated assignment on the anchors'
+    ``hbb2obb`` boxes, L1 loss), bf16 on f32 parameters, batch TRAIN_BATCH
+    of 1024^2, seeded weights and batch, after one warm-up step: finite
+    losses, K1 in the assignment, K3 in the frozen stem, ms a step.
+    Returns the timed step's launch counts."""
+    import torch
+
+    from r3det_tpu_torch import _ext
+    from r3det_tpu_torch.datasets.synthetic import SyntheticDetData
+    from r3det_tpu_torch.models.detectors import (DetectorConfig,
+                                                  StageTrainCfg, TestCfg,
+                                                  build_detector)
+    from r3det_tpu_torch.parallel.train import make_train_step
+    from r3det_tpu_torch.utils.convert import seeded_state_dict
+
+    cfg = DetectorConfig(angle_version='v1', loss_bbox_type='l1',
+                         s0_train=StageTrainCfg(0.5, 0.4, 0.0, None),
+                         test=TestCfg(nms_version='v1'), hbb_anchors=True)
+    model = build_detector(cfg, dtype=torch.bfloat16, device=dev)
+    model.load_state_dict(seeded_state_dict(model, SEED))
+    data = SyntheticDetData(batch_size=TRAIN_BATCH, size=SIZE,
+                            max_gt=TRAIN_MAX_GT, num_classes=cfg.num_classes,
+                            seed=SEED).batch()
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    sizes = tuple((SIZE // s, SIZE // s) for s in cfg.strides)
+    step = make_train_step(model, cfg, sizes)
+    first = step(batch)
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses = step(batch)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    launches = dict(_ext.LAUNCHES)
+    phase('launches', path='hbb_train', steps=1, **launches)
+    losses = {k: float(v) for k, v in losses.items()}
+    phase('hbb_train', config='rotated RetinaNet v1 hbb_anchors',
+          batch=TRAIN_BATCH, size=SIZE,
+          first=json.dumps({k: float(v) for k, v in first.items()}),
+          losses=json.dumps(losses), ms_per_step=f'{ms:.3f}', card=card)
+    check(all(math.isfinite(v) for v in losses.values()),
+          'a non-finite loss with hbb_anchors')
+    for name in PATH_KERNELS['hbb_train']:
+        check(launches[name] == 1,
+              f'kernel {name} ran {launches[name]} times in one hbb step')
+    del model, step, batch
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _padded_results(results):
@@ -2544,14 +2926,18 @@ def main():
     rec = compare_kernels(dev)
     base = end_to_end(dev, smi)
     launches = {'bf16': base['launches']}
+    launches['stream'] = nms_stream(dev, smi, base)
+    launches['nms_family'] = nms_family(dev, smi)
     launches['int8'], model_q = int8_serving(dev, smi, base)
     launches['eval'] = eval_path(dev, smi)
     launches['f32'] = f32_model(dev, smi, base)
     launches['frm5'] = frm5_model(dev, smi, base)
+    launches['frm_fused'] = frm_options(dev, smi, base)
     launches.update(opt_in_routes(dev, base, model_q))
     del base, model_q
     torch.cuda.empty_cache()
     launches['train'] = train_path(dev, smi)
+    launches['hbb_train'] = hbb_train(dev, smi)
     launches['train_cli'] = train_cli_path(dev, smi)
     ddp_path(dev, smi)
     kernels = [dict(name=k, route='cuda', source=SOURCES[k],

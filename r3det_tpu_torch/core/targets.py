@@ -7,12 +7,14 @@ get_targets): a leading batch dimension written out replaces JAX's
 
 Assignment IoU:
 - ``assign_by_circumhbbox`` set (the base head): gts become their
-  circumscribed boxes and anchors their axis-aligned extents, and the
-  overlap is the axis-aligned IoU;
+  circumscribed boxes and anchors their axis-aligned extents (xyxy
+  anchors, ``hbb_anchors``, as they are), and the overlap is the
+  axis-aligned IoU;
 - ``None`` (the refine stages): the rotated IoU of
   :func:`..ops.rotated_iou.rotated_iou`, ``(B, G, 5) x (B, A, 5)``, which
-  launches K1 on CUDA tensors (``kernels`` off takes its plain form). v2
-  and v3 use the negated angle convention, as the JAX package does.
+  launches K1 on CUDA tensors (``kernels`` off takes its plain form); xyxy
+  anchors become oriented boxes by ``hbb2obb`` first. v2 and v3 use the
+  negated angle convention, as the JAX package does.
 """
 from typing import Any, NamedTuple, Optional
 
@@ -32,8 +34,7 @@ class TargetConfig(NamedTuple):
     pos_weight: float = -1.0
     assign_by_circumhbbox: Optional[str] = 'v1'   # None -> rotated assign
     angle_version: str = 'v1'                      # coder version
-    # horizontal (xyxy) anchors: not ported (the HBB coder is not either)
-    hbb_anchors: bool = False
+    hbb_anchors: bool = False                      # anchors are xyxy (4)
     # RRandomSampler (core/samplers.py::SamplerCfg); None -> every
     # assigned anchor participates. Needs a generator when set.
     sampler: Any = None
@@ -62,13 +63,16 @@ def _hbb_iou(boxes1_xyxy, boxes2_xyxy):
 
 
 def _overlaps(anchors, gt_bboxes, cfg, kernels):
-    """(B, G, A) assignment overlaps; ``anchors`` (B or 1, A, 5)."""
+    """(B, G, A) assignment overlaps; ``anchors`` (B or 1, A, 5), or
+    (1, A, 4) xyxy under ``cfg.hbb_anchors``."""
     version = cfg.angle_version
     if cfg.assign_by_circumhbbox is not None:
         hv = cfg.assign_by_circumhbbox
         gt_assign = rt.obb2xyxy(rt.obb2hbb(gt_bboxes, hv), hv)
-        return _hbb_iou(gt_assign, rt.obb2xyxy(anchors, version))
-    anc5 = anchors.expand(gt_bboxes.shape[0], -1, -1)
+        anc = anchors if cfg.hbb_anchors else rt.obb2xyxy(anchors, version)
+        return _hbb_iou(gt_assign, anc)
+    anc5 = rt.hbb2obb(anchors, version) if cfg.hbb_anchors else anchors
+    anc5 = anc5.expand(gt_bboxes.shape[0], -1, -1)
     gts = gt_bboxes
     if version != 'v1':
         gts, anc5 = negate_theta(gts), negate_theta(anc5)
@@ -82,8 +86,9 @@ def anchor_targets(anchors, gt_bboxes, gt_labels, gt_mask, encode_fn,
                    shard=(0, 1)) -> AnchorTargets:
     """Batched targets.
 
-    anchors: (A, 5) anchors shared by the batch, or (B, A, 5) per-image
-    rois when ``per_image_anchors`` (refine stages). gt_bboxes (B, G, 5),
+    anchors: (A, 5) anchors shared by the batch ((A, 4) xyxy under
+    ``cfg.hbb_anchors``), or (B, A, 5) per-image rois when
+    ``per_image_anchors`` (refine stages). gt_bboxes (B, G, 5),
     gt_labels (B, G) int, gt_mask (B, G) bool. ``encode_fn``: a coder's
     encode. ``generator``: the ``torch.Generator`` of the sampler's draws,
     needed when ``cfg.sampler`` is set; ``shard``, (rank, ranks), says
@@ -91,8 +96,6 @@ def anchor_targets(anchors, gt_bboxes, gt_labels, gt_mask, encode_fn,
     (``samplers.random_sample``). ``kernels`` off takes the plain rotated
     IoU on a card.
     """
-    if cfg.hbb_anchors:
-        raise NotImplementedError('horizontal (xyxy) anchors are not ported')
     if not per_image_anchors:
         anchors = anchors[None]
     overlaps = _overlaps(anchors, gt_bboxes, cfg, kernels)
@@ -113,7 +116,8 @@ def anchor_targets(anchors, gt_bboxes, gt_labels, gt_mask, encode_fn,
     gt_idx = (res.assigned - 1).clamp_min(0).long()         # (B, A)
     matched_gt = gt_bboxes.gather(
         1, gt_idx[..., None].expand(-1, -1, gt_bboxes.shape[-1]))
-    bbox_targets = encode_fn(anchors.expand_as(matched_gt), matched_gt)
+    bbox_targets = encode_fn(anchors.expand(matched_gt.shape[0], -1, -1),
+                             matched_gt)
     bbox_targets = torch.where(pos[..., None], bbox_targets,
                                torch.zeros_like(bbox_targets))
     labels = torch.where(pos, gt_labels.gather(1, gt_idx).to(torch.int32),

@@ -14,9 +14,12 @@ num (B,)).
 
 ``build_detector`` takes the JAX package's build options: the config's
 ``quantize`` (backbone, FPN and FRM branch convs) and ``quantize_head``
-(head towers), each ``False | True | 'static'``, and the keywords
+(head towers), each ``False | True | 'static'``, and ``hbb_anchors``
+(horizontal xyxy base anchors, ``DeltaXYWHAHBBoxCoder``), and the keywords
 ``int8_act``, ``stem_fused_kernel`` (on by default in the port),
-``stem_pool_kernel`` and ``fused_blocks`` (see ``models/resnet.py``).
+``stem_pool_kernel``, ``fused_blocks`` (see ``models/resnet.py``),
+``frm_points``, ``frm_transpose_quirk``, ``frm_fuse_convs`` and
+``frm_sample_kernel`` (see ``models/frm.py``).
 ``kernels`` (default on) routes the stem, the stem pool, the fused
 bottlenecks, the int8 convs, the FRM sample and the NMS IoU through the
 CUDA kernels when
@@ -31,6 +34,7 @@ import torch
 from torch import nn
 
 from ..core import coders
+from ..core import rtransforms as rt
 from ..core.anchors import RAnchorGenerator
 from ..core.targets import TargetConfig, anchor_targets, num_total_samples
 from ..ops.nms import multiclass_nms_rotated_batched
@@ -103,9 +107,8 @@ class DetectorConfig(NamedTuple):
 
     def coder(self):
         if self.hbb_anchors:
-            raise NotImplementedError(
-                'horizontal base anchors (DeltaXYWHAHBBoxCoder) are not '
-                'ported yet')
+            return coders.DeltaXYWHAHBBoxCoder(
+                self.target_means, self.target_stds, self.angle_version)
         return coders.DeltaXYWHAOBBoxCoder(
             self.target_means, self.target_stds, self.angle_version)
 
@@ -126,20 +129,12 @@ R3DET_R50_V1 = DetectorConfig(
 # Modules
 # ---------------------------------------------------------------------------
 
-def _check_supported(cfg):
-    if cfg.hbb_anchors:
-        raise NotImplementedError(
-            'horizontal base anchors (DeltaXYWHAHBBoxCoder) are not ported '
-            'yet')
-
-
 class _Base(nn.Module):
     """Backbone + FPN + the base rotated retina head."""
 
     def __init__(self, cfg, dtype, kernels, stem_fused_kernel,
                  stem_pool_kernel, fused_blocks, int8_act):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
         self.kernels = kernels
         self.backbone = ResNet(
@@ -179,7 +174,8 @@ class R3Det(_Base):
     """
 
     def __init__(self, cfg: DetectorConfig, dtype=torch.bfloat16,
-                 frm_points=1, frm_transpose_quirk=True, kernels=True,
+                 frm_points=1, frm_transpose_quirk=True, frm_fuse_convs=False,
+                 frm_sample_kernel=False, kernels=True,
                  stem_fused_kernel=True, stem_pool_kernel=False,
                  fused_blocks=False, int8_act=False):
         super().__init__(cfg, dtype, kernels, stem_fused_kernel,
@@ -188,6 +184,7 @@ class R3Det(_Base):
             self.add_module(f'frm_{stage}', FeatureRefineModule(
                 in_channels=cfg.feat_channels, featmap_strides=cfg.strides,
                 points=frm_points, transpose_quirk=frm_transpose_quirk,
+                fuse_convs=frm_fuse_convs, sample_kernel=frm_sample_kernel,
                 kernels=kernels, quantize=cfg.quantize))
             self.add_module(f'refine_head_{stage}', RRetinaHead(
                 num_classes=cfg.num_classes, in_channels=cfg.feat_channels,
@@ -202,6 +199,9 @@ class R3Det(_Base):
         anchors = level_anchors(cfg, [tuple(f.shape[1:3]) for f in cls0],
                                 images.device)
         coder = cfg.coder()
+        # F9 (ROADMAP.md Queue 3): under hbb_anchors the JAX package hands
+        # the HBB coder these (cx, cy, w, h, a) anchors unconverted, so it
+        # reads them as xyxy; the port does the same
         rois = filter_bboxes(cls0, reg0, anchors, coder, cfg)
         out = {'s0': (cls0, reg0), 'sr': [], 'rois': []}
         for stage in range(cfg.num_refine_stages):
@@ -316,7 +316,9 @@ def head_loss(cls_scores, bbox_preds, anchors, gt_bboxes, gt_labels,
         pos_iou_thr=stage.pos_iou_thr, neg_iou_thr=stage.neg_iou_thr,
         min_pos_iou=stage.min_pos_iou,
         assign_by_circumhbbox=stage.assign_by_circumhbbox,
-        angle_version=cfg.angle_version, sampler=stage.sampler)
+        angle_version=cfg.angle_version,
+        hbb_anchors=cfg.hbb_anchors and not per_image_anchors,
+        sampler=stage.sampler)
     shard = (0, 1) if process_group is None else (
         dist.rank(process_group), dist.world_size(process_group))
     tgts = anchor_targets(anchors, gt_bboxes, gt_labels, gt_mask,
@@ -363,6 +365,8 @@ def detector_loss(outputs, cfg: DetectorConfig, featmap_sizes, gt_bboxes,
     coder = cfg.coder()
     dev = gt_bboxes.device
     anchors = torch.cat(level_anchors(cfg, featmap_sizes, dev), 0)
+    if cfg.hbb_anchors:
+        anchors = rt.obb2xyxy(anchors, cfg.angle_version)
     any_sampler = (cfg.s0_train.sampler is not None or
                    any(s.sampler is not None for s in cfg.sr_train))
     if any_sampler and generator is None:
@@ -423,7 +427,7 @@ def detector_predict(outputs, cfg: DetectorConfig, featmap_sizes,
         cls_scores, bbox_preds = outputs['s0']
         anchors = level_anchors(cfg, featmap_sizes, cls_scores[0].device)
         rois = None
-        coder = cfg.coder()
+        coder = cfg.coder()          # F9 under hbb_anchors, as in forward
 
     b = cls_scores[0].shape[0]
     mlvl_boxes, mlvl_scores = [], []

@@ -1,10 +1,14 @@
-"""Batched multiclass rotated NMS (v1/v2/v3/mmcv), static output shapes.
+"""Rotated NMS (v1/v2/v3/mmcv and poly), static output shapes.
 
-Port of ``r3det_tpu/ops/nms.py`` (``_select_candidates``, ``_nms_core``,
-``_greedy_keep_blocked``, ``_gather_dets``, ``_sweep_dets``,
-``multiclass_nms_rotated_batched``). Every version is one label-gated
-greedy pass (cross-class IoU is zero); the version picks only the angle
-convention (v3/mmcv negate theta) and the v3 tiny-box skip.
+Port of ``r3det_tpu/ops/nms.py``: the batched serving path
+(``_select_candidates``, ``_nms_core``, ``_greedy_keep_blocked``,
+``_greedy_keep_streamed``, ``_gather_dets``, ``_sweep_dets``,
+``multiclass_nms_rotated_batched``) and the single-image family (``rnms``,
+``batched_rnms``, ``ml_nms_rotated``, ``obb_batched_nms``, ``poly_nms``,
+``multiclass_nms_rotated``), each one image as a batch of 1 through the
+same core. Every version is one label-gated greedy pass (cross-class IoU
+is zero); the version picks only the angle convention (v3/mmcv negate
+theta) and the v3 tiny-box skip.
 
 Differences from the JAX form, none of which changes a keep set:
 
@@ -15,27 +19,49 @@ Differences from the JAX form, none of which changes a keep set:
   one device-to-host sync per batch;
 - the greedy sweep checks convergence once per round for all images;
 - the pairwise IoU is :func:`~r3det_tpu_torch.ops.rotated_iou.rotated_iou`
-  (the K1 kernel on CUDA tensors).
+  (the K1 kernel on CUDA tensors): the (B, K, K) matrix up to
+  ``STREAM_THRESHOLD`` candidates, above it one (B, K, ``STREAM_BLOCK``)
+  slab per block of candidates (:func:`greedy_keep_streamed`).
 """
 import torch
 
-from .rotated_iou import negate_theta, rotated_iou, rotated_iou_reference
+from .rotated_iou import (negate_theta, quad_iou_pairwise, rotated_iou,
+                          rotated_iou_reference)
 
 NEG_INF = -1e30
 BLOCK_S = 256
-# the JAX package streams (K, block) IoU slabs above this budget; the
-# port has no streamed sweep yet
+# candidate budgets above this stream (K, STREAM_BLOCK) IoU slabs instead
+# of building the (K, K) matrix (8 x 8000^2 f32 is 2 GB)
 STREAM_THRESHOLD = 4096
+STREAM_BLOCK = 512
+
+
+def _resolve_block(cols, keep, vblk, start, block):
+    """One block of the blocked greedy sweep, batched.
+
+    cols (B, Kp, blk) f32 0/1: S[j, start + i] (j suppresses start + i,
+    j < start + i); keep (B, Kp) bool: the final keeps of earlier blocks
+    (False from ``start`` on); vblk (B, blk) bool. Suppression from
+    earlier blocks in one masked reduction, then a fixpoint on the block's
+    own (blk, blk) submatrix, one convergence check per round for the
+    whole batch. Returns the block's keep (B, blk)."""
+    ext = torch.bmm(keep.float()[:, None, :], cols)[:, 0] > 0
+    init = vblk & ~ext
+    sub = cols[:, start:start + block]                        # (B, blk, blk)
+    kb = init
+    for _ in range(block):
+        nxt = init & ~(torch.bmm(kb.float()[:, None, :], sub)[:, 0] > 0)
+        if torch.equal(nxt, kb):
+            break
+        kb = nxt
+    return kb
 
 
 def greedy_keep_blocked(iou, valid, iou_thr, block=BLOCK_S):
     """Exact greedy suppression over score-sorted boxes, batched.
 
     iou (B, K, K), valid (B, K) bool -> keep (B, K) bool. Blocks of
-    ``block`` boxes go in score order: suppression from earlier (final)
-    blocks in one masked reduction, then a fixpoint on the block's own
-    (block, block) submatrix, with one convergence check per round for the
-    whole batch.
+    ``block`` boxes go in score order (:func:`_resolve_block`).
     """
     b, k, _ = iou.shape
     pad = (-k) % block
@@ -49,17 +75,57 @@ def greedy_keep_blocked(iou, valid, iou_thr, block=BLOCK_S):
     supp = supp.float()
     keep = torch.zeros((b, kp), dtype=torch.bool, device=iou.device)
     for start in range(0, kp, block):
-        cols = supp[:, :, start:start + block]                # (B, Kp, blk)
-        ext = torch.bmm(keep.float()[:, None, :], cols)[:, 0] > 0
-        init = valid[:, start:start + block] & ~ext
-        sub = cols[:, start:start + block]                    # (B, blk, blk)
-        kb = init
-        for _ in range(block):
-            nxt = init & ~(torch.bmm(kb.float()[:, None, :], sub)[:, 0] > 0)
-            if torch.equal(nxt, kb):
-                break
-            kb = nxt
-        keep[:, start:start + block] = kb
+        keep[:, start:start + block] = _resolve_block(
+            supp[:, :, start:start + block], keep,
+            valid[:, start:start + block], start, block)
+    return keep[:, :k]
+
+
+def greedy_keep_dense(boxes, valid, labels, iou_thr, vcount, kernels=True):
+    """Label-gated greedy keep of score-sorted candidates (B, K) from the
+    whole (B, K, K) IoU: one IoU call (K1 on CUDA tensors, ``upper_only``,
+    tiles past ``vcount`` (B,) skipped), then :func:`greedy_keep_blocked`.
+    """
+    iou_fn = rotated_iou if kernels else rotated_iou_reference
+    iou = iou_fn(boxes.contiguous(), boxes.contiguous(), upper_only=True,
+                 valid_count=vcount.to(torch.int32))
+    iou = torch.where(labels[:, :, None] == labels[:, None, :], iou,
+                      torch.zeros_like(iou))
+    return greedy_keep_blocked(iou, valid, iou_thr)
+
+
+def greedy_keep_streamed(boxes, valid, labels, iou_thr, vcount, kernels=True,
+                         block=STREAM_BLOCK):
+    """:func:`greedy_keep_dense`'s keep set without the (B, K, K) matrix.
+
+    K is padded to a multiple of ``block`` (labels -2). Each block of
+    ``block`` sorted candidates takes one IoU call of all (B, Kp, 5)
+    candidates against the block's (B, block, 5), tiles past
+    ``min(vcount, start + block)`` skipped (the rows greedy reads are the
+    j < i ones); then the label gate, the suppression by earlier blocks'
+    keeps and the block's own fixpoint (:func:`_resolve_block`). Peak
+    memory O(B * K * block).
+    """
+    b, k, _ = boxes.shape
+    pad = (-k) % block
+    if pad:
+        boxes = torch.nn.functional.pad(boxes, (0, 0, 0, pad))
+        valid = torch.nn.functional.pad(valid, (0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-2)
+    kp = k + pad
+    boxes = boxes.contiguous()
+    iou_fn = rotated_iou if kernels else rotated_iou_reference
+    row = torch.arange(kp, device=boxes.device)
+    keep = torch.zeros((b, kp), dtype=torch.bool, device=boxes.device)
+    for start in range(0, kp, block):
+        stop = start + block
+        cols = iou_fn(boxes, boxes[:, start:stop].contiguous(),
+                      valid_count=vcount.clamp_max(stop).to(torch.int32))
+        cols = torch.where(labels[:, :, None] == labels[:, None, start:stop],
+                           cols, torch.zeros_like(cols))
+        supp = (cols > iou_thr) & (row[:, None] < row[None, start:stop])
+        keep[:, start:stop] = _resolve_block(
+            supp.float(), keep, valid[:, start:stop], start, block)
     return keep[:, :k]
 
 
@@ -96,25 +162,29 @@ def nms_core_presorted(boxes, valid, labels, iou_thr, max_out,
     """Label-gated greedy NMS on score-sorted candidates (B, K).
 
     Returns keep_idx (B, min(K, max_out)) (kept candidates first, in score
-    order, padded with -1) and the kept count (B,). ``kernels`` off takes
+    order, padded with -1) and the kept count (B,). Budgets above
+    ``STREAM_THRESHOLD`` take the streamed sweep. ``kernels`` off takes
     the plain IoU even on CUDA tensors.
     """
-    b, k, _ = boxes.shape
-    if k > STREAM_THRESHOLD:
-        raise NotImplementedError(
-            f'NMS budget {k} > {STREAM_THRESHOLD} needs the streamed sweep, '
-            f'which the port does not have yet')
+    k = boxes.shape[1]
+    ar = torch.arange(k, device=boxes.device)
+    if k == 0:
+        return _keep_indices(valid, max_out)
     if negate_angle:
         boxes = negate_theta(boxes)
     # prefix covering every valid entry (the v3 skip may punch holes)
-    ar = torch.arange(k, device=boxes.device)
     vcount = torch.where(valid, ar + 1, torch.zeros_like(ar)).amax(1)
-    iou_fn = rotated_iou if kernels else rotated_iou_reference
-    iou = iou_fn(boxes.contiguous(), boxes.contiguous(), upper_only=True,
-                 valid_count=vcount.to(torch.int32))
-    iou = torch.where(labels[:, :, None] == labels[:, None, :], iou,
-                      torch.zeros_like(iou))
-    keep = greedy_keep_blocked(iou, valid, iou_thr)
+    sweep = greedy_keep_streamed if k > STREAM_THRESHOLD \
+        else greedy_keep_dense
+    keep = sweep(boxes, valid, labels, iou_thr, vcount, kernels=kernels)
+    return _keep_indices(keep, max_out)
+
+
+def _keep_indices(keep, max_out):
+    """keep (B, K) bool -> the kept indices (B, min(K, max_out)), first and
+    in order, padded with -1, and the kept count (B,)."""
+    k = keep.shape[1]
+    ar = torch.arange(k, device=keep.device)
     rank = torch.where(keep, ar, torch.full_like(ar, k + 1))
     sel = torch.sort(rank, dim=1, stable=True).indices[:, :max_out]
     keep_idx = torch.where(keep.gather(1, sel), sel, torch.full_like(sel, -1))
@@ -136,6 +206,8 @@ def gather_dets(boxes, scores, labels, keep_idx):
 def sweep_dets(top_boxes, top_scores, top_labels, valid, iou_thr, version,
                max_num, kernels=True):
     """Greedy sweep + det gathering on score-sorted candidates."""
+    if version not in ('v1', 'v2', 'v3', 'mmcv'):
+        raise ValueError(f'unknown NMS version {version!r}')
     if version == 'v3':
         valid = valid & (torch.minimum(top_boxes[..., 2],
                                        top_boxes[..., 3]) >= 1e-3)
@@ -161,8 +233,6 @@ def multiclass_nms_rotated_batched(mboxes, mscores, score_thr, iou_thr,
     ``(live, 'small' | 'big' | 'single')``. ``kernels`` off takes the
     plain IoU even on CUDA tensors.
     """
-    if version not in ('v1', 'v2', 'v3', 'mmcv'):
-        raise ValueError(f'unknown NMS version {version!r}')
     kb = min(pre_topk, mscores.shape[1] * (mscores.shape[2] - 1))
     sel = select_candidates(mboxes, mscores, score_thr, kb)
     live = None
@@ -181,3 +251,108 @@ def multiclass_nms_rotated_batched(mboxes, mscores, score_thr, iou_thr,
     if return_branch:
         return out + ((live, branch),)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The single-image family: one image as a batch of 1 through the same core
+# ---------------------------------------------------------------------------
+
+def _nms_single(boxes, scores, iou_thr, max_out, valid=None, labels=None,
+                negate_angle=False, kernels=True):
+    """JAX's ``_nms_core`` on one image: sort (valid first, score
+    descending, ties in ascending index), sweep, and map back. Returns
+    keep_idx (min(N, max_out),) into the inputs, kept first in score order,
+    padded with -1, and the kept count (not clamped to max_out)."""
+    if valid is None:
+        valid = torch.ones(scores.shape, dtype=torch.bool,
+                           device=scores.device)
+    if labels is None:
+        labels = torch.zeros(scores.shape, dtype=torch.long,
+                             device=scores.device)
+    key = torch.where(valid, -scores, torch.full_like(scores, float('inf')))
+    order = torch.sort(key, stable=True).indices
+    keep_idx, num = nms_core_presorted(
+        boxes[order][None], valid[order][None], labels[order][None], iou_thr,
+        max_out, negate_angle=negate_angle, kernels=kernels)
+    return _unsort(keep_idx[0], order), num[0]
+
+
+def _unsort(keep_idx, order):
+    """Indices into the sorted candidates -> into the inputs (-1 stays)."""
+    return torch.where(keep_idx >= 0, order[keep_idx.clamp_min(0)],
+                       torch.full_like(keep_idx, -1))
+
+
+def _gather_single(boxes, scores, labels, keep_idx):
+    dets, out_labels = gather_dets(boxes[None], scores[None], labels[None],
+                                   keep_idx[None])
+    return dets[0], out_labels[0]
+
+
+def rnms(dets, iou_thr, max_out=2000, negate_angle=False, kernels=True):
+    """Single-class rotated NMS on (N, 6) scored dets: (keep_idx
+    (min(N, max_out),) padded with -1 in score order, the kept count).
+    ``negate_angle`` takes the v3 backend's angle convention."""
+    return _nms_single(dets[:, :5], dets[:, 5], iou_thr, max_out,
+                       negate_angle=negate_angle, kernels=kernels)
+
+
+def batched_rnms(boxes, scores, labels, iou_thr, max_out=2000, kernels=True):
+    """v1 multi-class NMS (label gating gives the reference's class-offset
+    keep sets): ((dets (min(N, max_out), 6), labels), the kept count);
+    padded rows zero, labels -1."""
+    keep_idx, num = _nms_single(boxes, scores, iou_thr, max_out,
+                                labels=labels, kernels=kernels)
+    return _gather_single(boxes, scores, labels, keep_idx), num
+
+
+def ml_nms_rotated(boxes, scores, labels, iou_thr, max_out=2000,
+                   kernels=True):
+    """v2 multi-class NMS: IoU gated to zero across labels; the outputs of
+    :func:`batched_rnms`."""
+    return batched_rnms(boxes, scores, labels, iou_thr, max_out,
+                        kernels=kernels)
+
+
+def obb_batched_nms(boxes, scores, labels, iou_thr, max_out=2000,
+                    small_box_thr=1e-3, kernels=True):
+    """v3 multi-class NMS: boxes with min(w, h) below ``small_box_thr``
+    skipped, the detectron2/mmcv angle convention; the outputs of
+    :func:`batched_rnms`."""
+    valid = torch.minimum(boxes[:, 2], boxes[:, 3]) >= small_box_thr
+    keep_idx, num = _nms_single(boxes, scores, iou_thr, max_out,
+                                valid=valid, labels=labels,
+                                negate_angle=True, kernels=kernels)
+    return _gather_single(boxes, scores, labels, keep_idx), num
+
+
+def poly_nms(polys_scored, iou_thr, max_out=2000):
+    """Greedy NMS on scored convex quads (N, 9), by
+    :func:`~r3det_tpu_torch.ops.rotated_iou.quad_iou_pairwise` (plain torch
+    ops): (keep_idx (min(N, max_out),) padded with -1, the kept count)."""
+    polys, scores = polys_scored[:, :8], polys_scored[:, 8]
+    order = torch.sort(-scores, stable=True).indices
+    polys_s = polys[order]
+    iou = quad_iou_pairwise(polys_s, polys_s)
+    valid = torch.ones((1, polys.shape[0]), dtype=torch.bool,
+                       device=polys.device)
+    keep_idx, num = _keep_indices(
+        greedy_keep_blocked(iou[None], valid, iou_thr), max_out)
+    return _unsort(keep_idx[0], order), num[0]
+
+
+def multiclass_nms_rotated(mboxes, mscores, score_thr, iou_thr,
+                           version='v1', max_num=2000, pre_topk=2000,
+                           approx_topk=False, kernels=True):
+    """Multiclass rotated NMS of one image: mboxes (N, 5) or (N, C, 5),
+    mscores (N, C+1) (background last). The top ``pre_topk`` (position,
+    class) pairs above ``score_thr`` compete. Returns (dets (max_num', 6),
+    labels (max_num',), num), max_num' = min(max_num, candidates).
+    ``approx_topk`` is TPU-only and raises."""
+    if approx_topk:
+        raise NotImplementedError('approx_topk is TPU-only; the port '
+                                  'selects candidates exactly')
+    sel = select_candidates(mboxes[None], mscores[None], score_thr, pre_topk)
+    dets, labels, num = sweep_dets(*sel, iou_thr=iou_thr, version=version,
+                                   max_num=max_num, kernels=kernels)
+    return dets[0], labels[0], num[0]

@@ -17,6 +17,11 @@ scale. Everything is f32.
 (B, M, 5) -> (B, N, M)`` with the kernel's ``upper_only`` / ``valid_count``
 zero-fill rules. On a CPU tensor it computes the plain form; on a CUDA
 tensor it launches the kernel or raises.
+
+The config-facing API of ``r3det_tpu/ops/rotated_iou.py`` is here too:
+:func:`rbbox_overlaps` (pairwise through :func:`rotated_iou`),
+:func:`rotated_iou_aligned` and :func:`quad_iou_pairwise` (plain torch
+ops on any device, as the JAX package computes them in jnp).
 """
 import torch
 
@@ -71,6 +76,14 @@ def _edges_in_quad_integral(ax, ay, bx, by, strict):
     return total
 
 
+def _quad_intersect_area(ax, ay, bx, by):
+    """Intersection area of CCW convex quads in plane form: (4, *S) x 4
+    -> (*S): A's edges inside B, then B's edges strictly inside A."""
+    s1 = _edges_in_quad_integral(ax, ay, bx, by, strict=False)
+    s2 = _edges_in_quad_integral(bx, by, ax, ay, strict=True)
+    return (s1 + s2).abs() * 0.5
+
+
 def _overlap_planes(b1, b2, mode):
     """IoU/IoF of broadcast-shaped box planes: b1, b2 are 5-tuples."""
     cx1, cy1, w1, h1, t1 = b1
@@ -79,9 +92,7 @@ def _overlap_planes(b1, b2, mode):
     my = (cy1 + cy2) * 0.5
     ax, ay = _corner_planes(cx1 - mx, cy1 - my, w1, h1, t1)
     bx, by = _corner_planes(cx2 - mx, cy2 - my, w2, h2, t2)
-    s1 = _edges_in_quad_integral(ax, ay, bx, by, strict=False)
-    s2 = _edges_in_quad_integral(bx, by, ax, ay, strict=True)
-    inter = (s1 + s2).abs() * 0.5
+    inter = _quad_intersect_area(ax, ay, bx, by)
     area1 = w1 * h1
     area2 = w2 * h2
     if mode == 'iou':
@@ -190,6 +201,90 @@ def rotated_iou(boxes1, boxes2, mode='iou', upper_only=False,
         return rotated_iou_cuda(boxes1, boxes2, mode, upper_only, valid_count)
     return rotated_iou_reference(boxes1, boxes2, mode, upper_only,
                                  valid_count)
+
+
+def rotated_iou_aligned(boxes1, boxes2, mode='iou'):
+    """Elementwise IoU/IoF of aligned boxes ``(N, 5) x (N, 5) -> (N,)``,
+    plain torch ops on any device (the JAX package computes it in jnp,
+    outside any kernel)."""
+    if mode not in ('iou', 'iof'):
+        raise ValueError(f'mode must be iou or iof, got {mode!r}')
+    boxes1 = boxes1.float()
+    boxes2 = boxes2.float()
+    if boxes1.shape[0] == 0:
+        return boxes1.new_zeros((0,))
+    return _overlap_planes(tuple(boxes1[:, i] for i in range(5)),
+                           tuple(boxes2[:, i] for i in range(5)), mode)
+
+
+def _quad_area(q):
+    """Shoelace area of (N, 8) quads (x0, y0, ..., x3, y3) -> (N,)."""
+    x, y = q[:, 0::2], q[:, 1::2]
+    return (x * y.roll(-1, 1) - x.roll(-1, 1) * y).sum(1).abs() * 0.5
+
+
+def quad_iou_pairwise(quads1, quads2):
+    """Dense IoU of convex quads ``(N, 8) x (M, 8) -> (N, M)`` (CCW
+    corners, as ``obb2poly`` gives them), plain torch ops on any device;
+    rows go in chunks of ``ROW_CHUNK``. poly_nms's IoU."""
+    quads1 = quads1.float()
+    quads2 = quads2.float()
+    n, m = quads1.shape[0], quads2.shape[0]
+    if n == 0 or m == 0:
+        return quads1.new_zeros((n, m))
+    bx = quads2[:, 0::2].T[:, None, :]                       # (4, 1, M)
+    by = quads2[:, 1::2].T[:, None, :]
+    a2 = _quad_area(quads2)[None, :]
+    chunks = []
+    for r0 in range(0, n, ROW_CHUNK):
+        rows = quads1[r0:r0 + ROW_CHUNK]
+        r = rows.shape[0]
+        ax = rows[:, 0::2].T[:, :, None].expand(4, r, m)
+        ay = rows[:, 1::2].T[:, :, None].expand(4, r, m)
+        inter = _quad_intersect_area(ax, ay, bx.expand(4, r, m),
+                                     by.expand(4, r, m))
+        a1 = _quad_area(rows)[:, None]
+        chunks.append(inter / (a1 + a2 - inter).clamp_min(EPS_AREA))
+    return torch.cat(chunks, 0)
+
+
+def rbbox_overlaps(bboxes1, bboxes2, mode='iou', is_aligned=False,
+                   small_box_thr=None, negate_angle=False, kernels=True):
+    """The IoU calculators' entry: ``(N, 5[+score]) x (M, 5[+score]) ->
+    (N, M)``, or ``(N,)`` when ``is_aligned``.
+
+    A 6th (score) column is trimmed; ``negate_angle`` takes the
+    detectron2/mmcv angle convention (:func:`negate_theta`); boxes with
+    min(w, h) below ``small_box_thr`` get overlap 0. The pairwise form is
+    :func:`rotated_iou` on a batch of 1 (K1 on CUDA tensors; ``kernels``
+    off takes its plain form), the aligned form plain torch ops.
+    """
+    if mode not in ('iou', 'iof'):
+        raise ValueError(f'mode must be iou or iof, got {mode!r}')
+    if bboxes1.shape[-1] == 6:
+        bboxes1 = bboxes1[..., :5]
+    if bboxes2.shape[-1] == 6:
+        bboxes2 = bboxes2[..., :5]
+    if negate_angle:
+        bboxes1 = negate_theta(bboxes1)
+        bboxes2 = negate_theta(bboxes2)
+    if small_box_thr is not None:
+        tiny1 = torch.minimum(bboxes1[:, 2], bboxes1[:, 3]) < small_box_thr
+        tiny2 = torch.minimum(bboxes2[:, 2], bboxes2[:, 3]) < small_box_thr
+    if is_aligned:
+        out = rotated_iou_aligned(bboxes1, bboxes2, mode=mode)
+        if small_box_thr is not None:
+            out = out.masked_fill(tiny1 | tiny2, 0.0)
+        return out
+    if bboxes1.shape[0] == 0 or bboxes2.shape[0] == 0:
+        return bboxes1.new_zeros((bboxes1.shape[0], bboxes2.shape[0]),
+                                 dtype=torch.float32)
+    iou = rotated_iou if kernels else rotated_iou_reference
+    out = iou(bboxes1.float().contiguous()[None],
+              bboxes2.float().contiguous()[None], mode=mode)[0]
+    if small_box_thr is not None:
+        out = out.masked_fill(tiny1[:, None] | tiny2[None, :], 0.0)
+    return out
 
 
 def _circumradius(boxes):

@@ -7,11 +7,11 @@ package's warnings for knobs it does not provide. ``build_from_config``
 deep-merges the model's and the top-level train/test cfg the same way and
 calls the port's ``build_detector``.
 
-Build options the port's ``build_detector`` does not take yet raise
-``NotImplementedError`` when a config or caller turns them on, instead of
-being dropped: ``frm_fuse_convs``, ``frm_sample_kernel`` and
-``approx_topk`` in ``test_cfg`` (ROADMAP.md, Queue 1 item 6). Off, they ask
-for what the port does anyway (K2 replaces both TPU sample routes).
+Every build option of the JAX package's builder reaches the port's
+``build_detector``, ``frm_fuse_convs`` and ``frm_sample_kernel`` included.
+``approx_topk`` in ``test_cfg`` (the TPU's ``lax.approx_max_k``) raises
+``NotImplementedError`` when turned on, instead of being dropped: the port
+selects candidates exactly.
 """
 import warnings
 
@@ -176,14 +176,6 @@ _KERNEL_FLAG_KEYS = ('stem_fused_kernel', 'fused_blocks',
                      'frm_fuse_convs', 'int8_act')
 _R3DET_ONLY_KWARGS = ('frm_sample_kernel', 'frm_fuse_convs', 'frm_points',
                       'frm_transpose_quirk')
-# build options of the JAX package's build_detector the port does not take
-_UNPORTED_KWARGS = ('frm_sample_kernel', 'frm_fuse_convs')
-
-
-def _unported(what):
-    return NotImplementedError(
-        f'{what} is not ported to r3det_tpu_torch yet (ROADMAP.md, Queue 1 '
-        'item 6)')
 
 
 def build_from_config(cfg, dtype=torch.bfloat16, device='cuda',
@@ -215,11 +207,10 @@ def build_from_config(cfg, dtype=torch.bfloat16, device='cuda',
     if det_cfg.num_refine_stages == 0:     # RRetinaNet: no FRM module
         for key in _R3DET_ONLY_KWARGS:
             kwargs.pop(key, None)
-    for key in _UNPORTED_KWARGS:
-        if kwargs.pop(key, False):
-            raise _unported(f'the build option {key!r}')
     if det_cfg.test.approx_topk:
-        raise _unported("test_cfg 'approx_topk' (the TPU's "
-                        'lax.approx_max_k)')
+        raise NotImplementedError(
+            "test_cfg 'approx_topk' is the TPU's lax.approx_max_k, which the "
+            'port does not provide (ROADMAP.md, Not to port): it selects '
+            'candidates exactly')
     model = build_detector(det_cfg, dtype=dtype, device=device, **kwargs)
     return model, det_cfg

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from r3det_tpu.models import detectors as J
+from r3det_tpu_torch.core import coders
 from r3det_tpu_torch.models import detectors as T
 from r3det_tpu_torch.parallel.predict import make_predict_step
 from r3det_tpu_torch.utils.convert import from_flax
@@ -155,8 +156,10 @@ def test_kernel_route_switch_is_identical_on_cpu(slice_run):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        T.build_detector(T_CFG._replace(hbb_anchors=True), device='cpu')
+    """``hbb_anchors`` is ported (the model builds with the HBB coder);
+    the TPU-only ``approx_topk`` still raises."""
+    model = T.build_detector(T_CFG._replace(hbb_anchors=True), device='cpu')
+    assert isinstance(model.cfg.coder(), coders.DeltaXYWHAHBBoxCoder)
     with pytest.raises(NotImplementedError):
         T.detector_predict({'sr': [((), ())], 'rois': [()]},
                            T_CFG._replace(test=T.TestCfg(approx_topk=True)),
@@ -173,6 +176,10 @@ def test_import_leaves_jax_out():
             'import r3det_tpu_torch.parallel.train\n'
             'import r3det_tpu_torch.core.targets\n'
             'import r3det_tpu_torch.core.rtransforms\n'
+            'import r3det_tpu_torch.core.coders\n'
+            'import r3det_tpu_torch.core.iou_calculators\n'
+            'import r3det_tpu_torch.ops.nms\n'
+            'import r3det_tpu_torch.ops.convex\n'
             'import r3det_tpu_torch.datasets.synthetic\n'
             'import r3det_tpu_torch.utils.convert\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
@@ -200,3 +207,148 @@ def test_package_sources_import_no_jax():
                     found += [(f, m.group(0).strip())
                               for m in bad.finditer(fh.read())]
     assert not found, found
+
+
+# ---------------------------------------------------------------------------
+# horizontal base anchors (hbb_anchors, the HBB coder)
+# ---------------------------------------------------------------------------
+
+HBB_SIZES = ((8, 8), (4, 4), (2, 2), (1, 1), (1, 1))
+HBB_CASES = {
+    # RRetinaNet HBB: circumscribed assignment in the angle version, L1
+    'rretinanet': dict(num_refine_stages=0, loss_bbox_type='l1'),
+    # R3Det: circumscribed s0, a rotated refine stage on the rois
+    'r3det': dict(num_refine_stages=1, stage_loss_weights=(1.0,)),
+}
+
+
+def hbb_cfgs(case):
+    kw = dict(num_classes=3, stacked_convs=1, feat_channels=32,
+              backbone_depth=10, hbb_anchors=True, **HBB_CASES[case])
+    j = J.DetectorConfig(
+        s0_train=J.StageTrainCfg(0.5, 0.4, 0.0, 'v1'),
+        sr_train=(J.StageTrainCfg(0.6, 0.5, 0.0, None),) *
+        kw['num_refine_stages'], test=J.TestCfg(nms_pre=64, max_per_img=16),
+        **kw)
+    tc = T.DetectorConfig(
+        s0_train=T.StageTrainCfg(0.5, 0.4, 0.0, 'v1'),
+        sr_train=(T.StageTrainCfg(0.6, 0.5, 0.0, None),) *
+        kw['num_refine_stages'], test=T.TestCfg(nms_pre=64, max_per_img=16),
+        **kw)
+    return j, tc
+
+
+def hbb_batch(rng, b=2, size=64, g=4):
+    """v1 ground truth (tests/test_torch_train.py::make_batch)."""
+    gt = np.zeros((b, g, 5), np.float32)
+    labels = np.zeros((b, g), np.int32)
+    mask = np.zeros((b, g), bool)
+    for i in range(b):
+        n = rng.randint(1, g + 1)
+        gt[i, :n] = np.stack([
+            rng.uniform(10, size - 10, n), rng.uniform(10, size - 10, n),
+            rng.uniform(8, 24, n), rng.uniform(6, 16, n),
+            rng.uniform(-np.pi / 2 + 0.05, -0.05, n)], -1)
+        labels[i, :n] = rng.randint(0, 3, n)
+        mask[i, :n] = True
+    return gt, labels, mask
+
+
+@pytest.fixture(scope='module', params=list(HBB_CASES))
+def hbb_run(request):
+    """The tiny f32 model with hbb_anchors: JAX's outputs, and the port's
+    on the same converted weights."""
+    j_cfg, t_cfg = hbb_cfgs(request.param)
+    rng = np.random.RandomState(3)
+    images = rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
+    model = J.build_detector(j_cfg, dtype=jnp.float32)
+    v = jax.tree.map(np.array, jax.jit(model.init)(
+        jax.random.PRNGKey(0), jnp.asarray(images)))
+    heads = ['bbox_head'] + ['refine_head_0'] * (j_cfg.num_refine_stages > 0)
+    for head in heads:
+        v['params'][head]['retina_cls']['kernel'] *= 30
+        v['params'][head]['retina_reg']['kernel'] *= 30
+    out = jax.jit(model.apply)(v, jnp.asarray(images))
+    port = T.build_detector(t_cfg, dtype=torch.float32, device='cpu')
+    port.load_state_dict(from_flax(v), strict=True)
+    with torch.no_grad():
+        got = port(t(images))
+    return dict(case=request.param, j_cfg=j_cfg, t_cfg=t_cfg, out=out,
+                got=got, batch=hbb_batch(rng))
+
+
+def test_hbb_anchor_forward_matches_jax_and_pins_f9(hbb_run):
+    """F9: JAX's forward hands the HBB coder the (cx, cy, w, h, a) grid
+    anchors without the xyxy conversion, which reads them as (x1, y1, x2,
+    y2): a roi decoded from zero deltas is w - cx wide. The port follows
+    it: its rois equal JAX's."""
+    want, got = hbb_run['out'], hbb_run['got']
+    for w_lvls, g_lvls in zip(want['s0'], got['s0']):
+        for w, g in zip(w_lvls, g_lvls):
+            assert_close(g.numpy(), w)
+    if hbb_run['case'] != 'r3det':
+        return
+    for w, g in zip(want['rois'][0], got['rois'][0]):
+        assert_close(g.numpy(), w)
+    j_cfg, t_cfg = hbb_run['j_cfg'], hbb_run['t_cfg']
+    anchors = J.level_anchors(j_cfg, HBB_SIZES)
+    rng = np.random.RandomState(4)
+    cls = [rng.normal(0, 1, (2, h, w, 9 * 3)).astype(np.float32)
+           for h, w in HBB_SIZES]
+    reg = [np.zeros((2, h, w, 9 * 5), np.float32) for h, w in HBB_SIZES]
+    j_rois = J.filter_bboxes([jnp.asarray(c) for c in cls],
+                             [jnp.asarray(r) for r in reg], anchors,
+                             j_cfg.coder(), j_cfg)
+    t_rois = T.filter_bboxes([t(c) for c in cls], [t(r) for r in reg],
+                             [t(np.asarray(a)) for a in anchors],
+                             t_cfg.coder(), t_cfg)
+    for lvl, (jr, tr) in enumerate(zip(j_rois, t_rois)):
+        jr = np.asarray(jr)
+        np.testing.assert_allclose(tr.numpy(), jr, rtol=1e-6, atol=1e-6)
+        a = np.asarray(anchors[lvl]).reshape(-1, 9, 5)
+        best = cls[lvl].reshape(2, -1, 9, 3).max(-1).argmax(-1)
+        anc = np.take_along_axis(a[None], best[..., None, None], 2)[:, :, 0]
+        np.testing.assert_allclose(jr[..., 2], anc[..., 2] - anc[..., 0],
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_hbb_anchor_detector_loss_matches_jax(hbb_run):
+    """detector_loss with hbb_anchors on JAX's own head outputs: the
+    losses within 1e-5 and their gradients with respect to every head
+    output within 1e-3 (relative L2) of JAX's. R3Det's refine stage
+    encodes against F9's rois, some of them of negative width, so its
+    bbox loss is NaN in JAX: the port gives NaN in the same loss and the
+    same gradient entries (ROADMAP.md Queue 3, F9)."""
+    j_cfg, t_cfg, out = hbb_run['j_cfg'], hbb_run['t_cfg'], hbb_run['out']
+    gt, labels, mask = hbb_run['batch']
+    heads = {k: out[k] for k in ('s0', 'sr') if k in out}
+
+    def j_loss(h):
+        losses = J.detector_loss(dict(out, **h), j_cfg, HBB_SIZES,
+                                 jnp.asarray(gt), jnp.asarray(labels),
+                                 jnp.asarray(mask))
+        return losses['total'], losses
+    (_, want), j_grads = jax.jit(jax.value_and_grad(j_loss, has_aux=True))(
+        heads)
+    t_heads = jax.tree.map(lambda a: t(np.asarray(a)).requires_grad_(),
+                           heads)
+    t_out = dict(to_torch(out), **t_heads)
+    got = T.detector_loss(t_out, t_cfg, HBB_SIZES, t(gt), t(labels), t(mask))
+    got['total'].backward()
+    assert set(got) == set(want)
+    nan = {k for k, w in want.items() if np.isnan(float(w))}
+    assert nan == ({'sr0.loss_bbox', 'total'} if hbb_run['case'] == 'r3det'
+                   else set()), nan
+    for k, w in want.items():
+        g, w = got[k].item(), float(w)
+        if k in nan:
+            assert np.isnan(g), (k, g)
+            continue
+        assert w > 0 and abs(g - w) <= 1e-5 * max(abs(w), 1e-3), (k, g, w)
+    for g, w in zip(jax.tree.leaves(t_heads), jax.tree.leaves(j_grads)):
+        g, w = g.grad.numpy(), np.asarray(w)
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+        ok = ~np.isnan(w)
+        err = np.linalg.norm(g[ok] - w[ok]) / max(np.linalg.norm(w[ok]),
+                                                  1e-12)
+        assert err <= 1e-3, err

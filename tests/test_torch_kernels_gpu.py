@@ -94,6 +94,60 @@ def test_rotated_iou_kernel_matches_plain(cuda, n, m):
     assert _ext.LAUNCHES['rotated_iou'] == before + 3
 
 
+@pytest.mark.gpu
+def test_rotated_iou_kernel_streamed_slab(cuda):
+    """K1 on the streamed sweep's slabs: all (B, K, 5) candidates against
+    one block of 512, ``valid_count`` min(vcount, start + 512), K no
+    multiple of the tiles; bit-equal to its plain version."""
+    rng = np.random.RandomState(11)
+    b1 = boxes(rng, 3, 2600).to(cuda)
+    vcount = (2600, 1700, 0)
+    before = _ext.LAUNCHES['rotated_iou']
+    for start in (0, 1024, 2048):
+        b2 = b1[:, start:start + 512].contiguous()
+        vc = torch.tensor([min(v, start + 512) for v in vcount],
+                          dtype=torch.int32, device=cuda)
+        got = K1.rotated_iou(b1, b2, valid_count=vc)
+        assert tuple(got.shape) == (3, 2600, b2.shape[1])
+        assert_iou_exact(got, K1.rotated_iou_reference(b1, b2,
+                                                       valid_count=vc))
+    assert _ext.LAUNCHES['rotated_iou'] == before + 3
+
+
+@pytest.mark.gpu
+def test_streamed_sweep_kernel_matches_plain(cuda):
+    """The streamed sweep with K1 keeps what its plain route and the dense
+    sweep keep (a dead tail, a hole, labels), one K1 launch a block; the
+    batched multiclass NMS above STREAM_THRESHOLD the same both ways."""
+    from r3det_tpu_torch.ops import nms
+    rng = np.random.RandomState(12)
+    k = 2600
+    b = boxes(rng, 2, k).to(cuda)
+    valid = torch.ones((2, k), dtype=torch.bool, device=cuda)
+    valid[0, 2000:] = False
+    valid[1, 150] = False
+    labels = torch.from_numpy(rng.randint(0, 4, (2, k))).to(cuda)
+    vcount = torch.tensor([2000, k], device=cuda)
+    before = _ext.LAUNCHES['rotated_iou']
+    keep = nms.greedy_keep_streamed(b, valid, labels, 0.2, vcount)
+    assert _ext.LAUNCHES['rotated_iou'] == before + math.ceil(k / 512)
+    assert torch.equal(keep, nms.greedy_keep_streamed(
+        b, valid, labels, 0.2, vcount, kernels=False))
+    assert torch.equal(keep, nms.greedy_keep_dense(b, valid, labels, 0.2,
+                                                   vcount))
+    assert keep.any(1).all()
+    n, c = 2000, 3
+    mboxes = boxes(rng, 2, n).to(cuda)
+    mscores = torch.from_numpy(np.concatenate(
+        [rng.uniform(0, 1, (2, n, c)), np.zeros((2, n, 1))], -1)
+        .astype(np.float32)).to(cuda)
+    args = dict(score_thr=0.05, iou_thr=0.1, max_num=500, pre_topk=5000)
+    got = nms.multiclass_nms_rotated_batched(mboxes, mscores, **args)
+    want = nms.multiclass_nms_rotated_batched(mboxes, mscores, kernels=False,
+                                              **args)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+
+
 def iou_case(case, rng):
     """(boxes1, boxes2, valid_count or None) on the CPU for one case of
     test_rotated_iou_kernel_exact."""

@@ -21,6 +21,7 @@ import torch
 from r3det_tpu.core import assigner as JA
 from r3det_tpu.core import coders as JC
 from r3det_tpu.core import samplers as JS
+from r3det_tpu.core import rtransforms as JR
 from r3det_tpu.core import targets as JT
 from r3det_tpu.models.detectors import level_anchors as jax_level_anchors
 from r3det_tpu.models.detectors import DetectorConfig as JCfg
@@ -209,3 +210,87 @@ def test_sampler_route_draws_from_the_generator():
     b = TT.anchor_targets(*args, generator=torch.Generator().manual_seed(5))
     assert torch.equal(a.label_weights, b.label_weights)
     assert (a.num_pos <= 8).all() and ((a.num_pos + a.num_neg) <= 32).all()
+
+
+# ---------------------------------------------------------------------------
+# horizontal anchors: the HBB coder and anchor_targets with hbb_anchors
+# ---------------------------------------------------------------------------
+
+def rand_obb(rng, n, version):
+    """tests/test_coders.py::rand_obb on its own generator."""
+    cx, cy = rng.uniform(100, 900, n), rng.uniform(100, 900, n)
+    w, h = rng.uniform(8, 120, n), rng.uniform(8, 120, n)
+    if version == 'v1':
+        a = rng.uniform(-PI / 2 + 1e-2, -1e-2, n)
+    elif version == 'v2':
+        a = rng.uniform(-PI / 4 + 1e-2, 3 * PI / 4 - 1e-2, n)
+        w, h = np.maximum(w, h), np.minimum(w, h)
+    else:
+        a = rng.uniform(-PI / 2 + 1e-2, PI / 2 - 1e-2, n)
+        w, h = np.maximum(w, h), np.minimum(w, h)
+    return np.stack([cx, cy, w, h, a], -1).astype(np.float32)
+
+
+def rand_hbb(rng, n):
+    """tests/test_coders.py::rand_hbb on its own generator."""
+    x1, y1 = rng.uniform(0, 500, n), rng.uniform(0, 500, n)
+    w, h = rng.uniform(10, 200, n), rng.uniform(10, 200, n)
+    return np.stack([x1, y1, x1 + w, y1 + h], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize('version', ['v1', 'v2', 'v3'])
+def test_hbb_coder_matches_jax(version):
+    """Encode, and decode of deltas wide enough to hit the wh-ratio clip,
+    with and without target means and stds, within 1e-5."""
+    rng = np.random.RandomState(7)
+    anchors, gt = rand_hbb(rng, 256), rand_obb(rng, 256, version)
+    deltas = rng.normal(0, 2.0, (256, 5)).astype(np.float32)
+    for means, stds in (((0.,) * 5, (1.,) * 5),
+                        ((0.1, -0.1, 0.0, 0.2, 0.0), (0.5, 0.5, 1., 1., 0.3))):
+        jc = JC.DeltaXYWHAHBBoxCoder(means, stds, angle_version=version)
+        tc = TC.DeltaXYWHAHBBoxCoder(means, stds, angle_version=version)
+        np.testing.assert_allclose(
+            tc.encode(t(anchors), t(gt)).numpy(),
+            np.asarray(jc.encode(jnp.asarray(anchors), jnp.asarray(gt))),
+            rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(
+            tc.decode(t(anchors), t(deltas), max_shape=(300, 400)).numpy(),
+            np.asarray(jc.decode(jnp.asarray(anchors), jnp.asarray(deltas))),
+            rtol=1e-5, atol=1e-5)
+    # the round trip of tests/test_coders.py
+    dec = tc.decode(t(anchors), tc.encode(t(anchors), t(gt))).numpy()
+    np.testing.assert_allclose(dec[:, :2], gt[:, :2], atol=0.3)
+
+
+@pytest.mark.parametrize('version,circum', [('v1', 'v1'), ('v3', 'v3'),
+                                            ('v1', None)])
+def test_anchor_targets_hbb_anchors_match_jax(version, circum):
+    """xyxy anchors (the detectors' obb2xyxy of the grid anchors), the HBB
+    coder's targets: the circumscribed assignment on them as they are, the
+    rotated one on their hbb2obb boxes."""
+    rng = np.random.RandomState(9)
+    grid = np.concatenate(jax_level_anchors(JCfg(angle_version=version),
+                                            SIZES), 0)
+    anchors = np.asarray(JR.obb2xyxy(jnp.asarray(grid), version), np.float32)
+    boxes, labels, mask = gts(rng, 2, 6, 64, version)
+    kw = dict(pos_iou_thr=0.5, neg_iou_thr=0.4, min_pos_iou=0.0,
+              assign_by_circumhbbox=circum, angle_version=version,
+              hbb_anchors=True)
+    with jax.disable_jit():
+        want = JT.anchor_targets(
+            jnp.asarray(anchors), jnp.asarray(boxes), jnp.asarray(labels),
+            jnp.asarray(mask), JC.DeltaXYWHAHBBoxCoder(angle_version=version)
+            .encode, 3, JT.TargetConfig(**kw))
+    got = TT.anchor_targets(
+        t(anchors), t(boxes), t(labels), t(mask),
+        TC.DeltaXYWHAHBBoxCoder(angle_version=version).encode, 3,
+        TT.TargetConfig(**kw))
+    assert int(got.num_pos.sum()) > 0
+    for name in ('labels', 'label_weights', 'bbox_weights', 'num_pos',
+                 'assigned_gt', 'num_neg'):
+        g, w = getattr(got, name), np.asarray(getattr(want, name))
+        assert g.shape == w.shape, name
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+    np.testing.assert_allclose(got.bbox_targets.numpy(),
+                               np.asarray(want.bbox_targets), rtol=0,
+                               atol=1e-5)
