@@ -143,7 +143,18 @@ Phases, one line each (any failure raises and the exit code is 1):
    log and checkpoint alone, the step, count and LR continued.
    ``[ddp_eval]``: the test CLI on the last checkpoint with ``--eval mAP``
    on 2 ranks and on 1: every image once, the detections' agreement
-   (``_agreement``, >= 0.75) and both mAPs.
+   (``_agreement``, >= 0.75) and both mAPs;
+9. the last tools. ``[kernel_bench]``: ``tools/kernel_bench.py all`` (the
+   stem, the C2 and C3 identity blocks and the FRM sample at batch 32,
+   each kernel beside its plain form): every int8 parity and K2's and
+   K4's exact, K3 bf16 within one bf16 ulp, K5 bf16 within 0.03125, each
+   variant's ms. ``[vis]``: the ``[eval]`` phase's results pickle through
+   ``tools/analyze_results.py --topk 2`` (``bad/`` and ``good/`` PNGs
+   named ``{mAP:.3f}_{id}.png`` that decode), and
+   ``tools/browse_dataset.py --limit 4`` on the card equal to its run
+   with ``--device cpu``, PNG for PNG. ``[dryrun]``: ``dryrun.entry()``
+   (R3Det R50, bf16, a 512^2 zero image) on the card, K3 and K2 launched,
+   every output sum finite; then ``dryrun_multichip(2)`` on the CPU.
 
 Prints the kernels' JSON record on the line before the last, and as the
 last line ``{"ok": true, "device": {...}}``. Needs one card; exits non-zero
@@ -152,9 +163,15 @@ without one, and without the rest of the repository.
 import json
 import math
 import os
+import pickle
+import re
 import subprocess
 import sys
 import time
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from r3det_tpu_torch.utils.kernel_timing import (  # noqa: E402
+    add_bound, cuda_ms, frm_work, iou_work)
 
 SEED = 0
 BATCH = 8
@@ -179,6 +196,8 @@ EVAL_BATCH = 8
 EVAL_CALIBRATE = 2                # --calibrate-int8 batches
 EVAL_SHIFT = 99                   # px: ground truth moved off itself
 EVAL_REPEATS = 5                  # timed runs of the eval loop
+VIS_TOPK = 2                      # [vis]: analyze_results --topk
+VIS_LIMIT = 4                     # [vis]: browse_dataset --limit
 TRAIN_BATCH = 2                   # samples_per_gpu of the shipped config
 TRAIN_MAX_GT = 64
 TRAIN_WARMUP = 2                  # train steps before the timed ones
@@ -207,10 +226,6 @@ DDP_CLI_STEPS = (4, 6)            # the train CLI's run 1, then resumed to
 DDP_TIMEOUT = 600                 # s: a phase's processes, a group's waits
 # [ddp_eval]: seeded weights trained 6 steps score below the shipped 0.05
 DDP_SCORE_THR = 0.005
-HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
-PEAK_OPS_PER_S = {'bf16': 989e12, 'int8': 1979e12, 'f32': 67e12}
-IOU_OPS_PER_PAIR = 500            # f32 operations of one pair's integral (K1)
-CULL_OPS_PER_PAIR = 15            # f32 operations of K1's far-pair test
 INT8_QCONVS = 115                 # QConv launches of one int8 forward
 REPLACES = {
     'rotated_iou': 'r3det_tpu/ops/pallas_iou.py:146',
@@ -271,75 +286,9 @@ def phase(tag, **fields):
           flush=True)
 
 
-def cuda_ms(fn, iters, warmup=2):
-    """Mean milliseconds per call on the card (CUDA events)."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
-
-
-def bound(nbytes, ops, kind):
-    """The least time the card could take, in ms, and what bounds it: the
-    larger of ``nbytes`` over the memory rate and ``ops`` over the peak
-    rate of ``kind``."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
-    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
-
-
-def add_bound(rec, nbytes, ops, kind):
-    """Add one call's bound to a kernel's record (rows that sum several
-    shapes sum their bounds; ``bound_by`` names the larger share)."""
-    ms, by = bound(nbytes, ops, kind)
-    rec['bound_ms'] = rec.get('bound_ms', 0.0) + ms
-    share = rec.setdefault('_share', {'bytes': 0.0, 'operations': 0.0})
-    share[by] += ms
-    rec['bound_by'] = max(share, key=share.get)
-    return ms, by
-
-
-def iou_work(boxes, vc, out, boxes2=None):
-    """K1's work on one NMS-shaped call with valid counts ``vc``: the
-    dense sweep's self-IoU with ``upper_only`` (``boxes2`` None), or a
-    streamed sweep's slab ``boxes`` x ``boxes2``. The live pairs (the
-    upper triangle of the live prefix, or the slab's rows below ``vc``),
-    the pairs its cull tests (those of the tiles the zero-fill rules
-    keep), the near pairs it integrates, and its bound: the boxes read and
-    ``out`` written, against IOU_OPS_PER_PAIR a near pair and
-    CULL_OPS_PER_PAIR a tested one. ``bound_all_pairs_ms`` counts the
-    integral for every live pair (the bound before the cull)."""
-    from r3det_tpu_torch.ops import rotated_iou as K1
-    n = boxes.shape[1]
-    upper = boxes2 is None
-    other = boxes if upper else boxes2
-    m = other.shape[1]
-    kept = ~K1._skip_mask(n, m, upper, vc, boxes.device)
-    tested = int(kept.sum())
-    near = int((kept & ~K1.far_pairs(boxes, other)).sum())
-    live = sum(v * (v + 1) // 2 if upper else min(v, n) * m
-               for v in vc.tolist())
-    nbytes = (boxes.numel() + other.numel()) * 4 + vc.numel() * 4 + \
-        out.numel() * 4
-    b_ms, by = bound(nbytes, near * IOU_OPS_PER_PAIR
-                     + tested * CULL_OPS_PER_PAIR, 'f32')
-    all_ms, _ = bound(nbytes, live * IOU_OPS_PER_PAIR, 'f32')
-    return dict(live_pairs=live, tested_pairs=tested, near_pairs=near,
-                near_share=near / max(tested, 1), bound_ms=b_ms,
-                bound_by=by, bound_all_pairs_ms=all_ms)
 
 
 def iou_main_path(k_boxes, vc, card):
@@ -459,16 +408,6 @@ def frm_inputs(rng, dev, batch=BATCH):
             dev))
         scales.append(1.0 / stride)
     return xs, feats, rois, scales
-
-
-def frm_work(xs, rois, points):
-    """K2's bound on these inputs: x, feat and rois read, out written;
-    per output value, points x (4 products, 3 sums, a rounding) and the
-    points - 1 running sums and two residual adds, each with its rounding
-    (f32)."""
-    values = sum(x.numel() for x in xs)
-    nbytes = 3 * values * 2 + sum(r.numel() for r in rois) * 4
-    return nbytes, values * (8 * points + 2 * (points - 1) + 4)
 
 
 def bf16_ulp(v):
@@ -1842,6 +1781,9 @@ def eval_path(dev, card):
     check(min(found, back) >= 0.75,
           'kernel and plain detections disagree on the eval path')
 
+    # the test CLI's --out pickle, for [vis]
+    with open(os.path.join(work, 'results.pkl'), 'wb') as f:
+        pickle.dump(results, f)
     out_dir = os.path.join(work, 'submission')
     zip_path = ds.format_results(results, out_dir)
     task1 = sorted(f for f in os.listdir(out_dir) if f.startswith('Task1_'))
@@ -2740,6 +2682,142 @@ def _log_records(path):
         return [json.loads(line) for line in f if line.strip()]
 
 
+def kernel_bench_phase(card):
+    """``tools/kernel_bench.py all`` on the card ([kernel_bench]): every
+    int8 parity exact, K3 bf16 within one bf16 ulp, K5 bf16 within
+    0.03125, K2 and K4 exact; each variant's ms at batch 32."""
+    from r3det_tpu_torch.tools import kernel_bench
+
+    t0 = time.perf_counter()
+    out = kernel_bench.main(['all'])
+    seconds = time.perf_counter() - t0
+    par = {k: v for r in out.values() for k, v in r['parity'].items()}
+    ulps = out['stem']['ulps']['K3 bf16 vs plain (b1)']
+    ms = {**{k: v['ms'] for k, v in out['stem']['ms'].items()},
+          **{f'{t} {k}': v['ms'] for t, r in out['bottleneck']['ms'].items()
+             for k, v in r.items()},
+          **{k: v['ms'] for k, v in out['frm']['ms'].items()}}
+    phase('kernel_bench', seconds=f'{seconds:.2f}', batch=kernel_bench.BATCH,
+          k3_bf16_ulps=ulps, parity=json.dumps(par),
+          ms=json.dumps({k: round(v, 4) for k, v in ms.items()}), card=card)
+    for name, d in par.items():
+        if 'q8' in name or 'int8' in name or 'K2' in name or 'K4' in name:
+            check(d == 0.0, f'kernel_bench parity[{name}] = {d}, not 0')
+        elif 'K5' in name:
+            check(d <= 0.03125, f'kernel_bench parity[{name}] = {d}')
+    check(ulps <= 1.0, f'kernel_bench: K3 bf16 {ulps} ulps from its plain '
+                       'version')
+
+
+def vis_path(dev, card):
+    """The drawing tools on the [eval] phase's split ([vis]):
+    ``analyze_results --topk VIS_TOPK`` on its results pickle writes
+    ``bad/`` and ``good/`` PNGs named ``{mAP:.3f}_{id}.png`` that decode;
+    ``browse_dataset --limit VIS_LIMIT`` on the card draws what it draws
+    with ``--device cpu``, PNG for PNG. The train pipeline is the
+    config's with ``flip_ratio=1.0``: its flips draw from an unseeded
+    generator, so only a pipeline that draws nothing at random gives both
+    runs the same images."""
+    import numpy as np
+
+    from r3det_tpu_torch.datasets.image_io import imread
+    from r3det_tpu_torch.tools import analyze_results, browse_dataset
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, 'build', 'eval_smoke')
+    split = os.path.join(work, 'split')
+    cfg = os.path.join(work, 'vis_config.py')
+    with open(cfg, 'w') as f:
+        f.write(f"""_base_ = [{os.path.join(root, EVAL_CONFIG)!r}]
+data = dict(
+    train=dict(
+        ann_file={split + '/annfiles/'!r}, img_prefix={split + '/images/'!r},
+        pipeline=[dict(type='RResize', img_scale=(1024, 1024)),
+                  dict(type='RRandomFlip', flip_ratio=1.0),
+                  dict(type='Normalize', mean=[123.675, 116.28, 103.53],
+                       std=[58.395, 57.12, 57.375], to_rgb=True),
+                  dict(type='Pad', size_divisor=32)]),
+    val=dict(ann_file={split + '/annfiles/'!r},
+             img_prefix={split + '/images/'!r}))
+""")
+    t0 = time.perf_counter()
+    shown = os.path.join(work, 'analyze')
+    analyze_results.main([cfg, os.path.join(work, 'results.pkl'),
+                          '--show-dir', shown, '--topk', str(VIS_TOPK)])
+    analyze_s = time.perf_counter() - t0
+    ids = {os.path.splitext(f)[0] for f in os.listdir(split + '/annfiles')}
+    names = {tag: sorted(os.listdir(os.path.join(shown, tag)))
+             for tag in ('bad', 'good')}
+    maps = {}
+    for tag, files in names.items():
+        check(len(files) == VIS_TOPK, f'analyze_results wrote {files} to '
+                                      f'{tag}/, not {VIS_TOPK} files')
+        for name in files:
+            m = re.fullmatch(r'(\d\.\d{3})_(.+)\.png', name)
+            check(m is not None and m.group(2) in ids and
+                  0.0 <= float(m.group(1)) <= 1.0,
+                  f'analyze_results wrote {tag}/{name}')
+            img = imread(os.path.join(shown, tag, name))
+            check(img is not None and img.ndim == 3 and img.shape[2] == 3,
+                  f'{tag}/{name} does not decode')
+            maps.setdefault(tag, []).append(float(m.group(1)))
+    check(max(maps['bad']) <= min(maps['good']),
+          'analyze_results: a bad image scores above a good one')
+
+    t0 = time.perf_counter()
+    browsed = {}
+    for where in ('cuda', 'cpu'):
+        out = os.path.join(work, f'browse_{where}')
+        browse_dataset.main([cfg, '--output-dir', out, '--limit',
+                             str(VIS_LIMIT), '--device', where])
+        browsed[where] = {f: imread(os.path.join(out, f))
+                          for f in sorted(os.listdir(out))}
+    browse_s = time.perf_counter() - t0
+    same = browsed['cuda'].keys() == browsed['cpu'].keys() and all(
+        np.array_equal(browsed['cuda'][f], browsed['cpu'][f])
+        for f in browsed['cuda'])
+    phase('vis', analyze_s=f'{analyze_s:.2f}', bad=json.dumps(names['bad']),
+          good=json.dumps(names['good']), browse_s=f'{browse_s:.2f}',
+          browsed=len(browsed['cuda']), card_equals_cpu=same, card=card)
+    check(len(browsed['cuda']) == VIS_LIMIT,
+          f'browse_dataset drew {len(browsed["cuda"])} images, not '
+          f'{VIS_LIMIT}')
+    check(same, 'browse_dataset on the card differs from the CPU')
+
+
+def dryrun_phase(dev, card):
+    """``dryrun.entry()`` on the card ([dryrun]): K3 and K2 launch (K2
+    once a refine stage) and every sum is finite; then
+    ``dryrun_multichip(2)`` on the CPU."""
+    import torch
+
+    from r3det_tpu_torch import _ext
+    from r3det_tpu_torch.dryrun import dryrun_multichip, entry
+    from r3det_tpu_torch.models.detectors import R3DET_R50_V1
+
+    t0 = time.perf_counter()
+    fn, args = entry()
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    sums = fn(*args)
+    torch.cuda.synchronize()
+    launches = dict(_ext.LAUNCHES)
+    entry_s = time.perf_counter() - t0
+    finite = all(bool(torch.isfinite(v)) for v in sums)
+    t0 = time.perf_counter()
+    dryrun_multichip(2)
+    multichip_s = time.perf_counter() - t0
+    phase('dryrun', entry_s=f'{entry_s:.2f}', sums=len(sums), finite=finite,
+          stem_conv_pool=launches['stem_conv_pool'],
+          frm_sample=launches['frm_sample'],
+          multichip_s=f'{multichip_s:.2f}', card=card)
+    check(finite, 'dryrun entry: non-finite sums')
+    check(launches['stem_conv_pool'] >= 1 and launches['frm_sample'] >=
+          R3DET_R50_V1.num_refine_stages,
+          f'dryrun entry: K3 ran {launches["stem_conv_pool"]} times, K2 '
+          f'{launches["frm_sample"]}')
+
+
 def ddp_path(dev, card):
     """Phase 8: [ddp_step], [ddp_nccl], [ddp_cli], [ddp_eval]."""
     import pickle
@@ -2901,7 +2979,6 @@ def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from r3det_tpu_torch import _ext
 
     torch.backends.cudnn.allow_tf32 = False
@@ -2940,6 +3017,9 @@ def main():
     launches['hbb_train'] = hbb_train(dev, smi)
     launches['train_cli'] = train_cli_path(dev, smi)
     ddp_path(dev, smi)
+    kernel_bench_phase(smi)
+    vis_path(dev, smi)
+    dryrun_phase(dev, smi)
     kernels = [dict(name=k, route='cuda', source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches[PATH_OF[k]][k],
                     max_abs_err=rec[k]['max_abs_err'], ms=rec[k]['ms'],
@@ -2955,6 +3035,5 @@ def main():
 
 if __name__ == '__main__':
     if sys.argv[1:2] == ['--ddp-worker']:     # one rank of phase 8
-        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         sys.exit(ddp_worker(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -363,7 +363,10 @@ mods = ['r3det_tpu_torch'] + [
 for m in mods:
     importlib.import_module(m)
 for m in ('parallel.dist', 'tools.benchmark', 'tools.get_flops',
-          'tools.print_config', 'tools.analyze_logs'):
+          'tools.print_config', 'tools.analyze_logs', 'core.draw',
+          'core.visualization', 'tools.analyze_results',
+          'tools.browse_dataset', 'tools.kernel_bench', 'dryrun',
+          'utils.kernel_timing'):
     assert 'r3det_tpu_torch.' + m in mods, m
 import chip_smoke
 bad = [m for m in sys.modules if m.split('.')[0] in BLOCKED]

@@ -1227,3 +1227,32 @@ def test_ddp_step_two_gloo_ranks_on_one_card(cuda, tmp_path):
     rec = chip_smoke.ddp_step(2, 'gloo', [cuda.index, cuda.index], ref,
                               str(tmp_path), small, size=256, batch=4)
     assert rec['same'] and len(rec['losses']) == chip_smoke.DDP_STEPS
+
+
+# kernel_bench's subcommands at batch 1: every int8 parity exact, the bf16
+# ones within chip_smoke's card tolerances (K3 one ulp, K5 0.03125, K2 and
+# K4 exact), every variant timed with its bound
+@pytest.mark.gpu
+@pytest.mark.parametrize('which', ['stem', 'bottleneck', 'frm'])
+def test_kernel_bench_parities(cuda, which):
+    from r3det_tpu_torch.tools import kernel_bench
+    res = kernel_bench.RUNS[which](batch=1)
+    par = res['parity']
+    if which == 'stem':
+        assert par['K3 int8 vs plain int8 (b1)'] == 0.0
+        assert par['plain conv + K4 vs plain (b1)'] == 0.0
+        assert res['ulps']['K3 bf16 vs plain (b1)'] <= 1.0
+        timed = res['ms']
+    elif which == 'bottleneck':
+        for tag in ('C2', 'C3'):
+            assert par[f'{tag} K5 q8 vs plain int8 (b1)'] == 0.0
+            assert par[f'{tag} K5 vs plain (b1, bf16)'] <= 0.03125
+        timed = {f'{t}/{k}': v for t, r in res['ms'].items()
+                 for k, v in r.items()}
+        assert len(timed) == 8
+    else:
+        assert par['K2 vs plain gather (b1)'] == 0.0
+        timed = res['ms']
+    for name, t in timed.items():
+        assert t['ms'] > 0 and t['bound_ms'] > 0, name
+        assert t['bound_by'] in ('bytes', 'operations'), name
