@@ -1125,7 +1125,7 @@ def end_to_end(dev, card):
 
     def run(branch):
         _set_bias(model, biases[branch])
-        return step(images, return_branch=True)
+        return _with_branch(lambda: step(images))
 
     # the main-path run: counts from zero, both NMS branches
     torch.cuda.synchronize()
@@ -1142,11 +1142,10 @@ def end_to_end(dev, card):
     check(launches['frm_sample'] == len(LIVE_TARGETS) * cfg.num_refine_stages,
           'K2 did not run once a refine stage a predict step (bf16)')
 
-    for branch, (dets, labels, num, (live, taken)) in results.items():
-        phase('predict', batch=branch, live=live, branch=taken,
-              num=num.tolist())
+    for branch, (dets, labels, num, taken) in results.items():
+        phase('predict', batch=branch, branch=taken, num=num.tolist())
         check(taken == branch, f'expected the {branch} NMS branch, '
-                               f'took {taken} (live {live})')
+                               f'took {taken}')
         check(tuple(dets.shape) == (BATCH, cfg.test.max_per_img, 6)
               and tuple(labels.shape) == (BATCH, cfg.test.max_per_img)
               and tuple(num.shape) == (BATCH,), 'wrong output shapes')
@@ -1216,6 +1215,25 @@ def end_to_end(dev, card):
                 biases=biases, cfg=cfg, step=step)
 
 
+def _with_branch(fn):
+    """``fn()``'s result with the NMS budget's branch appended, read from
+    the ``r3det.nms.sweep.*`` span of a CPU profile with the port's spans
+    on."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from r3det_tpu_torch.utils import tracing
+    tracing.enable(True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            out = fn()
+    finally:
+        tracing.enable(False)
+    branches = [e.name.rsplit('.', 1)[1] for e in prof.events()
+                if e.name.startswith('r3det.nms.sweep.')]
+    check(len(branches) == 1, f'{len(branches)} NMS sweeps in one step')
+    return tuple(out) + (branches[0],)
+
+
 def _spy(module, name, calls):
     """Replace ``module.name`` by a wrapper recording each call's (args,
     kwargs) in ``calls``; returns the function that undoes it."""
@@ -1281,7 +1299,7 @@ def nms_stream(dev, card, base):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     _ext.reset_launches()
-    result = step(images, return_branch=True)
+    result = _with_branch(lambda: step(images))
     torch.cuda.synchronize()
     launches = dict(_ext.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
@@ -1292,9 +1310,9 @@ def nms_stream(dev, card, base):
     check(launches['rotated_iou'] == blocks,
           f'K1 ran {launches["rotated_iou"]} times in a streamed predict '
           f'step, not once a block ({blocks})')
-    live, branch = result[3]
-    check(branch == 'big' and live > small_k,
-          f'the streamed run took the {branch} branch (live {live})')
+    check(result[3] == 'big',
+          f'the streamed run took the {result[3]} branch, not big (more '
+          f'live candidates than {small_k})')
     _check_dets(result, cfg, BATCH, 'stream')
     times = []
     for _ in range(3):
@@ -1329,8 +1347,9 @@ def nms_stream(dev, card, base):
     keep_d = nms.greedy_keep_dense(boxes, valid, labels, thr, vcount)
     cut_same = torch.equal(keep_s, keep_d)
     phase('nms_stream', config='R3DET_R50_V1 stacked_convs=2',
-          batch=BATCH, nms_candidates=STREAM_CANDIDATES, live=live,
-          branch=branch, k1_launches=launches['rotated_iou'], blocks=blocks,
+          batch=BATCH, nms_candidates=STREAM_CANDIDATES,
+          live=int(cores[0][0][1].sum(1).max()), branch=result[3],
+          k1_launches=launches['rotated_iou'], blocks=blocks,
           num=result[2].tolist(), identical_to_plain=same,
           cut=STREAM_CUT, cut_kept=keep_s.sum(1).tolist(),
           streamed_equals_dense=cut_same, ms_per_step=f'{ms:.3f}',
@@ -1940,7 +1959,7 @@ def int8_serving(dev, card, base):
 
     torch.cuda.synchronize()
     _ext.reset_launches()
-    result = step(images, return_branch=True)
+    result = _with_branch(lambda: step(images))
     torch.cuda.synchronize()
     launches = dict(_ext.LAUNCHES)
     phase('launches', path='int8', **launches)
@@ -1970,7 +1989,7 @@ def int8_serving(dev, card, base):
                                                           plain_logits)
     found, back = _agreement(result[:3], plain[:3]), \
         _agreement(plain[:3], result[:3])
-    phase('int8', live=result[3][0], branch=result[3][1],
+    phase('int8', branch=result[3],
           num=result[2].tolist(), sr_logits_rel_to_bf16=f'{rel_bf16:.5f}',
           sr_logits_rel_to_plain=rel_plain, tol_bf16=0.05, tol_plain=0.0,
           dets_found_in_plain=f'{found:.4f}',

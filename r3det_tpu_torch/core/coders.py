@@ -14,20 +14,24 @@ from typing import Sequence, Tuple
 
 import torch
 
+from ..utils.tracing import span
+
 PI = math.pi
 DEFAULT_MEANS = (0., 0., 0., 0., 0.)
 DEFAULT_STDS = (1., 1., 1., 1., 1.)
 
 
 def _normalize(deltas, means, stds):
-    means = deltas.new_tensor(means)
-    stds = deltas.new_tensor(stds)
+    with span('copy.coder'):
+        means = deltas.new_tensor(means)
+        stds = deltas.new_tensor(stds)
     return (deltas - means) / stds
 
 
 def _denormalize(deltas, means, stds):
-    means = deltas.new_tensor(means)
-    stds = deltas.new_tensor(stds)
+    with span('copy.coder'):
+        means = deltas.new_tensor(means)
+        stds = deltas.new_tensor(stds)
     return deltas * stds + means
 
 

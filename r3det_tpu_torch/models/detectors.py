@@ -39,6 +39,7 @@ from ..core.anchors import RAnchorGenerator
 from ..core.targets import TargetConfig, anchor_targets, num_total_samples
 from ..ops.nms import multiclass_nms_rotated_batched
 from ..parallel import dist
+from ..utils.tracing import span
 from .fpn import FPN
 from .frm import FeatureRefineModule
 from .losses import (l1_loss, sigmoid_bce_loss, sigmoid_focal_loss,
@@ -252,8 +253,9 @@ def _grid_anchors(cfg: DetectorConfig, featmap_sizes):
 def level_anchors(cfg: DetectorConfig, featmap_sizes, device=None):
     """Per-level (H*W*A, 5) f32 anchors on ``device``."""
     sizes = tuple(tuple(int(v) for v in s) for s in featmap_sizes)
-    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
-            for a in _grid_anchors(cfg, sizes)]
+    with span('copy.anchors'):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                for a in _grid_anchors(cfg, sizes)]
 
 
 def filter_bboxes(cls_scores, bbox_preds, anchors, coder, cfg):
@@ -402,12 +404,10 @@ def _top_positions(max_scores, k):
 
 
 def detector_predict(outputs, cfg: DetectorConfig, featmap_sizes,
-                     img_shape=None, scale_factor=None, return_branch=False,
-                     kernels=True):
+                     img_shape=None, scale_factor=None, kernels=True):
     """Decode + NMS for a batch: (dets (B, max_per_img, 6), labels
-    (B, max_per_img), num (B,)); with ``return_branch`` also the NMS
-    budget's ``(live, branch)``. ``kernels`` off takes the plain IoU in
-    NMS even on CUDA tensors.
+    (B, max_per_img), num (B,)). ``kernels`` off takes the plain IoU in
+    NMS even on CUDA tensors. Decode runs in the span ``decode``.
 
     Per level: top-``nms_pre`` positions by max class score, decode against
     the anchors (RRetinaNet) or the last stage's rois (R3Det), sigmoid
@@ -417,6 +417,21 @@ def detector_predict(outputs, cfg: DetectorConfig, featmap_sizes,
     if t.approx_topk:
         raise NotImplementedError('approx_topk is TPU-only; the port selects '
                                   'candidates exactly')
+    with span('decode'):
+        boxes, scores = _decode(outputs, cfg, featmap_sizes, img_shape,
+                                scale_factor)
+    return multiclass_nms_rotated_batched(
+        boxes, scores, score_thr=t.score_thr, iou_thr=t.nms_iou_thr,
+        version=t.nms_version, max_num=t.max_per_img,
+        pre_topk=min(t.nms_candidates or 2 * t.nms_pre,
+                     boxes.shape[1] * cfg.num_classes),
+        small_k=max(t.max_per_img, t.nms_pre), kernels=kernels)
+
+
+def _decode(outputs, cfg, featmap_sizes, img_shape, scale_factor):
+    """:func:`detector_predict`'s candidates: boxes (B, N, 5) and sigmoid
+    scores with a background column (B, N, C + 1)."""
+    t = cfg.test
     if outputs.get('sr'):
         cls_scores, bbox_preds = outputs['sr'][-1]
         rois = outputs['rois'][-1]
@@ -459,12 +474,5 @@ def detector_predict(outputs, cfg: DetectorConfig, featmap_sizes,
         sf = boxes.new_tensor(scale_factor)                 # (4,) wh wh
         boxes = torch.cat([boxes[..., :4] / sf, boxes[..., 4:]], -1)
     # background column (sigmoid heads)
-    scores = torch.cat([scores, scores.new_zeros(scores.shape[:-1] + (1,))],
-                       -1)
-    return multiclass_nms_rotated_batched(
-        boxes, scores, score_thr=t.score_thr, iou_thr=t.nms_iou_thr,
-        version=t.nms_version, max_num=t.max_per_img,
-        pre_topk=min(t.nms_candidates or 2 * t.nms_pre,
-                     boxes.shape[1] * cfg.num_classes),
-        small_k=max(t.max_per_img, t.nms_pre), return_branch=return_branch,
-        kernels=kernels)
+    return boxes, torch.cat(
+        [scores, scores.new_zeros(scores.shape[:-1] + (1,))], -1)

@@ -25,6 +25,7 @@ Differences from the JAX form, none of which changes a keep set:
 """
 import torch
 
+from ..utils.tracing import span
 from .rotated_iou import (negate_theta, quad_iou_pairwise, rotated_iou,
                           rotated_iou_reference)
 
@@ -44,14 +45,17 @@ def _resolve_block(cols, keep, vblk, start, block):
     (False from ``start`` on); vblk (B, blk) bool. Suppression from
     earlier blocks in one masked reduction, then a fixpoint on the block's
     own (blk, blk) submatrix, one convergence check per round for the
-    whole batch. Returns the block's keep (B, blk)."""
+    whole batch (a host sync, span ``sync.fixpoint``). Returns the block's
+    keep (B, blk)."""
     ext = torch.bmm(keep.float()[:, None, :], cols)[:, 0] > 0
     init = vblk & ~ext
     sub = cols[:, start:start + block]                        # (B, blk, blk)
     kb = init
     for _ in range(block):
         nxt = init & ~(torch.bmm(kb.float()[:, None, :], sub)[:, 0] > 0)
-        if torch.equal(nxt, kb):
+        with span('sync.fixpoint'):
+            same = torch.equal(nxt, kb)
+        if same:
             break
         kb = nxt
     return kb
@@ -220,8 +224,7 @@ def sweep_dets(top_boxes, top_scores, top_labels, valid, iou_thr, version,
 
 def multiclass_nms_rotated_batched(mboxes, mscores, score_thr, iou_thr,
                                    version='v1', max_num=2000, pre_topk=2000,
-                                   small_k=None, return_branch=False,
-                                   kernels=True):
+                                   small_k=None, kernels=True):
     """Batched multiclass NMS with the adaptive exact sweep budget.
 
     mboxes (B, N, 5) or (B, N, C, 5); mscores (B, N, C+1). Candidates are
@@ -229,28 +232,29 @@ def multiclass_nms_rotated_batched(mboxes, mscores, score_thr, iou_thr,
     image's live count fits in ``small_k`` (clamped to >= max_num), the
     sweep runs on that score-sorted prefix only, which gives the same keep
     sets; otherwise on all ``pre_topk``. Returns (dets (B, max_num, 6),
-    labels (B, max_num), num (B,)); with ``return_branch`` also
-    ``(live, 'small' | 'big' | 'single')``. ``kernels`` off takes the
-    plain IoU even on CUDA tensors.
+    labels (B, max_num), num (B,)). ``kernels`` off takes the plain IoU
+    even on CUDA tensors. Spans: ``nms`` around the whole, ``sync.budget``
+    around the live count's read, and the sweep in ``nms.sweep.single``,
+    ``.small`` or ``.big``, named by the budget's branch.
     """
-    kb = min(pre_topk, mscores.shape[1] * (mscores.shape[2] - 1))
-    sel = select_candidates(mboxes, mscores, score_thr, kb)
-    live = None
-    if small_k is None or max(small_k, max_num) >= kb:
-        branch = 'single'
-    else:
-        sk = max(small_k, max_num)
-        live = int(sel[3].sum(1).max())          # one host sync per batch
-        if live <= sk:
-            branch = 'small'
-            sel = tuple(t[:, :sk] for t in sel)
+    with span('nms'):
+        kb = min(pre_topk, mscores.shape[1] * (mscores.shape[2] - 1))
+        sel = select_candidates(mboxes, mscores, score_thr, kb)
+        if small_k is None or max(small_k, max_num) >= kb:
+            branch = 'single'
         else:
-            branch = 'big'
-    out = sweep_dets(*sel, iou_thr=iou_thr, version=version, max_num=max_num,
-                     kernels=kernels)
-    if return_branch:
-        return out + ((live, branch),)
-    return out
+            sk = max(small_k, max_num)
+            live = sel[3].sum(1).max()
+            with span('sync.budget'):
+                live = int(live)                 # one host sync per batch
+            if live <= sk:
+                branch = 'small'
+                sel = tuple(t[:, :sk] for t in sel)
+            else:
+                branch = 'big'
+        with span('nms.sweep.' + branch):
+            return sweep_dets(*sel, iou_thr=iou_thr, version=version,
+                              max_num=max_num, kernels=kernels)
 
 
 # ---------------------------------------------------------------------------

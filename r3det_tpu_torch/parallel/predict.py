@@ -9,15 +9,19 @@ sharding).
 import torch
 
 from ..models.detectors import detector_predict
+from ..utils.tracing import span
 
 
 def make_predict_step(model, cfg, featmap_sizes, img_shape=None):
     """``step(images) -> (dets (B, max_per_img, 6), labels, num)``; NMS
-    follows the model's ``kernels`` switch."""
+    follows the model's ``kernels`` switch. Spans (``utils/tracing.py``):
+    ``predict`` around the step, ``forward`` around the model call."""
     @torch.no_grad()
-    def step(images, return_branch=False):
-        out = model(images)
-        return detector_predict(out, cfg, featmap_sizes, img_shape=img_shape,
-                                return_branch=return_branch,
-                                kernels=model.kernels)
+    def step(images):
+        with span('predict'):
+            with span('forward'):
+                out = model(images)
+            return detector_predict(out, cfg, featmap_sizes,
+                                    img_shape=img_shape,
+                                    kernels=model.kernels)
     return step

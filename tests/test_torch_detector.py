@@ -23,6 +23,8 @@ from r3det_tpu_torch.models import detectors as T
 from r3det_tpu_torch.parallel.predict import make_predict_step
 from r3det_tpu_torch.utils.convert import from_flax
 
+from program_spans import sweep_branch, traced
+
 torch.set_num_threads(2)
 
 FEATMAP_SIZES = ((8, 8), (4, 4), (2, 2), (1, 1), (1, 1))
@@ -114,10 +116,9 @@ def test_predict_on_jax_head_outputs_matches_jax(slice_run):
     """detector_predict fed JAX's own head outputs gives JAX's detections,
     on both branches of the adaptive NMS budget."""
     want = slice_run['want_dets']
-    dets, labels, num, (live, branch) = T.detector_predict(
-        to_torch(slice_run['want']), T_CFG, FEATMAP_SIZES,
-        return_branch=True)
-    assert branch == slice_run['branch'], live
+    (dets, labels, num), spans = traced(lambda: T.detector_predict(
+        to_torch(slice_run['want']), T_CFG, FEATMAP_SIZES))
+    assert sweep_branch(spans) == [slice_run['branch']], spans
     np.testing.assert_array_equal(num.numpy(), np.asarray(want[2]))
     np.testing.assert_array_equal(labels.numpy(), np.asarray(want[1]))
     np.testing.assert_allclose(dets.numpy(), np.asarray(want[0]), rtol=1e-5,

@@ -26,6 +26,7 @@ from r3det_tpu_torch.ops import frm_sample as K2
 from r3det_tpu_torch.ops import nms
 from r3det_tpu_torch.ops import rotated_iou as K1
 from r3det_tpu_torch.ops import stem_pool as K3
+from program_spans import sweep_branch, traced
 # JAX-free scene generators
 from test_torch_kernels_gpu import corner_pairs, frm_levels, misaligned
 
@@ -412,9 +413,10 @@ def test_multiclass_nms_batched_matches_jax(version, branch, live_frac):
                 pre_topk=200, small_k=80)
     want = j_nms.multiclass_nms_rotated_batched(
         jnp.asarray(boxes), jnp.asarray(scores), **args)
-    dets, labels, num, (live, taken) = nms.multiclass_nms_rotated_batched(
-        t(boxes), t(scores), return_branch=True, **args)
-    assert taken == branch, live
+    (dets, labels, num), spans = traced(
+        lambda: nms.multiclass_nms_rotated_batched(t(boxes), t(scores),
+                                                   **args))
+    assert sweep_branch(spans) == [branch], spans
     np.testing.assert_array_equal(num.numpy(), np.asarray(want[2]))
     np.testing.assert_array_equal(labels.numpy(), np.asarray(want[1]))
     np.testing.assert_array_equal(dets.numpy(), np.asarray(want[0]))
