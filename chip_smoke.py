@@ -28,7 +28,12 @@ Phases, one line each (any failure raises and the exit code is 1):
    K2's backward runs at the training shapes (the five levels of a 1024^2
    image, batch 2, points 1, and points 5 once), within a bf16 ulp of the
    plain backward computed in f32 (``frm_bwd_check``), beside the plain
-   bf16 backward's time and its gap;
+   bf16 backward's time and its gap. The conv epilogue
+   (``csrc/conv_epilogue.cu``) runs at each distinct shape of the 48 a
+   ResNet-50 predict step makes (batch 8 of 1024^2), bit-equal to its
+   plain form, beside the unfused PyTorch passes it replaces
+   (``unfused_ms``) and its bytes bound; ``[kernel_sum]`` weighs them by
+   their launches a step;
 4. end to end: R3Det* tiny (stacked_convs=2, angle v1), ResNet-50, full
    width, bf16, batch 8 of 1024^2 patches, weights from a numpy seed,
    through ``build_detector`` and the port's predict step. The refine
@@ -171,7 +176,8 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from r3det_tpu_torch.utils.kernel_timing import (  # noqa: E402
-    add_bound, cuda_ms, frm_work, iou_work)
+    add_bound, cuda_ms, epilogue_bytes, frm_work, graph_ms, iou_work,
+    r50_epilogues)
 
 SEED = 0
 BATCH = 8
@@ -227,6 +233,7 @@ DDP_TIMEOUT = 600                 # s: a phase's processes, a group's waits
 # [ddp_eval]: seeded weights trained 6 steps score below the shipped 0.05
 DDP_SCORE_THR = 0.005
 INT8_QCONVS = 115                 # QConv launches of one int8 forward
+R50_EPILOGUES = 48                # conv epilogues of one bf16 R50 forward
 REPLACES = {
     'rotated_iou': 'r3det_tpu/ops/pallas_iou.py:146',
     'frm_sample': 'r3det_tpu/ops/frm_sample.py:241',
@@ -241,6 +248,8 @@ REPLACES = {
     'int8_conv': 'r3det_tpu/models/quant.py:111',
     # no TPU kernel: XLA's scatter-add from autodiff of the FRM's gather
     'frm_sample_bwd': 'r3det_tpu/models/frm.py:27',
+    # no TPU kernel: XLA fuses FrozenBN, ReLU and the residual into the conv
+    'conv_epilogue': 'r3det_tpu/models/resnet.py:72',
 }
 SOURCES = {
     'rotated_iou': 'r3det_tpu_torch/csrc/rotated_iou.cu',
@@ -252,16 +261,17 @@ SOURCES = {
     'bottleneck_q8': 'r3det_tpu_torch/csrc/bottleneck.cu',
     'int8_conv': 'r3det_tpu_torch/csrc/int8_conv.cu',
     'frm_sample_bwd': 'r3det_tpu_torch/csrc/frm_sample.cu',
+    'conv_epilogue': 'r3det_tpu_torch/csrc/conv_epilogue.cu',
 }
 # the run whose launch counts each kernel reports
 PATH_OF = {'rotated_iou': 'bf16', 'frm_sample': 'bf16',
            'stem_conv_pool': 'bf16', 'stem_conv_pool_q8': 'int8',
            'stem_pool': 'route_bf16', 'bottleneck': 'route_bf16',
            'bottleneck_q8': 'route_int8', 'int8_conv': 'int8',
-           'frm_sample_bwd': 'train'}
+           'frm_sample_bwd': 'train', 'conv_epilogue': 'bf16'}
 # the kernels each run must launch
 PATH_KERNELS = {
-    'bf16': ('rotated_iou', 'frm_sample', 'stem_conv_pool'),
+    'bf16': ('rotated_iou', 'frm_sample', 'stem_conv_pool', 'conv_epilogue'),
     'int8': ('rotated_iou', 'frm_sample', 'stem_conv_pool_q8', 'int8_conv'),
     'route_bf16': ('stem_pool', 'bottleneck'),
     'route_int8': ('bottleneck_q8', 'stem_conv_pool_q8', 'int8_conv'),
@@ -740,8 +750,109 @@ def compare_kernels(dev):
     check(err == 0.0, 'stem_pool disagrees with its plain version')
     del conv, conv_nchw, lib_out
     rec.update(compare_bottlenecks(dev, rng))
+    rec['conv_epilogue'] = compare_epilogue(dev, rng)
     rec['int8_conv'] = int8_conv_route(dev, rng)
     rec['frm_sample_bwd'] = frm_bwd_kernel(dev, rng)
+    return rec
+
+
+def same_bits(got, want):
+    """bf16 tensors equal bit for bit, NaN where NaN."""
+    import torch
+    nan = want.isnan()
+    return torch.equal(got.isnan(), nan) and torch.equal(
+        got[~nan].view(torch.int16), want[~nan].view(torch.int16))
+
+
+def compare_epilogue(dev, rng):
+    """The conv epilogue at each distinct shape of a ResNet-50 predict
+    step (batch 8 of 1024^2): bit-equal to its plain form and to the
+    unfused PyTorch passes of ``Bottleneck.forward`` it replaces. ``ms`` is
+    a launch's device time (a CUDA graph of launches over enough buffers
+    that L2 holds none of a round's), ``call_ms`` a call through the
+    wrapper (paced by the host for the small shapes), ``unfused_ms`` the
+    passes it replaces; the record sums each shape's over its launches a
+    step."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from r3det_tpu_torch.ops import conv_epilogue as E
+
+    bf16 = torch.bfloat16
+    calls = r50_epilogues(BATCH, SIZE)
+    counts = {}
+    for call in calls:
+        counts[call] = counts.get(call, 0) + 1
+    rec = dict(max_abs_err=0.0, ms=0.0, call_ms=0.0, plain_ms=0.0,
+               unfused_ms=0.0)
+
+    def tensor(shape, std=1.0):
+        return torch.from_numpy(rng.normal(0, std, shape).astype(
+            np.float32)).to(dev, bf16).contiguous(
+                memory_format=torch.channels_last)
+
+    def affine(c):
+        return tuple(torch.from_numpy(v.astype(np.float32)).to(dev, bf16)
+                     for v in (rng.uniform(0.5, 1.5, c), rng.normal(0, .1, c)))
+
+    def unfused(a, inv, b, residual):
+        # Bottleneck.forward's passes: FrozenBN.forward, the residual add
+        # (the downsample's FrozenBN first), F.relu
+        def bn(x, s, t):
+            return x * s.view(1, -1, 1, 1) + t.view(1, -1, 1, 1)
+        y = bn(a, inv, b)
+        if isinstance(residual, tuple):
+            y = y + bn(*residual)
+        elif residual is not None:
+            y = y + residual
+        return F.relu(y)
+
+    def operands(shape, kind):
+        c = shape[1]
+        return (tensor(shape), *affine(c), None if kind is None else
+                tensor(shape) if kind == 'identity' else
+                (tensor(shape), *affine(c)))
+
+    for (shape, kind), n in counts.items():
+        nbytes = epilogue_bytes(shape, kind)
+        sets = [operands(shape, kind)
+                for _ in range(max(2, math.ceil(120e6 / nbytes)))]
+        a, inv, b, residual = sets[0]
+        want = E.conv_epilogue_reference(a, inv, b, residual)
+        got = E.conv_epilogue_cuda(a.clone(), inv, b, residual)
+        exact = same_bits(got, want) and same_bits(
+            unfused(a, inv, b, residual), want)
+        err = float((got.float() - want.float()).abs().max())
+        del got, want
+        check(exact, f'conv_epilogue at {shape} ({kind}) is not bit-equal '
+                     'to its plain form and the unfused passes')
+        ms = graph_ms([lambda s=s: E.conv_epilogue_cuda(*s) for s in sets],
+                      max(len(sets), 24 // len(sets) * len(sets)))
+        call_ms = cuda_ms(lambda: E.conv_epilogue_cuda(*sets[0]), 20)
+        unfused_ms = cuda_ms(lambda: unfused(*sets[0]), 10)
+        plain_ms = cuda_ms(lambda: E.conv_epilogue_reference(*sets[0]), 3)
+        b_ms, by = add_bound({}, nbytes, 0, 'bf16')
+        phase('kernel', name='conv_epilogue', shape=str(shape),
+              residual=kind, launches_per_step=n, exact=exact,
+              ms=f'{ms:.4f}', call_ms=f'{call_ms:.4f}',
+              unfused_ms=f'{unfused_ms:.4f}', plain_ms=f'{plain_ms:.4f}',
+              bound_ms=f'{b_ms:.4f}', bound_by=by,
+              bound_share=f'{b_ms / ms:.3f}',
+              gb_per_s=f'{nbytes / ms / 1e6:.1f}')
+        rec['max_abs_err'] = max(rec['max_abs_err'], err)
+        for k, v in (('ms', ms), ('call_ms', call_ms),
+                     ('plain_ms', plain_ms), ('unfused_ms', unfused_ms)):
+            rec[k] += n * v
+        add_bound(rec, n * nbytes, 0, 'bf16')
+        del a, residual, sets
+    phase('kernel_sum', name='conv_epilogue', launches=len(calls),
+          ms=f'{rec["ms"]:.4f}', call_ms=f'{rec["call_ms"]:.4f}',
+          unfused_ms=f'{rec["unfused_ms"]:.4f}',
+          plain_ms=f'{rec["plain_ms"]:.4f}',
+          bound_ms=f'{rec["bound_ms"]:.4f}',
+          bound_share=f'{rec["bound_ms"] / rec["ms"]:.3f}')
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -1141,6 +1252,8 @@ def end_to_end(dev, card):
           'the stem kernel did not run once a predict step (bf16)')
     check(launches['frm_sample'] == len(LIVE_TARGETS) * cfg.num_refine_stages,
           'K2 did not run once a refine stage a predict step (bf16)')
+    check(launches['conv_epilogue'] == len(LIVE_TARGETS) * R50_EPILOGUES,
+          'the conv epilogue did not run once a bottleneck conv (bf16)')
 
     for branch, (dets, labels, num, taken) in results.items():
         phase('predict', batch=branch, branch=taken, num=num.tolist())
@@ -1755,9 +1868,10 @@ def eval_path(dev, card):
     launches = dict(_ext.LAUNCHES)
     phase('launches', path='eval', batches=batches, **launches)
     for name in PATH_KERNELS['bf16']:
-        check(launches[name] == batches,
+        per_step = R50_EPILOGUES if name == 'conv_epilogue' else 1
+        check(launches[name] == per_step * batches,
               f'kernel {name} ran {launches[name]} times in {batches} '
-              'predict steps of the eval path, not once a step')
+              f'predict steps of the eval path, not {per_step} a step')
     check(all(sum(len(c) for c in r) > 0 for r in results),
           'a patch has no detection on the eval path')
     # the timed runs: host clocks on a shared host vary from run to run,
@@ -2704,7 +2818,8 @@ def _log_records(path):
 def kernel_bench_phase(card):
     """``tools/kernel_bench.py all`` on the card ([kernel_bench]): every
     int8 parity exact, K3 bf16 within one bf16 ulp, K5 bf16 within
-    0.03125, K2 and K4 exact; each variant's ms at batch 32."""
+    0.03125, K2, K4 and the conv epilogue exact; each variant's ms at
+    batch 32."""
     from r3det_tpu_torch.tools import kernel_bench
 
     t0 = time.perf_counter()
@@ -2715,12 +2830,15 @@ def kernel_bench_phase(card):
     ms = {**{k: v['ms'] for k, v in out['stem']['ms'].items()},
           **{f'{t} {k}': v['ms'] for t, r in out['bottleneck']['ms'].items()
              for k, v in r.items()},
+          **{f'C2 {k}': v['ms']
+             for k, v in out['bottleneck']['epilogue'].items()},
           **{k: v['ms'] for k, v in out['frm']['ms'].items()}}
     phase('kernel_bench', seconds=f'{seconds:.2f}', batch=kernel_bench.BATCH,
           k3_bf16_ulps=ulps, parity=json.dumps(par),
           ms=json.dumps({k: round(v, 4) for k, v in ms.items()}), card=card)
     for name, d in par.items():
-        if 'q8' in name or 'int8' in name or 'K2' in name or 'K4' in name:
+        if 'q8' in name or 'int8' in name or 'K2' in name or 'K4' in name \
+                or 'epilogue' in name:
             check(d == 0.0, f'kernel_bench parity[{name}] = {d}, not 0')
         elif 'K5' in name:
             check(d <= 0.03125, f'kernel_bench parity[{name}] = {d}')

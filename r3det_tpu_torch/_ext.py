@@ -76,6 +76,9 @@ _SIGNATURES = {
     # oscale|NULL, B, H, W, Ci, Ho, Wo, Co, kh, kw, sh, sw, ph, pw, stream
     'int8_conv': (_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P,
                   _I, _P) + (_I,) * 13 + (_P,),
+    # a, inv, b, residual|NULL, inv_d|NULL, b_d|NULL, out, pixels, C,
+    # res_kind, relu, SMs, stream
+    'conv_epilogue': (_P,) * 7 + (_LL, _I, _I, _I, _I, _P),
 }
 
 # entry points that launch another entry's kernel, counted under its name

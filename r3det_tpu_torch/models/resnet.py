@@ -25,8 +25,11 @@ package does; K4, K5 and the int8 convs have no backward, and their routes
 raise under autograd (``ops/grad_guard.py``). A bf16
 ``quantize='static'`` block on a card runs each conv as one launch of the
 int8 conv kernel with its FrozenBN, ReLU, residual and the next conv's
-quantize fused (``Bottleneck.q8_fused_forward``). ``kernels`` off takes
-every plain version.
+quantize fused (``Bottleneck.q8_fused_forward``). Any other bf16 block on
+a card with gradients off follows each cuDNN conv by one launch of the
+conv epilogue kernel, bit-equal to the unfused FrozenBN, ReLU and residual
+passes (``Bottleneck.epilogue_forward``). ``kernels`` off takes every
+plain version.
 """
 import numpy as np
 import torch
@@ -37,11 +40,13 @@ from ..ops.bottleneck_fuse import (fold_bn, fused_bottleneck_packed,
                                    fused_bottleneck_q8_reference,
                                    fused_bottleneck_reference,
                                    pack_bottleneck)
+from ..ops.conv_epilogue import conv_epilogue
 from ..ops.grad_guard import forbid_grad
 from ..ops.int8_conv import quantize_act
 from ..ops.stem_pool import (pack_stem, stem_conv_pool_cuda,
                              stem_conv_pool_q8_reference,
                              stem_conv_pool_reference, stem_conv_pool_unfused)
+from ..utils.tracing import span
 from .quant import act_absmax, conv_factory
 
 STAGE_BLOCKS = {10: (1, 1, 1, 1), 14: (2, 1, 1, 1), 50: (3, 4, 6, 3),
@@ -151,6 +156,34 @@ class Bottleneck(nn.Module):
                              residual=residual, relu=True)
         return y.permute(0, 3, 1, 2)
 
+    def epilogue_route(self, x):
+        """Whether this call takes :meth:`epilogue_forward`: a bf16 block
+        on a card, kernels on, gradients off (the kernel has no backward),
+        not quantized and not taking K5 (:meth:`can_fuse`)."""
+        return (self.kernels and x.is_cuda and x.dtype == torch.bfloat16
+                and not torch.is_grad_enabled() and not self.quantize
+                and not self.can_fuse(x))
+
+    def epilogue_forward(self, x):
+        """The bf16 block with what follows each conv in one pass
+        (``ops/conv_epilogue.py``, span ``backbone.epilogue``): bn1 and
+        ReLU, bn2 and ReLU, then bn3, the residual and ReLU, where a
+        downsample block's residual is its conv's raw output with
+        ``downsample_bn``'s affine. The same ops, in the same order and
+        roundings, as :meth:`forward`'s unfused route."""
+        y = self._epilogue(self.conv1(x), self.bn1)
+        y = self._epilogue(self.conv2(y), self.bn2)
+        y = self.conv3(y)
+        residual = (self.downsample_conv(x),
+                    *self.downsample_bn.affine(torch.bfloat16)) \
+            if self.has_downsample else x
+        return self._epilogue(y, self.bn3, residual)
+
+    @staticmethod
+    def _epilogue(a, bn, residual=None):
+        with span('backbone.epilogue'):
+            return conv_epilogue(a, *bn.affine(torch.bfloat16), residual)
+
     def _block_codes(self, x):
         """``int8_act``: the block input's NHWC int8 codes and scale (the
         running range while calibrating, the calibrated one after)."""
@@ -225,6 +258,8 @@ class Bottleneck(nn.Module):
             return self._fused_forward(x)
         if self.q8_fused_route(x):
             return self.q8_fused_forward(x)
+        if self.epilogue_route(x):
+            return self.epilogue_forward(x)
         x_in, residual = x, x
         if self.int8_act:
             x_in = xi, ascale = self._block_codes(x)

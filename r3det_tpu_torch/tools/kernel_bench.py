@@ -16,7 +16,10 @@ of its bytes over the memory rate and its operations over the peak rate,
 - ``bottleneck``: C2 (256^2, 256 -> 64) and C3 (128^2, 512 -> 128)
   identity blocks: the plain bf16 three-conv form, K5, the plain int8
   form and K5 q8 (``ops/bottleneck_fuse.py``), whose call packs the
-  weights;
+  weights; at C2, the bf16 ``Bottleneck`` module on its unfused route and
+  on its conv epilogue route, and the conv epilogue kernel alone at conv3's
+  output with the identity residual (``ops/conv_epilogue.py``) beside the
+  unfused PyTorch passes it replaces, with its share of its bytes bound;
 - ``frm``: a (32, 128, 128, 256) bf16 map sampled within +-1.5 px of each
   cell: the plain gather against K2 (``ops/frm_sample.py``). K2 takes
   rois: their ``sample_coords`` (the transposed quirk included) give the
@@ -29,7 +32,7 @@ it exits non-zero.
 import argparse
 import sys
 
-from ..utils.kernel_timing import bound, cuda_ms
+from ..utils.kernel_timing import bound, cuda_ms, epilogue_bytes
 
 BATCH = 32
 DEV = 'cuda'
@@ -176,9 +179,61 @@ def run_bottleneck(batch=BATCH):
                 ('K5 q8', lambda: bf.fused_bottleneck_q8_cuda(x, *ws, *am),
                  False),
             ], batch, bound_of, f'[{tag}] ')
+        if tag == 'C2':
+            res['epilogue'] = _epilogue_at(x, gen, res['parity'], bound_of)
         del x, ws
         torch.cuda.empty_cache()
     return res
+
+
+def _epilogue_at(x, gen, parity, bound_of):
+    """At the identity block of ``x`` (NHWC bf16): the bf16 ``Bottleneck``
+    on its unfused route and on its epilogue route, and the conv epilogue
+    alone at conv3's output (bn3, the identity residual, ReLU) against the
+    unfused passes; ``{variant: {'ms', 'bound_ms', 'bound_by'}}``, the
+    epilogue's with ``bound_share``."""
+    import torch
+
+    from ..models.resnet import Bottleneck
+    from ..ops import conv_epilogue as E
+    c4 = x.shape[-1]
+    torch.manual_seed(SEED)
+    block = Bottleneck(c4, c4 // 4).to(DEV)
+    xc = x.permute(0, 3, 1, 2)                       # channels_last NCHW
+    a = _normal(gen, xc.shape, 1.0).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    inv, b = block.bn3.affine(torch.bfloat16)
+
+    def unfused():
+        return torch.relu(block.bn3(a) + xc)
+
+    def kernel():
+        return E.conv_epilogue_cuda(work, inv, b, xc)
+    with torch.no_grad():
+        work = a[:1].clone()
+        _parity(E.conv_epilogue_cuda(work, inv, b, xc[:1]),
+                torch.relu(block.bn3(a[:1]) + xc[:1]),
+                'C2 conv epilogue vs unfused (b1)', parity)
+        work = a.clone()
+
+        def route(on):
+            def call():
+                block.kernels = on
+                return block(xc)
+            return call
+        ms = _time([('block, unfused bf16', route(False), True),
+                    ('block, epilogue route', route(True), False)],
+                   x.shape[0], bound_of, '[C2] ')
+        nbytes = epilogue_bytes(tuple(a.shape), 'identity')
+        ms.update(_time([('conv3 passes, unfused', unfused, True),
+                         ('conv3 conv epilogue', kernel, False)],
+                        x.shape[0], lambda name: bound(nbytes, 0, 'bf16'),
+                        '[C2] '))
+    rec = ms['conv3 conv epilogue']
+    rec['bound_share'] = rec['bound_ms'] / rec['ms']
+    print(f'  [C2] conv epilogue: {rec["bound_share"]:.3f} of its bytes '
+          f'bound', flush=True)
+    return ms
 
 
 def frm_rois(gen, batch, h, w):

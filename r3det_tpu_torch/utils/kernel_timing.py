@@ -2,15 +2,21 @@
 and ``tools/kernel_bench.py``.
 
 - ``cuda_ms``: mean milliseconds a call on the card, between CUDA events;
+  ``graph_ms``: the same for launches captured in a CUDA graph, so that a
+  short kernel is timed without the host's pace between its launches;
 - ``bound`` / ``add_bound``: the least time the card could take for a
   function, the larger of the bytes it must move (each input read once,
   each output written once) over the memory rate and its operations over
   the peak rate of their type;
 - ``iou_work`` and ``frm_work``: those bytes and operations for K1
-  (``ops/rotated_iou.py``) and K2 (``ops/frm_sample.py``) on given inputs.
+  (``ops/rotated_iou.py``) and K2 (``ops/frm_sample.py``) on given inputs;
+- ``r50_epilogues`` and ``epilogue_bytes``: the conv epilogues of a
+  ResNet-50 forward (``ops/conv_epilogue.py``) and the bytes of one.
 
 The rates are the H100 SXM's published figures.
 """
+import math
+
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
 PEAK_OPS_PER_S = {'bf16': 989e12, 'int8': 1979e12, 'f32': 67e12}
 IOU_OPS_PER_PAIR = 500            # f32 operations of one pair's integral (K1)
@@ -31,6 +37,20 @@ def cuda_ms(fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(calls, iters, replays=5):
+    """Mean milliseconds a launch of ``iters`` launches captured in one
+    CUDA graph, taking ``calls`` in turn (each warmed up first)."""
+    import torch
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            calls[i % len(calls)]()
+    return cuda_ms(graph.replay, replays) / iters
 
 
 def bound(nbytes, ops, kind):
@@ -91,3 +111,30 @@ def frm_work(xs, rois, points):
     values = sum(x.numel() for x in xs)
     nbytes = 3 * values * 2 + sum(r.numel() for r in rois) * 4
     return nbytes, values * (8 * points + 2 * (points - 1) + 4)
+
+
+def r50_epilogues(batch, size):
+    """The 48 conv epilogues of a ResNet-50 forward on ``batch`` images of
+    ``size``^2, in call order: ((B, C, H, W), residual), ``residual``
+    None, 'identity' or 'downsample' (conv3's)."""
+    from ..models.resnet import STAGE_BLOCKS, WIDTHS
+    calls, h = [], size // 4                    # the stem's output
+    for stage, blocks in enumerate(STAGE_BLOCKS[50]):
+        f = WIDTHS[stage]
+        for blk in range(blocks):
+            stride = 2 if (blk == 0 and stage > 0) else 1
+            ho = h // stride
+            calls += [((batch, f, h, h), None), ((batch, f, ho, ho), None),
+                      ((batch, 4 * f, ho, ho),
+                       'downsample' if blk == 0 else 'identity')]
+            h = ho
+    return calls
+
+
+def epilogue_bytes(shape, residual):
+    """One conv epilogue's bytes: the bf16 conv output read and the result
+    written, the residual read, and the (C,) bf16 affines."""
+    numel = math.prod(shape)
+    c = shape[1]
+    return numel * 2 * (3 if residual else 2) + c * 2 * (
+        4 if residual == 'downsample' else 2)

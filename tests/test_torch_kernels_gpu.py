@@ -13,16 +13,21 @@ import pytest
 import torch
 
 from r3det_tpu_torch import _ext
-from r3det_tpu_torch.models.detectors import (DetectorConfig, TestCfg,
-                                              build_detector, use_kernels)
-from r3det_tpu_torch.models.resnet import Bottleneck, ResNet
+from r3det_tpu_torch.models.detectors import (R3DET_R50_V1, DetectorConfig,
+                                              TestCfg, build_detector,
+                                              use_kernels)
+from r3det_tpu_torch.models.resnet import (STAGE_BLOCKS, Bottleneck, FrozenBN,
+                                           ResNet)
 from r3det_tpu_torch.ops import bottleneck_fuse as K5
+from r3det_tpu_torch.ops import conv_epilogue as E
 from r3det_tpu_torch.ops import frm_sample as K2
 from r3det_tpu_torch.ops import int8_conv as Q
 from r3det_tpu_torch.ops import rotated_iou as K1
 from r3det_tpu_torch.ops import stem_pool as K3
 from r3det_tpu_torch.parallel.predict import make_predict_step
 from r3det_tpu_torch.utils.convert import seeded_state_dict
+
+from program_spans import traced
 
 
 @pytest.fixture
@@ -1230,8 +1235,8 @@ def test_ddp_step_two_gloo_ranks_on_one_card(cuda, tmp_path):
 
 
 # kernel_bench's subcommands at batch 1: every int8 parity exact, the bf16
-# ones within chip_smoke's card tolerances (K3 one ulp, K5 0.03125, K2 and
-# K4 exact), every variant timed with its bound
+# ones within chip_smoke's card tolerances (K3 one ulp, K5 0.03125, K2, K4
+# and the conv epilogue exact), every variant timed with its bound
 @pytest.mark.gpu
 @pytest.mark.parametrize('which', ['stem', 'bottleneck', 'frm'])
 def test_kernel_bench_parities(cuda, which):
@@ -1247,12 +1252,208 @@ def test_kernel_bench_parities(cuda, which):
         for tag in ('C2', 'C3'):
             assert par[f'{tag} K5 q8 vs plain int8 (b1)'] == 0.0
             assert par[f'{tag} K5 vs plain (b1, bf16)'] <= 0.03125
+        assert par['C2 conv epilogue vs unfused (b1)'] == 0.0
         timed = {f'{t}/{k}': v for t, r in res['ms'].items()
                  for k, v in r.items()}
         assert len(timed) == 8
+        assert len(res['epilogue']) == 4
+        timed.update(res['epilogue'])
     else:
         assert par['K2 vs plain gather (b1)'] == 0.0
         timed = res['ms']
     for name, t in timed.items():
         assert t['ms'] > 0 and t['bound_ms'] > 0, name
         assert t['bound_by'] in ('bytes', 'operations'), name
+
+
+# ---------------------------------------------------------------------------
+# The bf16 conv epilogue (csrc/conv_epilogue.cu) and the bottleneck's route
+# through it
+# ---------------------------------------------------------------------------
+
+def same_bits(got, want):
+    """Equal bit for bit, NaN where NaN (any NaN payload)."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    g, w = got.view(torch.int16), want.view(torch.int16)
+    assert torch.equal(g[~nan], w[~nan])
+
+
+def special_bf16(rng, shape, dev):
+    """A channels_last bf16 tensor of normal values with NaN, +-inf, +-0.0
+    and values that overflow once scaled, at random places."""
+    x = rng.normal(0, 1, shape).astype(np.float32)
+    pick = rng.randint(0, 12, shape)
+    for code, v in enumerate((np.nan, np.inf, -np.inf, -0.0, 0.0, 3e38,
+                              -3e38)):
+        x[pick == code] = v
+    return torch.from_numpy(x).to(dev, torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+
+
+def special_affine(rng, c, dev):
+    """(inv, b) bf16 with zero, huge and negative scales and -0.0 offsets
+    beside ordinary ones."""
+    inv = rng.normal(0, 1, c).astype(np.float32)
+    b = rng.normal(0, 1, c).astype(np.float32)
+    inv[0], inv[1], b[2:4] = 0.0, 3e38, -0.0
+    return tuple(torch.from_numpy(v).to(dev, torch.bfloat16)
+                 for v in (inv, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('relu', [True, False], ids=['relu', 'no_relu'])
+@pytest.mark.parametrize('variant', ['affine', 'identity', 'downsample'])
+@pytest.mark.parametrize('shape', [(2, 64, 13, 17), (1, 2048, 7, 5)])
+def test_conv_epilogue_kernel_special_values(cuda, shape, variant, relu):
+    """The kernel against its plain form on the card, bit for bit, with
+    NaN, +-inf, +-0.0 and overflow; ragged pixel counts, C 64 and 2048;
+    one launch a call, in place."""
+    rng = np.random.RandomState(shape[1] + len(variant))
+    a, r, d = (special_bf16(rng, shape, cuda) for _ in range(3))
+    inv, b = special_affine(rng, shape[1], cuda)
+    residual = {'affine': None, 'identity': r,
+                'downsample': (d, *special_affine(rng, shape[1], cuda))}[
+                    variant]
+    want = E.conv_epilogue_reference(a, inv, b, residual, relu)
+    assert torch.isnan(want).any() and torch.isinf(want).any()
+    before = _ext.LAUNCHES['conv_epilogue']
+    a_in = a.clone()
+    got = E.conv_epilogue_cuda(a_in, inv, b, residual, relu)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES['conv_epilogue'] == before + 1
+    assert got.data_ptr() == a_in.data_ptr()
+    same_bits(got, want)
+
+
+def seeded_resnet50(dev, seed):
+    """A bf16 ResNet-50 with seeded conv weights and FrozenBNs away from
+    the identity."""
+    net = ResNet(depth=50, dtype=torch.bfloat16)
+    net.load_state_dict(seeded_state_dict(net, seed))
+    rng = np.random.RandomState(seed)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, FrozenBN):
+                c = m.scale.numel()
+                for t, v in ((m.scale, rng.uniform(0.5, 1.5, c)),
+                             (m.bias, rng.normal(0, 0.1, c)),
+                             (m.mean, rng.normal(0, 0.1, c)),
+                             (m.var, rng.uniform(0.5, 1.5, c))):
+                    t.copy_(torch.from_numpy(v.astype(np.float32)))
+    return net.to(dev)
+
+
+def r50_blocks(net):
+    return [(f'layer{s + 1}_{i}', getattr(net, f'layer{s + 1}_{i}'))
+            for s, n in enumerate(STAGE_BLOCKS[50]) for i in range(n)]
+
+
+def r50_images(dev, batch=2, size=1024):
+    gen = torch.Generator(dev).manual_seed(0)
+    return torch.rand(batch, size, size, 3, generator=gen, device=dev) * 4 - 2
+
+
+@pytest.mark.gpu
+def test_conv_epilogue_kernel_on_r50_block_shapes(cuda):
+    """Every conv epilogue of a ResNet-50 at batch 2 of 1024^2 (16 blocks,
+    three each, the four downsample residuals among them), on the blocks'
+    own conv outputs: the kernel equals its plain form bit for bit."""
+    net = seeded_resnet50(cuda, 0)
+    inputs = {}
+    hooks = [blk.register_forward_pre_hook(
+        lambda m, a, n=n: inputs.__setitem__(n, a[0]))
+        for n, blk in r50_blocks(net)]
+    try:
+        with torch.no_grad():
+            net(r50_images(cuda))
+    finally:
+        for h in hooks:
+            h.remove()
+    bf16, calls = torch.bfloat16, 0
+    with torch.no_grad():
+        for name, blk in r50_blocks(net):
+            x = inputs.pop(name)
+            y = None
+            for conv, bn in ((blk.conv1, blk.bn1), (blk.conv2, blk.bn2),
+                             (blk.conv3, blk.bn3)):
+                a = conv(x if y is None else y)
+                residual = None
+                if bn is blk.bn3:
+                    residual = (blk.downsample_conv(x),
+                                *blk.downsample_bn.affine(bf16)) \
+                        if blk.has_downsample else x
+                y = E.conv_epilogue_reference(a, *bn.affine(bf16), residual)
+                got = E.conv_epilogue_cuda(a.clone(), *bn.affine(bf16),
+                                           residual)
+                same_bits(got, y)
+                calls += 1
+    assert calls == 48
+
+
+@pytest.mark.gpu
+def test_resnet50_epilogue_route_equals_unfused(cuda, monkeypatch):
+    """A whole bf16 ResNet-50 on the card (batch 2, 1024^2): the epilogue
+    route, 48 launches, equals the unfused route bit for bit at C2-C5.
+    Under autograd only the frozen stage (C2, run with gradients off)
+    takes it."""
+    net = seeded_resnet50(cuda, 1)
+    images = r50_images(cuda)
+    _ext.reset_launches()
+    with torch.no_grad():
+        got = net(images)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES['conv_epilogue'] == 48
+    monkeypatch.setattr(Bottleneck, 'epilogue_route', lambda self, x: False)
+    with torch.no_grad():
+        want = net(images)
+    monkeypatch.undo()
+    for g, w in zip(got, want):
+        same_bits(g, w)
+    _ext.reset_launches()
+    net(images[:1, :256, :256].contiguous())
+    assert _ext.LAUNCHES['conv_epilogue'] == 3 * STAGE_BLOCKS[50][0]
+
+
+@pytest.mark.gpu
+def test_predict_step_epilogue_spans(cuda):
+    """A bf16 R3Det R50 predict step records 48 ``r3det.backbone.epilogue``
+    ranges with the spans on, and none with kernels off."""
+    cfg = R3DET_R50_V1
+    model = build_detector(cfg, dtype=torch.bfloat16, device=cuda)
+    model.load_state_dict(seeded_state_dict(model, 0))
+    size = 256
+    sizes = tuple((size // s, size // s) for s in cfg.strides)
+    step = make_predict_step(model, cfg, sizes, img_shape=(size, size))
+    images = r50_images(cuda, 1, size)
+
+    def count():
+        _, spans = traced(lambda: step(images))
+        torch.cuda.synchronize()
+        return sum(n == 'r3det.backbone.epilogue' for n, _, _ in spans)
+    assert count() == 48
+    use_kernels(model, False)
+    try:
+        assert count() == 0
+    finally:
+        use_kernels(model, True)
+
+
+@pytest.mark.gpu
+def test_conv_epilogue_wrapper_raises(cuda):
+    rng = np.random.RandomState(0)
+    a = special_bf16(rng, (1, 64, 4, 4), cuda)
+    inv, b = special_affine(rng, 64, cuda)
+    bad = [
+        (special_bf16(rng, (1, 72, 4, 4), cuda), inv, b, None),   # C = 72
+        (a.float(), inv, b, None),                                # f32
+        (a.contiguous(), inv, b, None),                           # NCHW
+        (a, inv[:32], b, None),                                   # (32,)
+        (a, inv, b, a[:, :, :2]),                                 # residual
+        (a, inv, b, (a, inv.float(), b)),                         # f32 inv_d
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            E.conv_epilogue_cuda(*args)
