@@ -24,14 +24,17 @@ def program_config(cfg, traffic=None):
     from r3det_tpu_torch.models.detectors import (DetectorConfig,
                                                   StageTrainCfg, TestCfg)
     test = dict(cfg['test'], **(traffic or {}).get('test_cfg', {}))
-    fields = {k: v for k, v in cfg.items() if k in DetectorConfig._fields}
-    for k in ('strides', 'ratios', 'stage_loss_weights', 'target_means',
-              'target_stds'):
-        fields[k] = tuple(fields[k])
+    fields = {k: _tuples(v) for k, v in cfg.items()
+              if k in DetectorConfig._fields}
     fields['s0_train'] = StageTrainCfg(**cfg['s0_train'])
     fields['sr_train'] = tuple(StageTrainCfg(**s) for s in cfg['sr_train'])
     fields['test'] = TestCfg(**test)
     return DetectorConfig(**fields)
+
+
+def _tuples(v):
+    """``v`` with every list in it a tuple, so that it hashes."""
+    return tuple(map(_tuples, v)) if isinstance(v, list) else v
 
 
 def reference_config(cfg, traffic=None):
@@ -48,18 +51,40 @@ def featmap_sizes(cfg, size):
 
 def seeded_state(model, seed, device):
     """The configuration's initial weights for the names of ``model``'s
-    state dict, drawn on ``device`` from ``seed`` in one normal draw: the
-    stem kernel and trunk convs normal(0, fan_in^-1/2), the head and FRM
-    convs normal(0, 0.01), the cls biases at the focal prior (p = 0.01),
-    FrozenBN scale and var 1, other biases and the mean 0."""
+    (a reference ``Detector``'s) state dict, drawn on ``device`` from
+    ``seed`` in one normal draw, in the state dict's order.
+
+    A tensor that is not floating point keeps the value the module built
+    it with. A name under ``backbone.`` is first offered, without that
+    prefix, to the backbone file's ``seed_rule(name, shape)``, which
+    returns ``('normal', std)`` (the tensor joins the draw), ``('fill',
+    value)`` or None. The shared rule: 4-D convs (the stem kernel and
+    trunk convs) normal(0, fan_in^-1/2), the head and FRM convs normal(0,
+    0.01), the cls biases at the focal prior (p = 0.01), FrozenBN scale and
+    var 1, every other tensor 0."""
     gen = torch.Generator(device).manual_seed(int(seed))
     sd = model.state_dict()
+    rule = getattr(model, 'seed_rule', None)
     normal, stds, out = [], [], {}
     for name, t in sd.items():
         leaf = name.rsplit('.', 1)[-1]
         shape = tuple(t.shape)
         head = name.startswith(('bbox_head.', 'refine_head_', 'frm_'))
-        if leaf in ('kernel', 'weight') and len(shape) == 4:
+        if not t.is_floating_point():
+            out[name] = t.to(device, copy=True)
+            continue
+        own = rule(name[len('backbone.'):], shape) \
+            if rule and name.startswith('backbone.') else None
+        if own is not None:
+            kind, value = own
+            if kind == 'normal':
+                normal.append(name)
+                stds.append(value)
+            elif kind == 'fill':
+                out[name] = torch.full(shape, value, device=device)
+            else:
+                raise ValueError(f'seed_rule gave {own!r} for {name}')
+        elif leaf in ('kernel', 'weight') and len(shape) == 4:
             fan = math.prod(shape[:3]) if leaf == 'kernel' \
                 else math.prod(shape[1:])
             normal.append(name)

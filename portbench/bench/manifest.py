@@ -11,8 +11,13 @@ gives it; no registry lists them:
 - ``limits/<cell>.json``: the limits of the numbers that decide the
   cell's ``correct``;
 - ``metrics/<metric>.py``: a per-layer metric's reader, ``read(ctx)`` ->
-  a number or None.
+  a number or None;
+- ``reference/backbones/<type>.py`` and ``work/backbones/<type>.py``: the
+  backbone that a configuration's ``backbone`` key names (``resnet`` when
+  it has none), its plain float32 module and its FLOP count
+  (``backbone_file``).
 """
+import functools
 import importlib.util
 import json
 from pathlib import Path
@@ -65,8 +70,25 @@ class Manifest:
     def reader(self, metric):
         """The ``read`` function of ``metrics/<name>.py``."""
         path = self.base / 'metrics' / f"{metric['name']}.py"
-        spec = importlib.util.spec_from_file_location(
-            'portbench_metric_' + metric['name'].replace('.', '_'), path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod.read
+        return _load(str(path), 'portbench_metric_'
+                     + metric['name'].replace('.', '_')).read
+
+
+def backbone_file(cfg, part, base=HERE):
+    """The module ``<base>/<part>/backbones/<type>.py`` of the
+    configuration's backbone type (its ``backbone`` key, else ``resnet``),
+    ``part`` being ``reference`` (``build`` and an optional ``seed_rule``)
+    or ``work`` (``ops``)."""
+    kind = cfg.get('backbone', 'resnet')
+    return _load(str(Path(base) / part / 'backbones' / f'{kind}.py'),
+                 f'portbench_backbone_{part}_{kind}')
+
+
+@functools.cache
+def _load(path, name):
+    """The module at ``path``, executed once a process, so that a
+    backbone's classes stay the same objects."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod

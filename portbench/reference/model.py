@@ -1,4 +1,4 @@
-"""The plain float32 forward of R3Det and rotated RetinaNet (R50-FPN).
+"""The plain float32 forward of R3Det and rotated RetinaNet.
 
 The benchmark's reference: plain ``torch`` operations in float32, with no
 kernel, cache or batching trick, written from the configuration's sizes.
@@ -6,9 +6,10 @@ It imports nothing of the program under test. The modules carry the
 program's parameter and buffer names, so the one state dict that the
 benchmark draws from the seed loads into both.
 
-It follows mmrotate's R3Det and RotatedRetinaNet (ResNet-50 with frozen
-BN, FPN P3-P7 on C3-C5 with the extra levels on C5, RetinaHead towers,
-the FRM of R3Det), with these departures, each the program's definition:
+It follows mmrotate's R3Det and RotatedRetinaNet (the backbone, FPN P3-P7
+on the backbone's last three outputs with the extra levels on its last,
+RetinaHead towers, the FRM of R3Det), with these departures, each the
+program's definition:
 
 - the stem is the folded 4x4/s1 conv on the 2x2 space-to-depth image
   (the program's ``conv1.kernel``, (4, 4, 12, 64) HWIO, padded 2 before
@@ -20,6 +21,12 @@ the FRM of R3Det), with these departures, each the program's definition:
   col <- cy / stride), bilinear with f32 weights, then ``x + (feat +
   sample)``;
 - images are NHWC; head outputs (B, H, W, A*C) and (B, H, W, A*5).
+
+The backbone is the configuration's (``bench.manifest.backbone_file``:
+``backbones/<type>.py``, ``resnet`` when the configuration names none):
+its ``build(cfg)`` returns a module whose forward takes the NHWC images
+to a list of NCHW float32 feature maps, with an ``out_channels`` tuple.
+``resnet`` is ResNet with frozen BN and the folded stem above.
 
 ``forward(images, rois=None)``: with ``rois`` (the per-level rois of each
 refine stage) the refine stages sample at those rois instead of at the
@@ -33,12 +40,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..bench.manifest import HERE, backbone_file
 from . import boxes as bx
-
-STAGE_BLOCKS = {10: (1, 1, 1, 1), 14: (2, 1, 1, 1), 50: (3, 4, 6, 3),
-                101: (3, 4, 23, 3)}
-WIDTHS = (64, 128, 256, 512)
-
 
 FP8_MAX = 448.0                    # float8_e4m3fn's largest finite value
 
@@ -96,84 +99,21 @@ class FrozenBN(nn.Module):
         return x * inv.view(1, -1, 1, 1) + off.view(1, -1, 1, 1)
 
 
-class Bottleneck(nn.Module):
-    def __init__(self, cin, f, stride):
-        super().__init__()
-        self.conv1 = conv(cin, f, 1, bias=False)
-        self.bn1 = FrozenBN(f)
-        self.conv2 = conv(f, f, 3, stride, 1, bias=False)
-        self.bn2 = FrozenBN(f)
-        self.conv3 = conv(f, 4 * f, 1, bias=False)
-        self.bn3 = FrozenBN(4 * f)
-        self.has_downsample = cin != 4 * f or stride != 1
-        if self.has_downsample:
-            self.downsample_conv = conv(cin, 4 * f, 1, stride, bias=False)
-            self.downsample_bn = FrozenBN(4 * f)
-
-    def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        res = self.downsample_bn(self.downsample_conv(x)) \
-            if self.has_downsample else x
-        return F.relu(y + res)
-
-
-class _Stem(nn.Module):
-    def __init__(self):
-        super().__init__()
-        self.kernel = nn.Parameter(torch.zeros(4, 4, 12, 64))
-
-
-class ResNet(nn.Module):
-    def __init__(self, depth=50, frozen_stages=1):
-        super().__init__()
-        self.depth = depth
-        self.frozen_stages = frozen_stages
-        self.conv1 = _Stem()
-        self.bn1 = FrozenBN(64)
-        cin = 64
-        for s, n in enumerate(STAGE_BLOCKS[depth]):
-            for b in range(n):
-                stride = 2 if b == 0 and s > 0 else 1
-                self.add_module(f'layer{s + 1}_{b}',
-                                Bottleneck(cin, WIDTHS[s], stride))
-                cin = 4 * WIDTHS[s]
-
-    def stem(self, images):
-        b, h, w, c = images.shape
-        x = images.reshape(b, h // 2, 2, w // 2, 2, c)
-        x = x.permute(0, 1, 3, 2, 4, 5)
-        x = x.reshape(b, h // 2, w // 2, 4 * c).permute(0, 3, 1, 2)
-        w = self.conv1.kernel.permute(3, 2, 0, 1)
-        x = F.pad(x, (2, 1, 2, 1))
-        q = getattr(self, 'quant', None)
-        if q:
-            x, w = fake_quant(x, q), fake_quant(w, q, 0)
-        x = F.conv2d(x, w)
-        if q:
-            x = fake_quant(x, q)
-        x = F.relu(self.bn1(x))
-        y = F.max_pool2d(x, 3, stride=2, padding=1)
-        return y[:, :, :x.shape[2] // 2, :x.shape[3] // 2]
-
-    def forward(self, images):
-        grad = torch.is_grad_enabled()
-        with torch.set_grad_enabled(grad and self.frozen_stages < 0):
-            x = self.stem(images)
-        outs = []
-        for s, n in enumerate(STAGE_BLOCKS[self.depth]):
-            with torch.set_grad_enabled(grad and s >= self.frozen_stages):
-                for b in range(n):
-                    x = getattr(self, f'layer{s + 1}_{b}')(x)
-            outs.append(x)
-        return outs
+def __getattr__(name):
+    """ResNet's names, from ``backbones/resnet.py``."""
+    if name in ('ResNet', 'Bottleneck', 'STAGE_BLOCKS', 'WIDTHS'):
+        return getattr(backbone_file({'backbone': 'resnet'}, 'reference'),
+                       name)
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
 
 
 class FPN(nn.Module):
-    def __init__(self, in_channels=(256, 512, 1024, 2048), out=256):
+    """Laterals on the last three of the backbone's outputs, P6 and P7 on
+    its last (mmdet's ``add_extra_convs='on_input'``)."""
+
+    def __init__(self, in_channels, out=256):
         super().__init__()
-        used = in_channels[1:]
+        used = in_channels[-3:]
         self.n = len(used)
         for i, c in enumerate(used):
             self.add_module(f'lateral_{i}', conv(c, out, 1))
@@ -182,7 +122,7 @@ class FPN(nn.Module):
         self.extra_1 = conv(out, out, 3, 2, 1)
 
     def forward(self, feats):
-        used = feats[1:]
+        used = feats[-3:]
         lat = [getattr(self, f'lateral_{i}')(used[i]) for i in range(self.n)]
         for i in range(self.n - 1, 0, -1):
             th, tw = lat[i - 1].shape[2:]
@@ -278,15 +218,19 @@ class FRM(nn.Module):
 
 class Detector(nn.Module):
     """R3Det (``num_refine_stages`` > 0) or rotated RetinaNet, from the
-    benchmark's configuration dict."""
+    benchmark's configuration dict; the backbone file is looked up under
+    ``base`` (the benchmark's directory). ``seed_rule`` is the file's
+    rule for ``common.seeded_state``, or None."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, base=HERE):
         super().__init__()
         self.cfg = cfg
         ch = cfg['feat_channels']
         na = len(cfg['ratios']) * cfg['scales_per_octave']
-        self.backbone = ResNet(cfg['backbone_depth'], cfg['frozen_stages'])
-        self.neck = FPN(out=ch)
+        parts = backbone_file(cfg, 'reference', base)
+        self.seed_rule = getattr(parts, 'seed_rule', None)
+        self.backbone = parts.build(cfg)
+        self.neck = FPN(self.backbone.out_channels, out=ch)
         self.bbox_head = RetinaHead(cfg['num_classes'], ch,
                                     cfg['stacked_convs'], na)
         for i in range(cfg['num_refine_stages']):

@@ -189,13 +189,14 @@ def imports_of(path):
 
 
 def test_reference_imports_nothing_of_the_program():
-    for f in (PB / 'reference').glob('*.py'):
+    for f in (PB / 'reference').rglob('*.py'):
         for mod in imports_of(f):
             assert mod.split('.')[0] not in ('r3det_tpu_torch', 'r3det_tpu',
                                              'jax', 'jaxlib', 'flax'), f
     code = ('import sys; sys.path.insert(0, %r); '
             'import portbench.reference.model, portbench.reference.predict, '
-            'portbench.reference.train; '
+            'portbench.reference.train, portbench.work.flops; '
+            'portbench.reference.model.ResNet; '
             'print(sorted({m.split(".")[0] for m in sys.modules} & '
             '{"r3det_tpu_torch", "r3det_tpu", "jax", "jaxlib", "flax"}))'
             % str(PB.parent))
