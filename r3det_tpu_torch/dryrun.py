@@ -8,7 +8,9 @@ Port of ``__graft_entry__.py``:
 - ``entry(device='cuda')`` returns ``(fn, (images,))``: R3Det R50
   (``R3DET_R50_V1``) in bf16 with seeded weights on a (1, 512, 512, 3)
   zero batch; ``fn`` returns the sum of every ``s0``, ``sr`` and ``rois``
-  tensor, so that every head output is computed.
+  tensor, so that every head output is computed. ``entry(device,
+  'swin')`` builds rotated RetinaNet on Swin-T instead, through the
+  config builder from mmdet's model dict (``SWIN_T_RRETINANET``).
 - ``dryrun_multichip(n)`` runs one SGD step of JAX's tiny R3Det (depth 10,
   width 32, one stacked conv, one refine stage, 3 classes, 64^2 images,
   the same ``RandomState(0)`` batch of ``n`` images) on ``n`` gloo ranks
@@ -43,15 +45,42 @@ def _leaves(tree):
     return [tree]
 
 
-def entry(device='cuda'):
+# mmdet's RetinaNet Swin-T backbone and neck
+# (configs/swin/retinanet_swin-t-p4-w7_fpn_1x_coco.py) under the rotated
+# RetinaNet head of configs/rretinanet/rretinanet_obb_r50_fpn_1x_dota_v1.py
+SWIN_T_RRETINANET = dict(
+    type='RotatedRetinaNet',
+    backbone=dict(type='SwinTransformer', embed_dims=96, depths=[2, 2, 6, 2],
+                  num_heads=[3, 6, 12, 24], window_size=7, mlp_ratio=4,
+                  qkv_bias=True, qk_scale=None, drop_rate=0.,
+                  attn_drop_rate=0., drop_path_rate=0.2, patch_norm=True,
+                  out_indices=(1, 2, 3), with_cp=False,
+                  convert_weights=True),
+    neck=dict(type='FPN', in_channels=[192, 384, 768], out_channels=256,
+              start_level=0, add_extra_convs='on_input', num_outs=5),
+    bbox_head=dict(type='RotatedRetinaHead', num_classes=15, in_channels=256,
+                   stacked_convs=4, feat_channels=256,
+                   bbox_coder=dict(type='DeltaXYWHAOBBoxCoder',
+                                   angle_range='v1'),
+                   loss_bbox=dict(type='L1Loss', loss_weight=1.0)))
+
+
+def entry(device='cuda', backbone='resnet'):
     """The flagship model's forward on one device: ``(fn, (images,))``.
-    On the card unless ``device='cpu'``."""
+    On the card unless ``device='cpu'``; ``backbone='swin'`` builds
+    ``SWIN_T_RRETINANET``."""
     import torch
 
     from .models.detectors import R3DET_R50_V1, build_detector
+    from .utils.builder import build_from_config
     from .utils.convert import seeded_state_dict
 
-    model = build_detector(R3DET_R50_V1, dtype=torch.bfloat16, device=device)
+    if backbone == 'swin':
+        model, _ = build_from_config({'model': SWIN_T_RRETINANET},
+                                     dtype=torch.bfloat16, device=device)
+    else:
+        model = build_detector(R3DET_R50_V1, dtype=torch.bfloat16,
+                               device=device)
     model.load_state_dict(seeded_state_dict(model, 0))
     images = torch.zeros((1, 512, 512, 3), dtype=torch.float32,
                          device=device)
@@ -59,8 +88,8 @@ def entry(device='cuda'):
     def fn(images):
         with torch.no_grad():
             out = model(images)
-        return [t.sum() for t in
-                _leaves((out['s0'], out['sr'], out['rois']))]
+        return [t.sum() for t in _leaves((out['s0'], out.get('sr', []),
+                                          out.get('rois', [])))]
 
     return fn, (images,)
 

@@ -20,6 +20,12 @@ num (B,)).
 ``stem_pool_kernel``, ``fused_blocks`` (see ``models/resnet.py``),
 ``frm_points``, ``frm_transpose_quirk``, ``frm_fuse_convs`` and
 ``frm_sample_kernel`` (see ``models/frm.py``).
+The config's ``backbone`` names the trunk: ``'resnet'`` (the default,
+``backbone_depth``) or ``'swin'`` (``models/swin.py``, sized by the
+``swin_*`` fields; Swin-T by default). The ResNet-only options
+(``quantize``, ``quantize_head``, ``int8_act``, ``stem_fused_kernel``,
+``stem_pool_kernel``, ``fused_blocks``) raise with a Swin backbone unless
+they are at their defaults.
 ``kernels`` (default on) routes the stem, the stem pool, the fused
 bottlenecks, the int8 convs, the FRM sample and the NMS IoU through the
 CUDA kernels when
@@ -46,6 +52,7 @@ from .losses import (l1_loss, sigmoid_bce_loss, sigmoid_focal_loss,
                      smooth_l1_loss)
 from .resnet import ResNet
 from .retina_head import RRetinaHead
+from .swin import SwinTransformer
 
 
 # ---------------------------------------------------------------------------
@@ -101,6 +108,16 @@ class DetectorConfig(NamedTuple):
     hbb_anchors: bool = False
     quantize: Any = False
     quantize_head: Any = False
+    # the trunk: 'resnet' (backbone_depth) or 'swin' (the swin_* fields,
+    # mmdet's SwinTransformer arguments; Swin-T's by default)
+    backbone: str = 'resnet'
+    swin_embed_dims: int = 96
+    swin_depths: Tuple[int, ...] = (2, 2, 6, 2)
+    swin_num_heads: Tuple[int, ...] = (3, 6, 12, 24)
+    swin_window_size: int = 7
+    swin_mlp_ratio: int = 4
+    swin_patch_size: int = 4
+    swin_out_indices: Tuple[int, ...] = (1, 2, 3)
 
     @property
     def num_anchors(self) -> int:
@@ -138,13 +155,36 @@ class _Base(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.kernels = kernels
-        self.backbone = ResNet(
-            depth=cfg.backbone_depth, dtype=dtype, kernels=kernels,
-            frozen_stages=cfg.frozen_stages,
-            stem_fused_kernel=stem_fused_kernel,
-            stem_pool_kernel=stem_pool_kernel, quantize=cfg.quantize,
-            fused_blocks=fused_blocks, int8_act=int8_act)
-        self.neck = FPN(out_channels=cfg.feat_channels,
+        if cfg.backbone == 'swin':
+            given = dict(quantize=cfg.quantize,
+                         quantize_head=cfg.quantize_head,
+                         int8_act=int8_act,
+                         stem_fused_kernel=not stem_fused_kernel,
+                         stem_pool_kernel=stem_pool_kernel,
+                         fused_blocks=fused_blocks)
+            bad = sorted(k for k, v in given.items() if v)
+            if bad:
+                raise ValueError(f'{bad}: ResNet-only options; a Swin '
+                                 'backbone takes them at their defaults')
+            self.backbone = SwinTransformer(
+                embed_dims=cfg.swin_embed_dims, depths=cfg.swin_depths,
+                num_heads=cfg.swin_num_heads,
+                window_size=cfg.swin_window_size,
+                mlp_ratio=cfg.swin_mlp_ratio,
+                patch_size=cfg.swin_patch_size,
+                out_indices=cfg.swin_out_indices, dtype=dtype)
+        elif cfg.backbone == 'resnet':
+            self.backbone = ResNet(
+                depth=cfg.backbone_depth, dtype=dtype, kernels=kernels,
+                frozen_stages=cfg.frozen_stages,
+                stem_fused_kernel=stem_fused_kernel,
+                stem_pool_kernel=stem_pool_kernel, quantize=cfg.quantize,
+                fused_blocks=fused_blocks, int8_act=int8_act)
+        else:
+            raise ValueError(f'backbone {cfg.backbone!r}: not provided '
+                             "('resnet' or 'swin')")
+        self.neck = FPN(in_channels=self.backbone.out_channels,
+                        out_channels=cfg.feat_channels,
                         quantize=cfg.quantize)
         self.bbox_head = RRetinaHead(
             num_classes=cfg.num_classes, in_channels=cfg.feat_channels,

@@ -312,6 +312,8 @@ class ResNet(nn.Module):
     """ResNet trunk: NHWC image (B, H, W, 3) -> (C2, C3, C4, C5), NCHW
     channels_last, in ``dtype``."""
 
+    out_channels = tuple(4 * w for w in WIDTHS)
+
     def __init__(self, depth=50, dtype=torch.float32, kernels=True,
                  stem_fused_kernel=True, stem_pool_kernel=False,
                  quantize=False, fused_blocks=False, int8_act=False,

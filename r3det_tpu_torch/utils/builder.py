@@ -12,6 +12,15 @@ Every build option of the JAX package's builder reaches the port's
 ``approx_topk`` in ``test_cfg`` (the TPU's ``lax.approx_max_k``) raises
 ``NotImplementedError`` when turned on, instead of being dropped: the port
 selects candidates exactly.
+
+The backbone dict's ``type`` picks the trunk: ``ResNet`` (``depth``,
+``frozen_stages``) or mmdet's ``SwinTransformer`` (``embed_dims``,
+``depths``, ``num_heads``, ``window_size``, ``mlp_ratio``,
+``patch_size``, ``out_indices`` onto the ``swin_*`` fields). A Swin
+backbone's neck must lay its laterals on the backbone's outputs
+(``in_channels[start_level:]`` the Swin widths at ``out_indices``); the
+Swin variants the port does not build (no qkv bias, a ``qk_scale``, no
+patch norm, an absolute position embedding, other strides) raise.
 """
 import warnings
 
@@ -155,10 +164,47 @@ def detector_config_from_dict(model: dict, train_cfg: dict = None,
         loss_cls_type=loss_cls_type,
         frozen_stages=model.get('backbone', {}).get('frozen_stages', 1),
         backbone_depth=model.get('backbone', {}).get('depth', 50),
+        **_swin_fields(model),
         # framework extension: int8 PTQ serving (models/quant.py)
         quantize=_quant_flag(model, test_cfg, 'quantize_int8'),
         quantize_head=_quant_flag(model, test_cfg, 'quantize_head_int8'),
     )
+
+
+_SWIN_KEYS = ('embed_dims', 'depths', 'num_heads', 'window_size',
+              'mlp_ratio', 'patch_size', 'out_indices')
+# mmdet SwinTransformer arguments the port builds only at these values
+_SWIN_FIXED = dict(qkv_bias=True, qk_scale=None, patch_norm=True,
+                   use_abs_pos_embed=False)
+
+
+def _swin_fields(model):
+    """The ``backbone`` and ``swin_*`` fields of an mmdet model dict ({}
+    for a ResNet)."""
+    bb = dict(model.get('backbone', {}))
+    if bb.get('type') != 'SwinTransformer':
+        return {}
+    for key, want in _SWIN_FIXED.items():
+        if bb.get(key, want) != want:
+            raise NotImplementedError(
+                f'SwinTransformer {key}={bb[key]!r}: the port builds '
+                f'{key}={want!r} only')
+    fields = {f'swin_{k}': tuple(bb[k]) if isinstance(bb[k], (list, tuple))
+              else bb[k] for k in _SWIN_KEYS if k in bb}
+    d = DetectorConfig(**fields)
+    patch = d.swin_patch_size
+    if tuple(bb.get('strides', (patch, 2, 2, 2))) != (patch, 2, 2, 2):
+        raise NotImplementedError(f"SwinTransformer strides "
+                                  f"{bb['strides']!r}: the port builds "
+                                  f"({patch}, 2, 2, 2) only")
+    widths = [d.swin_embed_dims * 2 ** i for i in d.swin_out_indices]
+    neck = dict(model.get('neck', {}))
+    used = list(neck.get('in_channels', widths))[neck.get('start_level', 0):]
+    if used != widths[-3:]:
+        raise ValueError(f'neck in_channels[start_level:] {used} do not '
+                         f'fit the Swin outputs {widths}: the FPN lays its '
+                         'laterals on the last three')
+    return dict(fields, backbone='swin')
 
 
 def _quant_flag(model, test_cfg, key):

@@ -17,7 +17,11 @@ mapping is mechanical:
 :func:`seeded_state_dict` makes a full state dict from a numpy seed, with
 the reference's initialisation (normal(0.01) head and FRM convs, focal
 prior cls bias) and lecun-normal backbone/neck convs, for runs that need
-weights but have no checkpoint. Its int8 activation ranges are 0, the
+weights but have no checkpoint. A Swin backbone's linears are
+lecun-normal too, its LayerNorm gains 1 and its relative-position bias
+tables normal(0, 1) (mmdet draws them at 0.02, which leaves each block's
+branch a few percent of the residual stream); integer buffers (the bias
+index) keep the module's values. Its int8 activation ranges are 0, the
 uncalibrated state: :func:`..models.quant.calibrate` fills them.
 """
 import numpy as np
@@ -64,12 +68,19 @@ def seeded_state_dict(model, seed):
         shape = tuple(t.shape)
         head = name.startswith(('bbox_head.', 'refine_head_', 'frm_'))
         leaf = name.rsplit('.', 1)[-1]
+        if not t.is_floating_point():
+            sd[name] = t.detach().clone()
+            continue
         if leaf == 'kernel':                    # stem, HWIO
             fan_in = shape[0] * shape[1] * shape[2]
             v = rng.normal(0.0, fan_in ** -0.5, shape)
-        elif leaf == 'weight':                  # conv, OIHW
-            fan_in = shape[1] * shape[2] * shape[3]
+        elif leaf == 'weight' and len(shape) == 1:      # LayerNorm gain
+            v = np.ones(shape)
+        elif leaf == 'weight':                  # conv OIHW, linear (O, I)
+            fan_in = int(np.prod(shape[1:]))
             v = rng.normal(0.0, 0.01 if head else fan_in ** -0.5, shape)
+        elif leaf == 'relative_position_bias_table':
+            v = rng.normal(0.0, 1.0, shape)
         elif name.endswith('retina_cls.bias'):
             v = np.full(shape, focal_bias())
         elif leaf in ('scale', 'var'):

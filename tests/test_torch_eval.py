@@ -80,9 +80,16 @@ def test_config_delete_override_matches_jax(tmp_path):
 
 
 def _fields(nt):
-    """NamedTuples (nested, in tuples) -> plain dicts and lists."""
+    """NamedTuples (nested, in tuples) -> plain dicts and lists. The
+    port's ``DetectorConfig`` fields that the JAX package's lacks (the
+    backbone choice: ``backbone`` and the ``swin_*`` sizes) must hold their
+    defaults, a ResNet's, and are left out."""
     if hasattr(nt, '_asdict'):
-        return {k: _fields(v) for k, v in nt._asdict().items()}
+        d = nt._asdict()
+        if type(nt) is T.DetectorConfig:
+            for k in set(d) - set(J.DetectorConfig._fields):
+                assert d.pop(k) == T.DetectorConfig._field_defaults[k], k
+        return {k: _fields(v) for k, v in d.items()}
     if isinstance(nt, (tuple, list)):
         return [_fields(v) for v in nt]
     return nt

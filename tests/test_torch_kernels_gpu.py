@@ -1457,3 +1457,76 @@ def test_conv_epilogue_wrapper_raises(cuda):
     for args in bad:
         with pytest.raises(ValueError):
             E.conv_epilogue_cuda(*args)
+
+
+# The Swin-T backbone (models/swin.py) in bf16 on the card against the
+# benchmark's float32 reference (portbench/reference/backbones/swin.py)
+
+def swin_pair(dev, seed=7):
+    """The port's bf16 rotated RetinaNet Swin-T and the float32 reference
+    detector on one seeded state, from the benchmark's configuration."""
+    import json
+    from pathlib import Path
+
+    from portbench.bench import common
+    from portbench.reference.model import Detector
+    root = Path(__file__).resolve().parent.parent / 'portbench'
+    cfg = json.loads((root / 'configs' / 'rretinanet_obb_swin_t.json')
+                     .read_text())
+    ref = Detector(cfg).to(dev)
+    state = common.seeded_state(ref, seed, dev)
+    ref.load_state_dict(state)
+    model = build_detector(common.program_config(cfg),
+                           dtype=torch.bfloat16, device=dev)
+    model.load_state_dict(state)
+    return model, ref
+
+
+@pytest.mark.gpu
+def test_swin_t_bf16_matches_the_float32_reference(cuda):
+    """Published widths, one 224^2 image: each output within 3% (relative
+    norm) of the reference. bf16 stores each activation to 2^-9, and the
+    residual stream of 12 blocks carries it (the cell's ``err.fpn`` of
+    the whole FPN reads about 1%); the reference computed in fp8 misses
+    the same bound."""
+    from portbench.bench import check
+    model, ref = swin_pair(cuda)
+    g = torch.Generator(cuda).manual_seed(1)
+    x = torch.rand(1, 224, 224, 3, generator=g, device=cuda) * 4 - 2
+    with torch.no_grad():
+        got = model.backbone(x)
+        want = ref.backbone(x)
+        low = check.quantized(ref.backbone, 'fp8', x)
+    assert [tuple(t.shape) for t in got] == [(1, 192, 28, 28),
+                                             (1, 384, 14, 14), (1, 768, 7, 7)]
+    assert all(t.dtype == torch.bfloat16 for t in got)
+    for a, b, c in zip(got, want, low):
+        assert check.rel_err([a], [b]) < 0.03
+        assert check.rel_err([c], [b]) > 0.03
+
+
+@pytest.mark.gpu
+def test_swin_t_spans_and_no_host_round_trip(cuda):
+    """With the spans on, a forward records 1 embed, 12 attn, 12 mlp and 3
+    merge ranges and no copy or sync range; once the bias and mask are
+    made, it makes no host-to-device copy and no synchronising call."""
+    from torch.profiler import ProfilerActivity, profile
+    model, _ = swin_pair(cuda)
+    x = torch.rand(2, 224, 224, 3, device=cuda)
+    with torch.no_grad():
+        model.backbone(x)                        # the bias and mask, once
+        _, spans = traced(lambda: model.backbone(x))
+        names = [n for n, _, _ in spans]
+        assert {n: names.count(n) for n in set(names)} == {
+            'r3det.backbone.swin.embed': 1, 'r3det.backbone.swin.attn': 12,
+            'r3det.backbone.swin.mlp': 12, 'r3det.backbone.swin.merge': 3}
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.set_sync_debug_mode('error')
+            try:
+                model.backbone(x)
+            finally:
+                torch.cuda.set_sync_debug_mode('default')
+            torch.cuda.synchronize()
+    copies = [e.name for e in prof.events() if 'HtoD' in e.name]
+    assert copies == []

@@ -15,8 +15,10 @@ import os
 
 import pytest
 
+from r3det_tpu.models.detectors import DetectorConfig as JDetectorConfig
 from r3det_tpu.utils import builder as JB
 from r3det_tpu.utils.config import Config as JConfig
+from r3det_tpu_torch.models.detectors import DetectorConfig as TDetectorConfig
 from r3det_tpu_torch.tools import test as test_cli
 from r3det_tpu_torch.utils import builder as TB
 
@@ -31,9 +33,16 @@ class Built(Exception):
 
 
 def _fields(cfg):
-    """A config NamedTuple as nested plain tuples of (field, value)."""
+    """A config NamedTuple as nested plain tuples of (field, value). The
+    port's ``DetectorConfig`` fields that the JAX package's lacks (the
+    backbone choice: ``backbone`` and the ``swin_*`` sizes) must hold their
+    defaults, a ResNet's, and are left out."""
     if hasattr(cfg, '_asdict'):
-        return tuple((k, _fields(v)) for k, v in cfg._asdict().items())
+        d = cfg._asdict()
+        if type(cfg) is TDetectorConfig:
+            for k in set(d) - set(JDetectorConfig._fields):
+                assert d.pop(k) == TDetectorConfig._field_defaults[k], k
+        return tuple((k, _fields(v)) for k, v in d.items())
     if isinstance(cfg, tuple):
         return tuple(_fields(v) for v in cfg)
     return cfg
