@@ -33,7 +33,11 @@ Phases, one line each (any failure raises and the exit code is 1):
    ResNet-50 predict step makes (batch 8 of 1024^2), bit-equal to its
    plain form, beside the unfused PyTorch passes it replaces
    (``unfused_ms``) and its bytes bound; ``[kernel_sum]`` weighs them by
-   their launches a step;
+   their launches a step. Swin's attention kernels (``csrc/swin_attn.cu``)
+   run at Swin-T's four stage shapes of batch 8 of 1024^2, the window
+   attention unshifted and shifted, each within the card tests' tolerance
+   of its plain form, beside its plain time and bytes bound, summed by
+   ``[kernel_sum]`` over the 12 launches of a forward;
 4. end to end: R3Det* tiny (stacked_convs=2, angle v1), ResNet-50, full
    width, bf16, batch 8 of 1024^2 patches, weights from a numpy seed,
    through ``build_detector`` and the port's predict step. The refine
@@ -42,7 +46,11 @@ Phases, one line each (any failure raises and the exit code is 1):
    other fewer (the small sweep); every kernel of the path must launch in
    that run. The same batches then go through the plain versions on the
    card, and K1 alone runs on the big batch's own NMS candidates
-   (``shape=main_path``: bit-equal, timed, with their near-pair share).
+   (``shape=main_path``: bit-equal, timed, with their near-pair share);
+   no Swin kernel runs there. ``[swin]``: a bf16 Swin-T backbone (seeded,
+   batch 8 of 1024^2) with its counts reset launches each attention
+   kernel 12 times and no other kernel, and its outputs err no more
+   against its float32 run than the eager bf16 route's.
    Then ``[nms_stream]``: the same model and batch with
    ``nms_candidates=STREAM_CANDIDATES`` (8000) and the refine cls bias set
    for about STREAM_LIVE (6000) live candidates an image: the big
@@ -151,9 +159,10 @@ Phases, one line each (any failure raises and the exit code is 1):
    (``_agreement``, >= 0.75) and both mAPs;
 9. the last tools. ``[kernel_bench]``: ``tools/kernel_bench.py all`` (the
    stem, the C2 and C3 identity blocks and the FRM sample at batch 32,
-   each kernel beside its plain form): every int8 parity and K2's and
-   K4's exact, K3 bf16 within one bf16 ulp, K5 bf16 within 0.03125, each
-   variant's ms. ``[vis]``: the ``[eval]`` phase's results pickle through
+   Swin's attention kernels at batch 8, each kernel beside its plain
+   form): every int8 parity and K2's and K4's exact, K3 bf16 within one
+   bf16 ulp, K5 bf16 within 0.03125, Swin's within 2^-5, each variant's
+   ms. ``[vis]``: the ``[eval]`` phase's results pickle through
    ``tools/analyze_results.py --topk 2`` (``bad/`` and ``good/`` PNGs
    named ``{mAP:.3f}_{id}.png`` that decode), and
    ``tools/browse_dataset.py --limit 4`` on the card equal to its run
@@ -176,8 +185,8 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from r3det_tpu_torch.utils.kernel_timing import (  # noqa: E402
-    add_bound, cuda_ms, epilogue_bytes, frm_work, graph_ms, iou_work,
-    r50_epilogues)
+    add_bound, add_bound_ms, cuda_ms, epilogue_bytes, frm_work, graph_ms,
+    iou_work, r50_epilogues, swin_attn_work)
 
 SEED = 0
 BATCH = 8
@@ -195,6 +204,12 @@ NMS_FAMILY_K = 2000               # boxes of each [nms_family] scene
 BOTTLENECKS = (('C2', (BATCH, 256, 256, 256), 64),
                ('C3', (BATCH, 128, 128, 512), 128),
                ('C4', (BATCH, 64, 64, 1024), 256))
+# Swin-T's stages at 1024^2: (map side, C, heads, blocks); window 7, and
+# every second block of a stage shifted by 3
+SWIN_STAGES = ((256, 96, 3, 2), (128, 192, 6, 2), (64, 384, 12, 6),
+               (32, 768, 24, 2))
+SWIN_WINDOW = 7
+SWIN_BLOCKS = 12                  # attention sub-blocks of a Swin-T forward
 ROUTE_BATCH = 2                   # batch of the opt-in routes
 EVAL_CONFIG = 'configs/debug/r3det_tiny_fake_dota.py'
 EVAL_IMAGES = 8                   # fake-DOTA scenes (700^2): 4 patches each
@@ -250,6 +265,9 @@ REPLACES = {
     'frm_sample_bwd': 'r3det_tpu/models/frm.py:27',
     # no TPU kernel: XLA fuses FrozenBN, ReLU and the residual into the conv
     'conv_epilogue': 'r3det_tpu/models/resnet.py:72',
+    # no TPU kernel: the JAX package has no Swin
+    'swin_norm_pad': 'none',
+    'swin_window_attn': 'none',
 }
 SOURCES = {
     'rotated_iou': 'r3det_tpu_torch/csrc/rotated_iou.cu',
@@ -262,13 +280,16 @@ SOURCES = {
     'int8_conv': 'r3det_tpu_torch/csrc/int8_conv.cu',
     'frm_sample_bwd': 'r3det_tpu_torch/csrc/frm_sample.cu',
     'conv_epilogue': 'r3det_tpu_torch/csrc/conv_epilogue.cu',
+    'swin_norm_pad': 'r3det_tpu_torch/csrc/swin_attn.cu',
+    'swin_window_attn': 'r3det_tpu_torch/csrc/swin_attn.cu',
 }
 # the run whose launch counts each kernel reports
 PATH_OF = {'rotated_iou': 'bf16', 'frm_sample': 'bf16',
            'stem_conv_pool': 'bf16', 'stem_conv_pool_q8': 'int8',
            'stem_pool': 'route_bf16', 'bottleneck': 'route_bf16',
            'bottleneck_q8': 'route_int8', 'int8_conv': 'int8',
-           'frm_sample_bwd': 'train', 'conv_epilogue': 'bf16'}
+           'frm_sample_bwd': 'train', 'conv_epilogue': 'bf16',
+           'swin_norm_pad': 'swin', 'swin_window_attn': 'swin'}
 # the kernels each run must launch
 PATH_KERNELS = {
     'bf16': ('rotated_iou', 'frm_sample', 'stem_conv_pool', 'conv_epilogue'),
@@ -288,6 +309,8 @@ PATH_KERNELS = {
     # a train step of rotated RetinaNet with hbb_anchors: K1 in the rotated
     # assignment on hbb2obb anchors, K3 in the frozen stem
     'hbb_train': ('rotated_iou', 'stem_conv_pool'),
+    # a bf16 Swin-T backbone forward: the attention kernels, once a block
+    'swin': ('swin_norm_pad', 'swin_window_attn'),
 }
 
 
@@ -751,6 +774,7 @@ def compare_kernels(dev):
     del conv, conv_nchw, lib_out
     rec.update(compare_bottlenecks(dev, rng))
     rec['conv_epilogue'] = compare_epilogue(dev, rng)
+    rec.update(compare_swin(dev, rng))
     rec['int8_conv'] = int8_conv_route(dev, rng)
     rec['frm_sample_bwd'] = frm_bwd_kernel(dev, rng)
     return rec
@@ -854,6 +878,160 @@ def compare_epilogue(dev, rng):
           bound_share=f'{rec["bound_ms"] / rec["ms"]:.3f}')
     torch.cuda.empty_cache()
     return rec
+
+
+def compare_swin(dev, rng):
+    """Swin's two attention kernels at Swin-T's four stage shapes of a
+    batch of 8 1024^2 images, against their plain forms on the card at the
+    card tests' tolerances: ``swin_norm_pad`` within one bf16 ulp (2^-7
+    relative: the two sum the mean and variance in other orders) and its
+    pad zeros; ``swin_window_attn``, unshifted and shifted, within one
+    bf16 ulp plus 2^-8 max|v| (a P rounded to the neighbouring bf16). Each
+    beside its plain form's time and its bound (``swin_attn_work``); the
+    records sum each shape's over its launches a forward (12 each)."""
+    import numpy as np
+    import torch
+
+    from r3det_tpu_torch.models.swin import SwinBlock, padded
+    from r3det_tpu_torch.ops import swin_attn as A
+
+    win = SWIN_WINDOW
+    recs = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+            for k in PATH_KERNELS['swin']}
+
+    def normal(shape, std, mean=0.0):
+        return torch.from_numpy(rng.normal(mean, std, shape).astype(
+            np.float32)).to(dev)
+
+    def within(got, want, atol):
+        diff = (got.float() - want.float()).abs()
+        return float(diff.max()), bool(
+            (diff <= 2 ** -7 * want.float().abs() + atol).all())
+
+    def record(name, n, err, ms, plain_ms, bound_ms, by):
+        rec = recs[name]
+        rec['max_abs_err'] = max(rec['max_abs_err'], err)
+        rec['ms'] += n * ms
+        rec['plain_ms'] += n * plain_ms
+        add_bound_ms(rec, n * bound_ms, by)
+
+    for side, c, heads, depth in SWIN_STAGES:
+        hp = padded(side, win)
+        x = normal((BATCH, side, side, c), 1.0).to(torch.bfloat16)
+        gain, shift = normal((c,), 0.5, 1.0), normal((c,), 0.5)
+        msa = SwinBlock(c, heads, 4 * c, win, True).to(dev).attn.w_msa
+        table = msa.relative_position_bias_table
+        with torch.no_grad():
+            msa.qkv.weight.copy_(normal(msa.qkv.weight.shape, c ** -0.5))
+            msa.qkv.bias.copy_(normal((3 * c,), 0.1))
+            table.copy_(normal(table.shape, 1.0))
+        work = swin_attn_work(BATCH, side, side, c, heads, win)
+        with torch.no_grad():
+            def norm(fn):
+                return fn(x, gain, shift, 1e-5, hp, hp)
+            got = norm(A.norm_pad_cuda)
+            err, ok = within(got, norm(A.norm_pad_reference), 1e-5)
+            ok = ok and not got[:, side:].any() and not got[:, :, side:].any()
+            ms = cuda_ms(lambda: norm(A.norm_pad_cuda), 20)
+            plain_ms = cuda_ms(lambda: norm(A.norm_pad_reference), 5)
+            b_ms, by = work['swin_norm_pad']
+            phase('kernel', name='swin_norm_pad', shape=str(tuple(got.shape)),
+                  launches_per_forward=depth, max_abs_err=err,
+                  tol='2^-7*|ref| + 1e-5', ms=f'{ms:.4f}',
+                  plain_ms=f'{plain_ms:.4f}', bound_ms=f'{b_ms:.4f}',
+                  bound_by=by, bound_share=f'{b_ms / ms:.3f}')
+            check(ok, f'swin_norm_pad at {tuple(x.shape)} disagrees with its '
+                      'plain form')
+            record('swin_norm_pad', depth, err, ms, plain_ms, b_ms, by)
+            qkv = msa.qkv(got)
+            del got
+            vmax = float(qkv[..., 2 * c:].float().abs().max())
+            for s in (0, win // 2):
+                def attn(fn):
+                    return fn(qkv, table, heads, win, s, side, side)
+                got = attn(A.window_attn_cuda)
+                err, ok = within(got, attn(A.window_attn_reference),
+                                 2 ** -8 * vmax)
+                ms = cuda_ms(lambda: attn(A.window_attn_cuda), 20)
+                plain_ms = cuda_ms(lambda: attn(A.window_attn_reference), 3)
+                b_ms, by = work['swin_window_attn']
+                phase('kernel', name='swin_window_attn',
+                      shape=str(tuple(qkv.shape)), heads=heads, shift=s,
+                      launches_per_forward=depth // 2, max_abs_err=err,
+                      tol=f'2^-7*|ref| + 2^-8*{vmax:.3f}', ms=f'{ms:.4f}',
+                      plain_ms=f'{plain_ms:.4f}', bound_ms=f'{b_ms:.4f}',
+                      bound_by=by, bound_share=f'{b_ms / ms:.3f}')
+                check(ok, f'swin_window_attn at {tuple(qkv.shape)} (shift '
+                          f'{s}) disagrees with its plain form')
+                record('swin_window_attn', depth // 2, err, ms, plain_ms,
+                       b_ms, by)
+                del got
+        del x, qkv, msa, table
+        torch.cuda.empty_cache()
+    for name, rec in recs.items():
+        phase('kernel_sum', name=name, launches=SWIN_BLOCKS,
+              ms=f'{rec["ms"]:.4f}', plain_ms=f'{rec["plain_ms"]:.4f}',
+              bound_ms=f'{rec["bound_ms"]:.4f}',
+              bound_share=f'{rec["bound_ms"] / rec["ms"]:.3f}')
+    return recs
+
+
+def _rel_l2(a, b):
+    """|a - b| over b's spread, in L2 (the benchmark's ``err.*``)."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / (b - b.mean()).norm())
+
+
+def swin_forward(dev, card):
+    """[swin]: a bf16 Swin-T backbone (published widths, weights from a
+    numpy seed) on a batch of 8 1024^2 images, the launch counts set to 0
+    just before it: each attention kernel launches once a block (12) and
+    no other kernel of the port runs. Its three outputs against the same
+    module run in float32 (the plain route): the kernels' route errs no
+    more than the eager bf16 route at each. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from r3det_tpu_torch import _ext
+    from r3det_tpu_torch.models.detectors import use_kernels
+    from r3det_tpu_torch.models.swin import SwinTransformer
+    from r3det_tpu_torch.utils.convert import seeded_state_dict
+
+    net = SwinTransformer(dtype=torch.bfloat16)
+    net.load_state_dict(seeded_state_dict(net, SEED))
+    net = net.to(dev)
+    rng = np.random.RandomState(SEED)
+    images = torch.from_numpy(rng.uniform(-2, 2, (BATCH, SIZE, SIZE, 3))
+                              .astype(np.float32)).to(dev)
+    with torch.no_grad():
+        net(images)                                   # warm-up
+        torch.cuda.synchronize()
+        _ext.reset_launches()
+        route = net(images)
+        torch.cuda.synchronize()
+        launches = dict(_ext.LAUNCHES)
+        use_kernels(net, False)
+        eager = net(images)
+        net.dtype = torch.float32
+        want = net(images)
+    phase('launches', path='swin', **launches)
+    for name in PATH_KERNELS['swin']:
+        check(launches[name] == SWIN_BLOCKS,
+              f'{name} launched {launches[name]} times a Swin-T forward, '
+              f'not {SWIN_BLOCKS}')
+    check(all(n == 0 for k, n in launches.items()
+              if k not in PATH_KERNELS['swin']),
+          'a kernel other than the attention kernels ran in Swin-T')
+    errs = [(_rel_l2(r, w), _rel_l2(e, w))
+            for r, e, w in zip(route, eager, want)]
+    phase('swin', batch=BATCH, size=SIZE,
+          kernel_err=[f'{k:.5f}' for k, _ in errs],
+          eager_err=[f'{e:.5f}' for _, e in errs], card=card)
+    check(all(k <= e for k, e in errs),
+          'the kernels\' route errs more than the eager bf16 route')
+    del net, images, route, eager, want
+    torch.cuda.empty_cache()
+    return launches
 
 
 def unfused_block(f, quantize, amax, dev, rng):
@@ -1254,6 +1432,8 @@ def end_to_end(dev, card):
           'K2 did not run once a refine stage a predict step (bf16)')
     check(launches['conv_epilogue'] == len(LIVE_TARGETS) * R50_EPILOGUES,
           'the conv epilogue did not run once a bottleneck conv (bf16)')
+    check(all(launches[name] == 0 for name in PATH_KERNELS['swin']),
+          'a Swin kernel ran in the R50 predict step')
 
     for branch, (dets, labels, num, taken) in results.items():
         phase('predict', batch=branch, branch=taken, num=num.tolist())
@@ -2818,8 +2998,10 @@ def _log_records(path):
 def kernel_bench_phase(card):
     """``tools/kernel_bench.py all`` on the card ([kernel_bench]): every
     int8 parity exact, K3 bf16 within one bf16 ulp, K5 bf16 within
-    0.03125, K2, K4 and the conv epilogue exact; each variant's ms at
-    batch 32."""
+    0.03125, K2, K4 and the conv epilogue exact, Swin's two kernels within
+    2^-5 (the card test's bound: a bf16 ulp of LN outputs up to 4, P's
+    rounding on unit-normal v); each variant's ms at batch 32 (Swin's at
+    batch 8)."""
     from r3det_tpu_torch.tools import kernel_bench
 
     t0 = time.perf_counter()
@@ -2832,7 +3014,9 @@ def kernel_bench_phase(card):
              for k, v in r.items()},
           **{f'C2 {k}': v['ms']
              for k, v in out['bottleneck']['epilogue'].items()},
-          **{k: v['ms'] for k, v in out['frm']['ms'].items()}}
+          **{k: v['ms'] for k, v in out['frm']['ms'].items()},
+          **{f'{t} {k}': v['ms'] for t, r in out['swin']['ms'].items()
+             for k, v in r.items()}}
     phase('kernel_bench', seconds=f'{seconds:.2f}', batch=kernel_bench.BATCH,
           k3_bf16_ulps=ulps, parity=json.dumps(par),
           ms=json.dumps({k: round(v, 4) for k, v in ms.items()}), card=card)
@@ -2842,6 +3026,10 @@ def kernel_bench_phase(card):
             check(d == 0.0, f'kernel_bench parity[{name}] = {d}, not 0')
         elif 'K5' in name:
             check(d <= 0.03125, f'kernel_bench parity[{name}] = {d}')
+        elif 'swin' in name:
+            check(d <= 2 ** -5, f'kernel_bench parity[{name}] = {d}')
+    check(sum('swin' in name for name in par) == 8,
+          'kernel_bench: not every Swin parity was taken')
     check(ulps <= 1.0, f'kernel_bench: K3 bf16 {ulps} ulps from its plain '
                        'version')
 
@@ -3139,7 +3327,7 @@ def main():
 
     rec = compare_kernels(dev)
     base = end_to_end(dev, smi)
-    launches = {'bf16': base['launches']}
+    launches = {'bf16': base['launches'], 'swin': swin_forward(dev, smi)}
     launches['stream'] = nms_stream(dev, smi, base)
     launches['nms_family'] = nms_family(dev, smi)
     launches['int8'], model_q = int8_serving(dev, smi, base)

@@ -79,6 +79,11 @@ _SIGNATURES = {
     # a, inv, b, residual|NULL, inv_d|NULL, b_d|NULL, out, pixels, C,
     # res_kind, relu, SMs, stream
     'conv_epilogue': (_P,) * 7 + (_LL, _I, _I, _I, _I, _P),
+    # x, gamma, beta (C,) f32, out, B, H, W, Hp, Wp, C, eps, SMs, stream
+    'swin_norm_pad': (_P,) * 4 + (_I,) * 6 + (_F, _I, _P),
+    # qkv, table (nb, heads) f32, out, B, H, W, Hp, Wp, C, heads, window,
+    # shift, scale, stream
+    'swin_window_attn': (_P,) * 3 + (_I,) * 9 + (_F, _P),
 }
 
 # entry points that launch another entry's kernel, counted under its name

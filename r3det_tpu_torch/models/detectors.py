@@ -27,10 +27,10 @@ The config's ``backbone`` names the trunk: ``'resnet'`` (the default,
 ``stem_pool_kernel``, ``fused_blocks``) raise with a Swin backbone unless
 they are at their defaults.
 ``kernels`` (default on) routes the stem, the stem pool, the fused
-bottlenecks, the int8 convs, the FRM sample and the NMS IoU through the
-CUDA kernels when
-the tensors are on a card; off, the model runs the plain PyTorch versions
-everywhere (the reference the kernels are held to).
+bottlenecks, the int8 convs, Swin's window attention, the FRM sample and
+the NMS IoU through the CUDA kernels when the tensors are on a card; off,
+the model runs the plain PyTorch versions everywhere (the reference the
+kernels are held to).
 """
 import functools
 from typing import Any, NamedTuple, Optional, Tuple
@@ -172,7 +172,8 @@ class _Base(nn.Module):
                 window_size=cfg.swin_window_size,
                 mlp_ratio=cfg.swin_mlp_ratio,
                 patch_size=cfg.swin_patch_size,
-                out_indices=cfg.swin_out_indices, dtype=dtype)
+                out_indices=cfg.swin_out_indices, dtype=dtype,
+                kernels=kernels)
         elif cfg.backbone == 'resnet':
             self.backbone = ResNet(
                 depth=cfg.backbone_depth, dtype=dtype, kernels=kernels,

@@ -38,6 +38,15 @@ gathered position bias, added together, are made on the device once per
 (``WindowMSA.bias``): the forward makes no host-to-device copy and reads
 nothing back.
 
+With ``kernels`` on, a bf16 block on a card with gradients off, head_dim
+32, C up to 768 and window**2 <= 64 runs ``norm1`` through its attention
+output as two hand-written CUDA kernels around the qkv and proj products
+(``ShiftWindowMSA.kernel_forward``, ``ops/swin_attn.py``): the pad, the
+shift, the windows, their inverse, the crop, the bias and the mask become
+the kernels' addressing, and the scores stay float32 up to P. Everything
+else (the CPU, float32, gradients, wider maps, larger windows) takes the
+plain code below, which the kernels are held to.
+
 Spans (``utils/tracing.py``): ``backbone.swin.embed``;
 ``backbone.swin.attn`` (each block, from ``norm1`` through the residual
 add) and ``backbone.swin.mlp`` (each block); ``backbone.swin.merge``.
@@ -46,10 +55,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import swin_attn
+from ..ops.swin_attn import MASK_VALUE  # mmdet's shifted-window mask
 from ..utils.tracing import span
 from .conv import Conv2d
-
-MASK_VALUE = -100.0                   # mmdet's shifted-window mask
 
 
 class Linear(nn.Linear):
@@ -203,6 +212,20 @@ class ShiftWindowMSA(nn.Module):
             x = cyclic_shift(x, s)
         return x[:, :h, :w]
 
+    def kernel_forward(self, x, norm):
+        """``self(norm(x))`` through ``ops/swin_attn.py``: ``norm`` and the
+        pad in one pass, the qkv product over the padded map, the windows'
+        attention from it (the shift, windows, bias and mask as addressing)
+        into a compact (B, H, W, C) map, and the proj product."""
+        h, w = x.shape[1:3]
+        win, msa = self.window, self.w_msa
+        y = swin_attn.norm_pad(x, norm.weight, norm.bias, norm.eps,
+                               padded(h, win), padded(w, win))
+        y = swin_attn.window_attn(
+            msa.qkv(y), msa.relative_position_bias_table, msa.num_heads, win,
+            self.shift, h, w)
+        return msa.proj(y)
+
 
 class FFN(nn.Module):
     """mmcv's two-layer FFN (``layers.0.0`` fc1, exact GELU, ``layers.1``
@@ -219,17 +242,29 @@ class FFN(nn.Module):
 
 
 class SwinBlock(nn.Module):
-    def __init__(self, dims, heads, hidden, window, shift):
+    def __init__(self, dims, heads, hidden, window, shift, kernels=True):
         super().__init__()
+        self.kernels = kernels
         self.norm1 = LayerNorm(dims)
         self.attn = ShiftWindowMSA(dims, heads, window,
                                    window // 2 if shift else 0)
         self.norm2 = LayerNorm(dims)
         self.ffn = FFN(dims, hidden)
 
+    def attn_route(self, x):
+        """Whether this call takes :meth:`ShiftWindowMSA.kernel_forward`:
+        kernels on, a bf16 map on a card, gradients off (the kernels have
+        no backward), and a head_dim, width and window the kernels take."""
+        return (self.kernels and x.is_cuda and not torch.is_grad_enabled()
+                and swin_attn.refusal(x.dtype, self.attn.w_msa.num_heads,
+                                      x.shape[-1], self.attn.window) is None)
+
     def forward(self, x):
         with span('backbone.swin.attn'):
-            x = x + self.attn(self.norm1(x))
+            if self.attn_route(x):
+                x = x + self.attn.kernel_forward(x, self.norm1)
+            else:
+                x = x + self.attn(self.norm1(x))
         with span('backbone.swin.mlp'):
             return x + self.ffn(self.norm2(x))
 
@@ -265,21 +300,25 @@ class PatchMerging(nn.Module):
 
 
 class SwinBlockSequence(nn.Module):
-    def __init__(self, dims, heads, depth, window, mlp_ratio, downsample):
+    def __init__(self, dims, heads, depth, window, mlp_ratio, downsample,
+                 kernels=True):
         super().__init__()
         self.blocks = nn.ModuleList(
-            SwinBlock(dims, heads, mlp_ratio * dims, window, i % 2 == 1)
+            SwinBlock(dims, heads, mlp_ratio * dims, window, i % 2 == 1,
+                      kernels)
             for i in range(depth))
         self.downsample = PatchMerging(dims) if downsample else None
 
 
 class SwinTransformer(nn.Module):
     """NHWC image (B, H, W, 3) -> the ``out_indices`` stages' maps, NCHW
-    channels_last, in ``dtype``."""
+    channels_last, in ``dtype``; ``kernels`` routes the attention
+    sub-blocks through the CUDA kernels where they take them."""
 
     def __init__(self, embed_dims=96, depths=(2, 2, 6, 2),
                  num_heads=(3, 6, 12, 24), window_size=7, mlp_ratio=4,
-                 patch_size=4, out_indices=(1, 2, 3), dtype=torch.float32):
+                 patch_size=4, out_indices=(1, 2, 3), dtype=torch.float32,
+                 kernels=True):
         super().__init__()
         self.dtype = dtype
         self.out_indices = tuple(out_indices)
@@ -290,7 +329,8 @@ class SwinTransformer(nn.Module):
         for i, (depth, heads) in enumerate(zip(depths, num_heads)):
             last = i == len(depths) - 1
             self.stages.append(SwinBlockSequence(
-                dims, heads, depth, window_size, mlp_ratio, not last))
+                dims, heads, depth, window_size, mlp_ratio, not last,
+                kernels))
             widths.append(dims)
             dims *= 2
         for i in self.out_indices:

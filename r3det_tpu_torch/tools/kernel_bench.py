@@ -1,6 +1,6 @@
 """On-card A/B of the serving kernels against their plain PyTorch forms.
 
-    python -m r3det_tpu_torch.tools.kernel_bench [stem|bottleneck|frm|all]
+    python -m r3det_tpu_torch.tools.kernel_bench [stem|bottleneck|frm|swin|all]
 
 Port of ``tools/analysis_tools/kernel_bench.py``, with its subcommands,
 shapes and batch (32): parity first, max |diff| at batch 1 (one
@@ -23,7 +23,16 @@ of its bytes over the memory rate and its operations over the peak rate,
 - ``frm``: a (32, 128, 128, 256) bf16 map sampled within +-1.5 px of each
   cell: the plain gather against K2 (``ops/frm_sample.py``). K2 takes
   rois: their ``sample_coords`` (the transposed quirk included) give the
-  points, and ``x`` is zero, so both compute ``feat + sample``.
+  points, and ``x`` is zero, so both compute ``feat + sample``;
+- ``swin``: Swin-T's four stage shapes at batch 8 (the serving batch) of
+  1024^2: (256^2, 96, 3 heads), (128^2, 192, 6), (64^2, 384, 12), (32^2,
+  768, 24), window 7, a shifted block: ``swin_norm_pad`` and
+  ``swin_window_attn`` against their plain forms
+  (``ops/swin_attn.py``), ``F.scaled_dot_product_attention`` on the same
+  windows as the library's time (the port never calls it), and the whole
+  sub-block (``norm1`` through the residual add) on its eager route and
+  on the kernels' route, timed with no bound (its yardstick is
+  ``swin_attn_roofline``'s, ``portbench/work/swin.py``).
 
 Inputs come from a seeded generator on the card (the JAX tool draws the
 same distributions with numpy). There is no CPU fallback: without a card
@@ -80,7 +89,12 @@ def _time(variants, batch, bound_of, tag=''):
     ms = {}
     for name, fn, plain in variants:
         t = cuda_ms(fn, PLAIN_ITERS if plain else ITERS)
-        b_ms, by = bound_of(name)
+        bound = bound_of(name)
+        if bound is None:
+            print(f'  {tag}{name:26s} b{batch}: {t:8.4f} ms', flush=True)
+            ms[name] = dict(ms=t)
+            continue
+        b_ms, by = bound
         print(f'  {tag}{name:26s} b{batch}: {t:8.4f} ms   bound '
               f'{b_ms:.4f} ms ({by})', flush=True)
         ms[name] = dict(ms=t, bound_ms=b_ms, bound_by=by)
@@ -283,7 +297,101 @@ def run_frm(batch=BATCH):
     return res
 
 
-RUNS = {'stem': run_stem, 'bottleneck': run_bottleneck, 'frm': run_frm}
+SWIN_BATCH = 8
+SWIN_STAGES = ((256, 96, 3), (128, 192, 6), (64, 384, 12), (32, 768, 24))
+SWIN_WINDOW = 7
+
+
+def swin_block(dims, heads, gen):
+    """A shifted Swin block on the card whose weights make each part of the
+    attention show: the bias table normal(0, 1), the linears normal(0,
+    fan_in**-0.5), the norms' gains 1 and shifts 0."""
+    import torch
+
+    from ..models.swin import SwinBlock
+    block = SwinBlock(dims, heads, 4 * dims, SWIN_WINDOW, True).to(DEV)
+    with torch.no_grad():
+        for name, p in block.named_parameters():
+            if name.endswith('relative_position_bias_table'):
+                p.copy_(_normal(gen, p.shape, 1.0))
+            elif p.dim() == 2:
+                p.copy_(_normal(gen, p.shape, p.shape[1] ** -0.5))
+    return block
+
+
+def run_swin(batch=SWIN_BATCH):
+    """Swin's attention kernels and sub-block at the four stage shapes;
+    returns {'parity': {..}, 'ms': {stage: {variant: {..}}}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from ..models.swin import padded
+    from ..ops import swin_attn as A
+    from ..utils.kernel_timing import swin_attn_work
+    gen = _gen()
+    res = {'parity': {}, 'ms': {}}
+    win = SWIN_WINDOW
+    for side, c, heads in SWIN_STAGES:
+        tag = f'swin {side}x{side}x{c}'
+        block = swin_block(c, heads, gen)
+        msa, norm, shift = block.attn.w_msa, block.norm1, block.attn.shift
+        table = msa.relative_position_bias_table
+        x = _normal(gen, (batch, side, side, c), 1.0).to(torch.bfloat16)
+        hp = padded(side, win)
+        with torch.no_grad():
+            def normed(t):
+                return A.norm_pad_cuda(t, norm.weight, norm.bias, norm.eps,
+                                       hp, hp)
+            xs = x[:1]
+            _parity(normed(xs), A.norm_pad_reference(
+                xs, norm.weight, norm.bias, norm.eps, hp, hp),
+                f'{tag} swin_norm_pad vs plain (b1)', res['parity'])
+            qkv1 = msa.qkv(normed(xs))
+            _parity(A.window_attn_cuda(qkv1, table, heads, win, shift,
+                                       side, side),
+                    A.window_attn_reference(qkv1, table, heads, win, shift,
+                                            side, side),
+                    f'{tag} swin_window_attn vs plain (b1)', res['parity'])
+            qkv = msa.qkv(normed(x))
+            # the same windows for the library's attention: (B, nW, heads,
+            # N, 32) q, k, v and the (nW, heads, N, N) bias and mask
+            place, _ = A.window_places(hp, hp, win, shift, x.device)
+            q, k, v = qkv.reshape(batch, hp * hp, 3, heads, -1)[
+                :, place.reshape(-1)].view(
+                batch, place.shape[0], win * win, 3, heads, -1).permute(
+                3, 0, 1, 4, 2, 5).contiguous().unbind(0)
+            mask = msa.bias(side, side, shift, torch.bfloat16, x.device)
+        work = swin_attn_work(batch, side, side, c, heads, win)
+
+        def bound_of(name, work=work):
+            if 'norm' in name:
+                return work['swin_norm_pad']
+            if 'sub-block' in name:
+                return None
+            return work['swin_window_attn']
+        with torch.no_grad():
+            res['ms'][tag] = _time([
+                ('norm1 + pad, plain', lambda: A.norm_pad_reference(
+                    x, norm.weight, norm.bias, norm.eps, hp, hp), True),
+                ('swin_norm_pad', lambda: normed(x), False),
+                ('window attn, plain', lambda: A.window_attn_reference(
+                    qkv, table, heads, win, shift, side, side), True),
+                ('swin_window_attn', lambda: A.window_attn_cuda(
+                    qkv, table, heads, win, shift, side, side), False),
+                ('window attn, library (SDPA)',
+                 lambda: F.scaled_dot_product_attention(
+                     q, k, v, attn_mask=mask), False),
+                ('sub-block, eager', lambda: x + block.attn(norm(x)), False),
+                ('sub-block, kernels',
+                 lambda: x + block.attn.kernel_forward(x, norm), False),
+            ], batch, bound_of, f'[{tag}] ')
+        del x, qkv, q, k, v, block
+        torch.cuda.empty_cache()
+    return res
+
+
+RUNS = {'stem': run_stem, 'bottleneck': run_bottleneck, 'frm': run_frm,
+        'swin': run_swin}
 
 
 def main(argv=None):

@@ -11,7 +11,9 @@ and ``tools/kernel_bench.py``.
 - ``iou_work`` and ``frm_work``: those bytes and operations for K1
   (``ops/rotated_iou.py``) and K2 (``ops/frm_sample.py``) on given inputs;
 - ``r50_epilogues`` and ``epilogue_bytes``: the conv epilogues of a
-  ResNet-50 forward (``ops/conv_epilogue.py``) and the bytes of one.
+  ResNet-50 forward (``ops/conv_epilogue.py``) and the bytes of one;
+- ``swin_attn_work``: the bounds of Swin's two attention kernels
+  (``ops/swin_attn.py``) on one block's map.
 
 The rates are the H100 SXM's published figures.
 """
@@ -65,7 +67,11 @@ def bound(nbytes, ops, kind):
 def add_bound(rec, nbytes, ops, kind):
     """Add one call's bound to a kernel's record (rows that sum several
     shapes sum their bounds; ``bound_by`` names the larger share)."""
-    ms, by = bound(nbytes, ops, kind)
+    return add_bound_ms(rec, *bound(nbytes, ops, kind))
+
+
+def add_bound_ms(rec, ms, by):
+    """``add_bound`` for a bound already in ms, bounded by ``by``."""
     rec['bound_ms'] = rec.get('bound_ms', 0.0) + ms
     share = rec.setdefault('_share', {'bytes': 0.0, 'operations': 0.0})
     share[by] += ms
@@ -138,3 +144,23 @@ def epilogue_bytes(shape, residual):
     c = shape[1]
     return numel * 2 * (3 if residual else 2) + c * 2 * (
         4 if residual == 'downsample' else 2)
+
+
+SOFTMAX_OPS = 5     # f32 operations a score: scale and bias, max, exp, sum, /
+
+
+def swin_attn_work(batch, h, w, c, heads, window):
+    """The bounds of ``swin_norm_pad`` and ``swin_window_attn`` on a (batch,
+    h, w, c) block input: {name: (bound_ms, bound_by)}. The norm reads the
+    map and its f32 gain and shift and writes the padded map; the attention
+    reads the padded map's qkv and the bias table and writes the map, and
+    does QK^T and PV on the tensor cores (bf16) and the softmax in f32."""
+    hp, wp = (-(-h // window) * window, -(-w // window) * window)
+    n = window * window
+    scores = batch * (hp // window) * (wp // window) * heads * n * n
+    norm = bound(2 * batch * (h * w + hp * wp) * c + 8 * c, 0, 'bf16')
+    nbytes = 2 * batch * (3 * hp * wp + h * w) * c \
+        + 4 * (2 * window - 1) ** 2 * heads
+    tc = bound(nbytes, 2 * 2 * scores * (c // heads), 'bf16')
+    f32 = bound(0, SOFTMAX_OPS * scores, 'f32')
+    return {'swin_norm_pad': norm, 'swin_window_attn': max(tc, f32)}

@@ -1238,7 +1238,7 @@ def test_ddp_step_two_gloo_ranks_on_one_card(cuda, tmp_path):
 # ones within chip_smoke's card tolerances (K3 one ulp, K5 0.03125, K2, K4
 # and the conv epilogue exact), every variant timed with its bound
 @pytest.mark.gpu
-@pytest.mark.parametrize('which', ['stem', 'bottleneck', 'frm'])
+@pytest.mark.parametrize('which', ['stem', 'bottleneck', 'frm', 'swin'])
 def test_kernel_bench_parities(cuda, which):
     from r3det_tpu_torch.tools import kernel_bench
     res = kernel_bench.RUNS[which](batch=1)
@@ -1258,11 +1258,22 @@ def test_kernel_bench_parities(cuda, which):
         assert len(timed) == 8
         assert len(res['epilogue']) == 4
         timed.update(res['epilogue'])
+    elif which == 'swin':
+        # one bf16 ulp of LN outputs of about 4 at most, and P's rounding
+        # on unit-normal v (the kernel tests' tolerances)
+        assert len(par) == 8 and max(par.values()) <= 2 ** -5, par
+        timed = {f'{t}/{k}': v for t, r in res['ms'].items()
+                 for k, v in r.items()}
+        assert len(timed) == 4 * 7
     else:
         assert par['K2 vs plain gather (b1)'] == 0.0
         timed = res['ms']
     for name, t in timed.items():
-        assert t['ms'] > 0 and t['bound_ms'] > 0, name
+        assert t['ms'] > 0, name
+        if 'sub-block' in name:         # timed without a bound of its own
+            assert 'bound_ms' not in t, name
+            continue
+        assert t['bound_ms'] > 0, name
         assert t['bound_by'] in ('bytes', 'operations'), name
 
 
@@ -1530,3 +1541,213 @@ def test_swin_t_spans_and_no_host_round_trip(cuda):
             torch.cuda.synchronize()
     copies = [e.name for e in prof.events() if 'HtoD' in e.name]
     assert copies == []
+
+
+# ---------------------------------------------------------------------------
+# Swin's window-attention kernels (csrc/swin_attn.cu, ops/swin_attn.py)
+# ---------------------------------------------------------------------------
+
+# (map side, C, heads) of Swin-T's four stages, at sizes that pad
+SWIN_SHAPES = {'s1': (23, 96, 3), 's2': (15, 192, 6), 's3': (9, 384, 12),
+               's4': (4, 768, 24)}
+
+
+def swin_attn_inputs(dev, side, c, heads, shift, seed, batch=2):
+    from r3det_tpu_torch.tools.kernel_bench import swin_block
+    gen = torch.Generator(dev).manual_seed(seed)
+    block = swin_block(c, heads, gen)
+    block.attn.shift = 3 if shift else 0
+    x = torch.randn(batch, side, side + 2, c, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    return block, x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('stage', list(SWIN_SHAPES))
+def test_swin_norm_pad_kernel_matches_plain(cuda, stage):
+    """bf16 against the plain form on the card (PyTorch's LayerNorm, then
+    the pad): the pad is zeros bit for bit; the two take the mean and
+    variance in f32 in different orders (1e-7 relative), so a value may
+    round to the neighbouring bf16: within 2^-7 relative (one bf16 ulp)."""
+    from r3det_tpu_torch.ops import swin_attn as A
+    side, c, heads = SWIN_SHAPES[stage]
+    block, x = swin_attn_inputs(cuda, side, c, heads, False, 1)
+    n = block.norm1
+    with torch.no_grad():
+        n.weight.normal_(1.0, 0.5)
+        n.bias.normal_(0.0, 0.5)
+    hp, wp = -(-side // 7) * 7, -(-(side + 2) // 7) * 7
+    _ext.reset_launches()
+    with torch.no_grad():
+        got = A.norm_pad_cuda(x, n.weight, n.bias, n.eps, hp, wp)
+        want = A.norm_pad_reference(x, n.weight, n.bias, n.eps, hp, wp)
+    assert _ext.LAUNCHES['swin_norm_pad'] == 1
+    assert got.shape == want.shape == (2, hp, wp, c)
+    assert not got[:, side:].any() and not got[:, :, side + 2:].any()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('shift', [False, True], ids=['plain', 'shifted'])
+@pytest.mark.parametrize('stage', list(SWIN_SHAPES))
+def test_swin_window_attn_kernel_matches_plain(cuda, stage, shift):
+    """bf16 against the plain form on the card. Both take the scores,
+    bias, mask and softmax in f32 and round P and the output to bf16; the
+    f32 sums and exponentials differ in order and last bits, so a P may
+    round to the neighbouring bf16 (2^-8 of it) and the output with it:
+    |diff| <= 2^-8 max|v| + one bf16 ulp of the output."""
+    from r3det_tpu_torch.models.swin import padded
+    from r3det_tpu_torch.ops import swin_attn as A
+    side, c, heads = SWIN_SHAPES[stage]
+    block, x = swin_attn_inputs(cuda, side, c, heads, shift, 2)
+    msa = block.attn.w_msa
+    w = side + 2
+    with torch.no_grad():
+        qkv = msa.qkv(A.norm_pad_reference(x, block.norm1.weight,
+                                           block.norm1.bias, 1e-5,
+                                           padded(side, 7), padded(w, 7)))
+    table = msa.relative_position_bias_table
+    s = block.attn.shift
+    _ext.reset_launches()
+    with torch.no_grad():
+        got = A.window_attn_cuda(qkv, table, heads, 7, s, side, w)
+        want = A.window_attn_reference(qkv, table, heads, 7, s, side, w)
+    assert _ext.LAUNCHES['swin_window_attn'] == 1
+    assert got.shape == want.shape == (2, side, w, c)
+    vmax = float(qkv[..., 2 * c:].float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=2 ** -8 * vmax)
+
+
+def swin_sub_block_errors(model, ref, stage, block, x):
+    """The attention sub-block (norm1 through the residual add) of
+    ``model.backbone.stages[stage].blocks[block]`` in bf16 on the kernels'
+    route and on the eager route, each against the f32 reference's same
+    sub-block on the same input: (kernel err, eager err)."""
+    from portbench.bench import check
+    blk = model.backbone.stages[stage].blocks[block]
+    rblk = ref.backbone.stages[stage].blocks[block]
+    b, h, w, c = x.shape
+    xb = x.to(torch.bfloat16)
+    with torch.no_grad():
+        want = rblk.attn(rblk.norm1(x.view(b, h * w, c)), (h, w)) \
+            + x.view(b, h * w, c)
+        assert blk.attn_route(xb)
+        route = xb + blk.attn.kernel_forward(xb, blk.norm1)
+        eager = xb + blk.attn(blk.norm1(xb))
+    want = want.view(b, h, w, c)
+    return check.rel_err([route], [want]), check.rel_err([eager], [want])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('side', [56, 256], ids=['224px', '1024px'])
+def test_swin_t_sub_block_kernel_error_within_eager(cuda, side):
+    """A stage-1 shifted and unshifted block of Swin-T (published widths,
+    the cell's seeded weights) at the stage-1 shapes of a 224^2 and a
+    1024^2 image: against the f32 reference, the kernels' route errs no
+    more than the eager bf16 route (which also rounds q * scale, the
+    scores and the bias to bf16)."""
+    model, ref = swin_pair(cuda)
+    gen = torch.Generator(cuda).manual_seed(3)
+    x = torch.randn(1, side, side, 96, generator=gen, device=cuda)
+    for block in (0, 1):
+        kern, eager = swin_sub_block_errors(model, ref, 0, block, x)
+        assert kern <= eager, (block, kern, eager)
+        assert kern < 0.01, (block, kern)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('size', [224, 1024])
+def test_swin_t_backbone_kernel_error_within_eager(cuda, size):
+    """The whole bf16 Swin-T backbone at 224^2 and 1024^2 against the f32
+    reference: the kernels' route errs no more than the eager route at
+    each output, and both stay within the 3% of the 224^2 test above."""
+    from portbench.bench import check
+    model, ref = swin_pair(cuda)
+    gen = torch.Generator(cuda).manual_seed(4)
+    x = torch.rand(1, size, size, 3, generator=gen, device=cuda) * 4 - 2
+    with torch.no_grad():
+        want = ref.backbone(x)
+        route = model.backbone(x)
+        use_kernels(model, False)
+        eager = model.backbone(x)
+    for a, e, r in zip(route, eager, want):
+        ka, ke = check.rel_err([a], [r]), check.rel_err([e], [r])
+        assert ka <= ke and ka < 0.03, (size, ka, ke)
+
+
+@pytest.mark.gpu
+def test_swin_attn_launches_per_forward(cuda):
+    """Each kernel launches 12 times a bf16 Swin-T forward (once a block),
+    none with kernels off, none under autograd, none in a ResNet-50."""
+    model, _ = swin_pair(cuda)
+    x = torch.rand(2, 224, 224, 3, device=cuda)
+    names = ('swin_norm_pad', 'swin_window_attn')
+    _ext.reset_launches()
+    with torch.no_grad():
+        model.backbone(x)
+    assert [_ext.LAUNCHES[n] for n in names] == [12, 12]
+    _ext.reset_launches()
+    with torch.enable_grad():
+        model.backbone(x)
+    with torch.no_grad():
+        use_kernels(model, False)
+        model.backbone(x)
+        use_kernels(model, True)
+        net = seeded_resnet50(cuda, 0)
+        net(r50_images(cuda, 1, 256))
+    assert [_ext.LAUNCHES[n] for n in names] == [0, 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dims,heads', [(1024, 32), (1536, 48)],
+                         ids=['swin_b_stage4', 'swin_l_stage4'])
+def test_swin_wide_block_takes_the_eager_route(cuda, dims, heads):
+    """A head_dim-32 block wider than the norm kernel holds (Swin-B's and
+    Swin-L's stage 4) takes the eager route in bf16 on the card: it runs,
+    launches neither kernel, and equals the block with kernels off."""
+    from r3det_tpu_torch.models.swin import SwinBlock
+    block = SwinBlock(dims, heads, 4 * dims, 7, True).to(cuda)
+    gen = torch.Generator(cuda).manual_seed(5)
+    x = torch.randn(2, 9, 9, dims, generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    _ext.reset_launches()
+    with torch.no_grad():
+        assert not block.attn_route(x)
+        got = block(x)
+        block.kernels = False
+        want = block(x)
+    assert [_ext.LAUNCHES[n] for n in ('swin_norm_pad',
+                                       'swin_window_attn')] == [0, 0]
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_swin_attn_wrappers_raise(cuda):
+    from r3det_tpu_torch.ops import swin_attn as A
+    qkv = torch.zeros(1, 14, 14, 288, dtype=torch.bfloat16, device=cuda)
+    table = torch.zeros(169, 3, device=cuda)
+    bad = [
+        (qkv.float(), table, 3, 7, 3),                       # f32
+        (qkv, torch.zeros(169, 6, device=cuda), 6, 7, 3),    # head_dim 16
+        (torch.zeros(1, 24, 24, 288, dtype=torch.bfloat16, device=cuda),
+         torch.zeros(529, 3, device=cuda), 3, 12, 6),        # window 12
+        (qkv[:, :, :13], table, 3, 7, 3),                    # 13 % 7
+        (qkv.transpose(1, 2), table, 3, 7, 3),               # strided
+        (qkv, table[:100], 3, 7, 3),                         # table shape
+        (qkv, table.double(), 3, 7, 3),                      # table dtype
+        (qkv, table, 3, 7, 7),                               # shift 7
+    ]
+    for q, t, heads, window, shift in bad:
+        with pytest.raises(ValueError), torch.no_grad():
+            A.window_attn_cuda(q, t, heads, window, shift, 12, 12)
+    x = torch.zeros(1, 12, 12, 96, dtype=torch.bfloat16, device=cuda)
+    w, b = torch.ones(96, device=cuda), torch.zeros(96, device=cuda)
+    for args in [(x.float(), w, b), (x[..., :90].contiguous(), w[:90],
+                                     b[:90]),           # C % 8
+                 (x.transpose(1, 2), w, b), (x, w.bfloat16(), b)]:
+        with pytest.raises(ValueError):
+            A.norm_pad_cuda(*args, 1e-5, 14, 14)
+    with pytest.raises(ValueError):
+        A.norm_pad_cuda(x, w, b, 1e-5, 7, 14)                # pad < map
