@@ -993,8 +993,8 @@ def swin_forward(dev, card):
     import torch
 
     from r3det_tpu_torch import _ext
-    from r3det_tpu_torch.models.detectors import use_kernels
     from r3det_tpu_torch.models.swin import SwinTransformer
+    from r3det_tpu_torch.ops.route import kernels
     from r3det_tpu_torch.utils.convert import seeded_state_dict
 
     net = SwinTransformer(dtype=torch.bfloat16)
@@ -1010,10 +1010,10 @@ def swin_forward(dev, card):
         route = net(images)
         torch.cuda.synchronize()
         launches = dict(_ext.LAUNCHES)
-        use_kernels(net, False)
-        eager = net(images)
-        net.dtype = torch.float32
-        want = net(images)
+        with kernels(False):
+            eager = net(images)
+            net.dtype = torch.float32
+            want = net(images)
     phase('launches', path='swin', **launches)
     for name in PATH_KERNELS['swin']:
         check(launches[name] == SWIN_BLOCKS,
@@ -1662,6 +1662,17 @@ def nms_stream(dev, card, base):
     return launches
 
 
+def _plain_forward(module):
+    """Make ``module``'s forward run with the kernels switched off."""
+    from r3det_tpu_torch.ops.route import kernels
+    forward = module.forward
+
+    def plain(*args, **kwargs):
+        with kernels(False):
+            return forward(*args, **kwargs)
+    module.forward = plain
+
+
 def _flat(x):
     """The tensors of a nested tuple, in order."""
     if isinstance(x, (tuple, list)):
@@ -1672,7 +1683,8 @@ def _flat(x):
 def nms_family(dev, card):
     """Phase 4, the single-image NMS family and the IoU calculators on
     seeded scenes of NMS_FAMILY_K boxes on the card: each with K1 against
-    its plain route (``kernels=False``), which must keep the same boxes,
+    its plain route (under ``kernels(False)``), which must keep the same
+    boxes,
     and rbbox_overlaps_v1/v2/v3 equal to their plain forms. poly_nms
     (plain torch ops) runs and reports its count. Returns the kernel
     route's launch counts."""
@@ -1683,6 +1695,7 @@ def nms_family(dev, card):
     from r3det_tpu_torch.core import iou_calculators as IC
     from r3det_tpu_torch.ops import nms
     from r3det_tpu_torch.ops.rotated_iou import rbbox_overlaps
+    from r3det_tpu_torch.ops.route import kernels
     from r3det_tpu_torch.core.rtransforms import obb2poly
 
     rng = np.random.RandomState(SEED)
@@ -1706,16 +1719,14 @@ def nms_family(dev, card):
     bx, sc, lb = dev_t(boxes), dev_t(scores), dev_t(labels, torch.long)
     dets = torch.cat([bx, sc[:, None]], 1)
     calls = {
-        'rnms': lambda kr: nms.rnms(dets, 0.1, kernels=kr),
-        'rnms_negate': lambda kr: nms.rnms(dets, 0.1, negate_angle=True,
-                                           kernels=kr),
-        **{name: (lambda kr, f=getattr(nms, name): f(bx, sc, lb, 0.1,
-                                                     kernels=kr))
+        'rnms': lambda kr: nms.rnms(dets, 0.1),
+        'rnms_negate': lambda kr: nms.rnms(dets, 0.1, negate_angle=True),
+        **{name: (lambda kr, f=getattr(nms, name): f(bx, sc, lb, 0.1))
            for name in ('batched_rnms', 'ml_nms_rotated', 'obb_batched_nms')},
         **{f'multiclass_{v}': (
             lambda kr, v=v: nms.multiclass_nms_rotated(
                 dev_t(mboxes), dev_t(mscores), 0.05, 0.1, version=v,
-                pre_topk=k, kernels=kr))
+                pre_topk=k))
            for v in ('v1', 'v2', 'v3', 'mmcv')},
     }
     # the calculators against their policy restated on the plain route
@@ -1725,7 +1736,7 @@ def nms_family(dev, card):
             lambda kr, v=v, cls=cls: getattr(IC, f'rbbox_overlaps_{v}')(
                 dets, bx) if kr else rbbox_overlaps(
                     dets, bx, small_box_thr=cls.small_box_thr,
-                    negate_angle=cls.negate_angle, kernels=False))
+                    negate_angle=cls.negate_angle))
     torch.cuda.synchronize()
     _ext.reset_launches()
     t0 = time.perf_counter()
@@ -1738,7 +1749,8 @@ def nms_family(dev, card):
           f'K1 ran {launches["rotated_iou"]} times for {len(got)} calls')
     kept, equal = {}, {}
     for name, fn in calls.items():
-        plain = fn(False)
+        with kernels(False):
+            plain = fn(False)
         equal[name] = all(torch.equal(a, b) for a, b in
                           zip(_flat(got[name]), _flat(plain)))
         if not name.startswith('rbbox'):
@@ -1792,7 +1804,7 @@ def frm_options(dev, card, base):
     _check_dets(dets, cfg, ROUTE_BATCH, 'frm_fused')
     for m in fused.modules():
         if isinstance(m, FeatureRefineModule):
-            m.kernels = False
+            _plain_forward(m)
     plain_logits, plain_dets = run(fused)
     same = torch.equal(logits, plain_logits) and all(
         torch.equal(a, b) for a, b in zip(dets, plain_dets))
@@ -2376,7 +2388,7 @@ def frm5_model(dev, card, base):
     _check_dets(dets, cfg, ROUTE_BATCH, 'frm5')
     frms = [m for m in model.modules() if isinstance(m, FeatureRefineModule)]
     for m in frms:
-        m.kernels = False
+        _plain_forward(m)
     plain_logits, plain_dets = run()
     same = torch.equal(logits, plain_logits) and all(
         torch.equal(a, b) for a, b in zip(dets, plain_dets))

@@ -22,6 +22,7 @@ over 20 launches after warm-up. Prints one JSON object. Debug builds go
 to a temporary directory.
 """
 import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -99,9 +100,12 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(sources, tmp)
         for name, lib in libs.items():
-            lib.r3det_frm_sample.argtypes = list(
-                _ext._SIGNATURES['frm_sample'])
             if not hasattr(lib, 'r3det_frm_sample_levels'):
+                # an older source's one-level entry: x, feat, rois, out, B,
+                # H, W, C, spatial_scale, transpose_quirk, stream
+                p, i = ctypes.c_void_p, ctypes.c_int
+                lib.r3det_frm_sample.argtypes = [p, p, p, p, i, i, i, i,
+                                                 ctypes.c_float, i, p]
                 def call(lib=lib, name=name):
                     for x, f, r, o, s in zip(xs, feats, rois, outs, scales):
                         b, h, w, c = f.shape

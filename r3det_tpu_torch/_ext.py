@@ -44,9 +44,6 @@ _SIGNATURES = {
     # boxes1, boxes2, valid_count|NULL, out, B, N, M, mode, upper_only,
     # tile_r, tile_c, stream
     'rotated_iou': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # x, feat, rois, out, B, H, W, C, spatial_scale, transpose_quirk,
-    # stream (one level, points=1)
-    'frm_sample': (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     # L, then host arrays of the L levels' x, feat, rois, out pointers, H,
     # W (int) and spatial_scale (float), trig (2, cells) f32 | NULL, B, C,
     # points, transpose_quirk, stream
@@ -90,7 +87,7 @@ _SIGNATURES = {
 _KERNEL_OF = {'frm_sample_levels': 'frm_sample'}
 
 #: kernel name -> number of launches since the last :func:`reset_launches`
-LAUNCHES = {name: 0 for name in _SIGNATURES if name not in _KERNEL_OF}
+LAUNCHES = {_KERNEL_OF.get(name, name): 0 for name in _SIGNATURES}
 
 _lib = None
 _lock = threading.Lock()

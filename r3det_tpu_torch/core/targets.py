@@ -12,7 +12,7 @@ Assignment IoU:
   axis-aligned IoU;
 - ``None`` (the refine stages): the rotated IoU of
   :func:`..ops.rotated_iou.rotated_iou`, ``(B, G, 5) x (B, A, 5)``, which
-  launches K1 on CUDA tensors (``kernels`` off takes its plain form); xyxy
+  launches K1 on a card (``ops/route.py``); xyxy
   anchors become oriented boxes by ``hbb2obb`` first. v2 and v3 use the
   negated angle convention, as the JAX package does.
 """
@@ -23,8 +23,7 @@ import torch
 from . import rtransforms as rt
 from .assigner import max_iou_assign
 from .samplers import random_sample
-from ..ops.rotated_iou import (negate_theta, rotated_iou,
-                               rotated_iou_reference)
+from ..ops.rotated_iou import negate_theta, rotated_iou
 
 
 class TargetConfig(NamedTuple):
@@ -62,7 +61,7 @@ def _hbb_iou(boxes1_xyxy, boxes2_xyxy):
     return inter / (a1 + a2 - inter).clamp_min(1e-10)
 
 
-def _overlaps(anchors, gt_bboxes, cfg, kernels):
+def _overlaps(anchors, gt_bboxes, cfg):
     """(B, G, A) assignment overlaps; ``anchors`` (B or 1, A, 5), or
     (1, A, 4) xyxy under ``cfg.hbb_anchors``."""
     version = cfg.angle_version
@@ -76,14 +75,12 @@ def _overlaps(anchors, gt_bboxes, cfg, kernels):
     gts = gt_bboxes
     if version != 'v1':
         gts, anc5 = negate_theta(gts), negate_theta(anc5)
-    iou = rotated_iou if kernels else rotated_iou_reference
-    return iou(gts.float().contiguous(), anc5.float().contiguous())
+    return rotated_iou(gts.float().contiguous(), anc5.float().contiguous())
 
 
 def anchor_targets(anchors, gt_bboxes, gt_labels, gt_mask, encode_fn,
                    num_classes, cfg: TargetConfig, per_image_anchors=False,
-                   generator=None, kernels=True,
-                   shard=(0, 1)) -> AnchorTargets:
+                   generator=None, shard=(0, 1)) -> AnchorTargets:
     """Batched targets.
 
     anchors: (A, 5) anchors shared by the batch ((A, 4) xyxy under
@@ -93,12 +90,11 @@ def anchor_targets(anchors, gt_bboxes, gt_labels, gt_mask, encode_fn,
     encode. ``generator``: the ``torch.Generator`` of the sampler's draws,
     needed when ``cfg.sampler`` is set; ``shard``, (rank, ranks), says
     which rows of the global batch's draws are this batch's
-    (``samplers.random_sample``). ``kernels`` off takes the plain rotated
-    IoU on a card.
+    (``samplers.random_sample``).
     """
     if not per_image_anchors:
         anchors = anchors[None]
-    overlaps = _overlaps(anchors, gt_bboxes, cfg, kernels)
+    overlaps = _overlaps(anchors, gt_bboxes, cfg)
     res = max_iou_assign(overlaps, gt_mask, pos_iou_thr=cfg.pos_iou_thr,
                          neg_iou_thr=cfg.neg_iou_thr,
                          min_pos_iou=cfg.min_pos_iou)

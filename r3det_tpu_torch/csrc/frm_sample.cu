@@ -996,12 +996,3 @@ extern "C" int r3det_frm_sample_bwd(
   return frm_levels_bwd(L, g, rois, dfeat, H, W, scale, trig, zeroed,
                         zeroed_n, ws, ws_n, B, C, points, quirk, stream);
 }
-
-// one level, points=1 (the same kernel)
-extern "C" int r3det_frm_sample(const void* x, const void* feat,
-                                const void* rois, void* out, int B, int H,
-                                int W, int C, float scale, int quirk,
-                                void* stream) {
-  return frm_levels(1, &x, &feat, &rois, &out, &H, &W, &scale, nullptr, B, C,
-                    1, quirk, stream);
-}

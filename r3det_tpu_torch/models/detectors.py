@@ -26,11 +26,9 @@ The config's ``backbone`` names the trunk: ``'resnet'`` (the default,
 (``quantize``, ``quantize_head``, ``int8_act``, ``stem_fused_kernel``,
 ``stem_pool_kernel``, ``fused_blocks``) raise with a Swin backbone unless
 they are at their defaults.
-``kernels`` (default on) routes the stem, the stem pool, the fused
-bottlenecks, the int8 convs, Swin's window attention, the FRM sample and
-the NMS IoU through the CUDA kernels when the tensors are on a card; off,
-the model runs the plain PyTorch versions everywhere (the reference the
-kernels are held to).
+``kernels`` (default on): the detector's forward runs under
+``ops/route.py``'s ``kernels(self.kernels)``; off, the plain PyTorch
+versions run everywhere.
 """
 import functools
 from typing import Any, NamedTuple, Optional, Tuple
@@ -43,6 +41,7 @@ from ..core import coders
 from ..core import rtransforms as rt
 from ..core.anchors import RAnchorGenerator
 from ..core.targets import TargetConfig, anchor_targets, num_total_samples
+from ..ops import route
 from ..ops.nms import multiclass_nms_rotated_batched
 from ..parallel import dist
 from ..utils.tracing import span
@@ -172,11 +171,10 @@ class _Base(nn.Module):
                 window_size=cfg.swin_window_size,
                 mlp_ratio=cfg.swin_mlp_ratio,
                 patch_size=cfg.swin_patch_size,
-                out_indices=cfg.swin_out_indices, dtype=dtype,
-                kernels=kernels)
+                out_indices=cfg.swin_out_indices, dtype=dtype)
         elif cfg.backbone == 'resnet':
             self.backbone = ResNet(
-                depth=cfg.backbone_depth, dtype=dtype, kernels=kernels,
+                depth=cfg.backbone_depth, dtype=dtype,
                 frozen_stages=cfg.frozen_stages,
                 stem_fused_kernel=stem_fused_kernel,
                 stem_pool_kernel=stem_pool_kernel, quantize=cfg.quantize,
@@ -192,6 +190,10 @@ class _Base(nn.Module):
             feat_channels=cfg.feat_channels, stacked_convs=cfg.stacked_convs,
             num_anchors=cfg.num_anchors, quantize=cfg.quantize_head)
 
+    def forward(self, images):
+        with route.kernels(self.kernels):
+            return self.detect(images)
+
 
 class RRetinaNet(_Base):
     """Backbone + FPN + rotated retina head. forward(images NHWC) ->
@@ -203,7 +205,7 @@ class RRetinaNet(_Base):
         super().__init__(cfg, dtype, kernels, stem_fused_kernel,
                          stem_pool_kernel, fused_blocks, int8_act)
 
-    def forward(self, images):
+    def detect(self, images):
         feats = self.neck(self.backbone(images))
         return {'s0': self.bbox_head(feats)}
 
@@ -227,14 +229,14 @@ class R3Det(_Base):
                 in_channels=cfg.feat_channels, featmap_strides=cfg.strides,
                 points=frm_points, transpose_quirk=frm_transpose_quirk,
                 fuse_convs=frm_fuse_convs, sample_kernel=frm_sample_kernel,
-                kernels=kernels, quantize=cfg.quantize))
+                quantize=cfg.quantize))
             self.add_module(f'refine_head_{stage}', RRetinaHead(
                 num_classes=cfg.num_classes, in_channels=cfg.feat_channels,
                 feat_channels=cfg.feat_channels,
                 stacked_convs=cfg.refine_stacked_convs or cfg.stacked_convs,
                 num_anchors=1, quantize=cfg.quantize_head))
 
-    def forward(self, images):
+    def detect(self, images):
         cfg = self.cfg
         feats = self.neck(self.backbone(images))
         cls0, reg0 = self.bbox_head(feats)
@@ -268,18 +270,14 @@ def build_detector(cfg: DetectorConfig, dtype=torch.bfloat16, device='cuda',
                            "device='cpu' to build on the CPU")
     cls = R3Det if cfg.num_refine_stages > 0 else RRetinaNet
     model = cls(cfg, dtype=dtype, **kwargs).eval()
-    use_kernels(model, model.kernels)
     if device.type == 'cpu':
         return model
     return model.to(device=device, memory_format=torch.channels_last)
 
 
 def use_kernels(model: nn.Module, on: bool):
-    """Route every kernel-backed op of ``model`` through its CUDA kernel
-    (on) or its plain PyTorch version (off)."""
-    for m in model.modules():
-        if hasattr(m, 'kernels'):
-            m.kernels = on
+    """Set the detector's switch of the hand-written kernels."""
+    model.kernels = bool(on)
 
 
 # ---------------------------------------------------------------------------
@@ -343,8 +341,7 @@ def _flatten_levels(cls_scores, bbox_preds, num_classes):
 
 def head_loss(cls_scores, bbox_preds, anchors, gt_bboxes, gt_labels,
               gt_mask, cfg: DetectorConfig, stage: StageTrainCfg, coder,
-              per_image_anchors=False, generator=None, kernels=True,
-              process_group=None):
+              per_image_anchors=False, generator=None, process_group=None):
     """``(loss_cls, loss_bbox)`` of one head over all levels at once (one
     global avg_factor, so the reference's per-level sum is the same).
 
@@ -367,7 +364,7 @@ def head_loss(cls_scores, bbox_preds, anchors, gt_bboxes, gt_labels,
     tgts = anchor_targets(anchors, gt_bboxes, gt_labels, gt_mask,
                           coder.encode, cfg.num_classes, tcfg,
                           per_image_anchors=per_image_anchors,
-                          generator=generator, kernels=kernels, shard=shard)
+                          generator=generator, shard=shard)
     # focal: num_total_pos; with a sampler pos + neg (each sum of max(n, 1))
     nts = num_total_samples(tgts.num_pos)
     if stage.sampler is not None:
@@ -400,11 +397,12 @@ def detector_loss(outputs, cfg: DetectorConfig, featmap_sizes, gt_bboxes,
     ``s0.loss_bbox``, ``sr0.loss_cls``, ... and their sum ``total``.
 
     ``generator`` feeds the RRandomSampler of stages that configure one
-    (a generator seeded 0 when none is given); ``kernels`` off takes the
-    plain rotated IoU of the refine stages' assignment on a card. With
-    ``process_group`` the batch is this rank's part of the global batch
-    (``head_loss``): the losses are this rank's share of the global
-    batch's, and summed over the ranks they are the global losses."""
+    (a generator seeded 0 when none is given); ``kernels`` off runs the
+    targets under ``route.kernels(False)`` (the refine stages' rotated IoU
+    takes its plain form on a card). With ``process_group`` the batch is
+    this rank's part of the global batch (``head_loss``): the losses are
+    this rank's share of the global batch's, and summed over the ranks
+    they are the global losses."""
     coder = cfg.coder()
     dev = gt_bboxes.device
     anchors = torch.cat(level_anchors(cfg, featmap_sizes, dev), 0)
@@ -416,23 +414,24 @@ def detector_loss(outputs, cfg: DetectorConfig, featmap_sizes, gt_bboxes,
         generator = torch.Generator(dev).manual_seed(0)
 
     losses = {}
-    cls0, reg0 = outputs['s0']
-    lc, lb = head_loss(cls0, reg0, anchors, gt_bboxes, gt_labels, gt_mask,
-                       cfg, cfg.s0_train, coder, generator=generator,
-                       kernels=kernels, process_group=process_group)
-    losses['s0.loss_cls'] = lc
-    losses['s0.loss_bbox'] = lb
     refine_coder = coders.DeltaXYWHAOBBoxCoder(
         cfg.target_means, cfg.target_stds, cfg.angle_version)
-    for i, (cls_i, reg_i) in enumerate(outputs.get('sr', [])):
-        rois = torch.cat(outputs['rois'][i], 1)              # (B, N, 5)
-        w = cfg.stage_loss_weights[i]
-        lc, lb = head_loss(cls_i, reg_i, rois, gt_bboxes, gt_labels, gt_mask,
-                           cfg, cfg.sr_train[i], refine_coder,
-                           per_image_anchors=True, generator=generator,
-                           kernels=kernels, process_group=process_group)
-        losses[f'sr{i}.loss_cls'] = lc * w
-        losses[f'sr{i}.loss_bbox'] = lb * w
+    with route.kernels(kernels):
+        cls0, reg0 = outputs['s0']
+        lc, lb = head_loss(cls0, reg0, anchors, gt_bboxes, gt_labels,
+                           gt_mask, cfg, cfg.s0_train, coder,
+                           generator=generator, process_group=process_group)
+        losses['s0.loss_cls'] = lc
+        losses['s0.loss_bbox'] = lb
+        for i, (cls_i, reg_i) in enumerate(outputs.get('sr', [])):
+            rois = torch.cat(outputs['rois'][i], 1)          # (B, N, 5)
+            w = cfg.stage_loss_weights[i]
+            lc, lb = head_loss(cls_i, reg_i, rois, gt_bboxes, gt_labels,
+                               gt_mask, cfg, cfg.sr_train[i], refine_coder,
+                               per_image_anchors=True, generator=generator,
+                               process_group=process_group)
+            losses[f'sr{i}.loss_cls'] = lc * w
+            losses[f'sr{i}.loss_bbox'] = lb * w
     losses['total'] = sum(losses.values())
     return losses
 
@@ -447,8 +446,9 @@ def _top_positions(max_scores, k):
 def detector_predict(outputs, cfg: DetectorConfig, featmap_sizes,
                      img_shape=None, scale_factor=None, kernels=True):
     """Decode + NMS for a batch: (dets (B, max_per_img, 6), labels
-    (B, max_per_img), num (B,)). ``kernels`` off takes the plain IoU in
-    NMS even on CUDA tensors. Decode runs in the span ``decode``.
+    (B, max_per_img), num (B,)). ``kernels`` off runs it under
+    ``route.kernels(False)`` (NMS's IoU takes its plain form on a card).
+    Decode runs in the span ``decode``.
 
     Per level: top-``nms_pre`` positions by max class score, decode against
     the anchors (RRetinaNet) or the last stage's rois (R3Det), sigmoid
@@ -461,12 +461,13 @@ def detector_predict(outputs, cfg: DetectorConfig, featmap_sizes,
     with span('decode'):
         boxes, scores = _decode(outputs, cfg, featmap_sizes, img_shape,
                                 scale_factor)
-    return multiclass_nms_rotated_batched(
-        boxes, scores, score_thr=t.score_thr, iou_thr=t.nms_iou_thr,
-        version=t.nms_version, max_num=t.max_per_img,
-        pre_topk=min(t.nms_candidates or 2 * t.nms_pre,
-                     boxes.shape[1] * cfg.num_classes),
-        small_k=max(t.max_per_img, t.nms_pre), kernels=kernels)
+    with route.kernels(kernels):
+        return multiclass_nms_rotated_batched(
+            boxes, scores, score_thr=t.score_thr, iou_thr=t.nms_iou_thr,
+            version=t.nms_version, max_num=t.max_per_img,
+            pre_topk=min(t.nms_candidates or 2 * t.nms_pre,
+                         boxes.shape[1] * cfg.num_classes),
+            small_k=max(t.max_per_img, t.nms_pre))
 
 
 def _decode(outputs, cfg, featmap_sizes, img_shape, scale_factor):

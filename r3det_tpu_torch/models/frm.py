@@ -8,13 +8,10 @@ residual-added twice: ``x + (feat + sample)``. The reference's
 transposed-coordinate quirk is on by default (row <- cx * scale, col <-
 cy * scale).
 
-Every level of a stage runs through one
-:func:`..ops.frm_sample.frm_sample_levels` call, points 1 and 5: one
-launch of the K2 kernel on bf16 CUDA tensors when ``kernels`` is on, and
-under autograd one launch of K2's backward kernel
-(``ops/frm_sample.py::FRMSampleLevels``); an f32 model, or ``kernels``
-off, takes the plain form, autograd through
-``frm_sample_levels_reference`` (``FeatureRefineModule.sample_route``).
+Every level of a stage runs through one call, points 1 and 5: where K2's
+contract holds (``ops/frm_sample.py::refusal``: bf16 features on a card),
+:func:`..ops.frm_sample.frm_sample_levels`, one launch of K2 (and of its
+backward kernel under autograd); otherwise ``frm_sample_levels_reference``.
 ``quantize`` makes the three branch convs ``QConv``s; the sample and the
 residual adds stay in the input's dtype.
 
@@ -37,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import frm_sample
 from ..ops.frm_sample import frm_sample_levels, frm_sample_levels_reference
 from .conv import Conv2d
 from .quant import conv_factory
@@ -50,7 +48,7 @@ class FeatureRefineModule(nn.Module):
 
     def __init__(self, in_channels=256, featmap_strides=(8, 16, 32, 64, 128),
                  points=1, transpose_quirk=True, fuse_convs=False,
-                 sample_kernel=False, kernels=True, quantize=False):
+                 sample_kernel=False, quantize=False):
         super().__init__()
         if points not in (1, 5):
             raise ValueError('points must be 1 or 5')
@@ -62,18 +60,11 @@ class FeatureRefineModule(nn.Module):
         self.transpose_quirk = transpose_quirk
         self.fuse_convs = fuse_convs
         self.sample_kernel = sample_kernel
-        self.kernels = kernels
         c = in_channels
         conv = Conv2d if fuse_convs else conv_factory(quantize)
         self.conv_5_1 = conv(c, c, (5, 1), padding=(2, 0))
         self.conv_1_5 = conv(c, c, (1, 5), padding=(0, 2))
         self.conv_1_1 = conv(c, c, 1)
-
-    def sample_route(self, feat):
-        """Whether the sample (points 1 and 5) takes
-        :func:`frm_sample_levels` (K2): bf16 features on a card, kernels
-        on."""
-        return self.kernels and feat.is_cuda and feat.dtype == torch.bfloat16
 
     def fused_kernel(self):
         """The 5x5 kernel (OIHW) and bias of ``conv_5_1(conv_1_5(x)) +
@@ -99,7 +90,7 @@ class FeatureRefineModule(nn.Module):
                 feat = self.conv_5_1(self.conv_1_5(x)) + self.conv_1_1(x)
             xs.append(x.permute(0, 2, 3, 1).contiguous())    # NHWC views
             fs.append(feat.permute(0, 2, 3, 1).contiguous())
-        fn = frm_sample_levels if self.sample_route(fs[0]) else \
+        fn = frm_sample_levels if frm_sample.refusal(fs) is None else \
             frm_sample_levels_reference
         ys = fn(xs, fs, [r.contiguous() for r in rois],
                 [1.0 / s for s in self.featmap_strides], self.points,

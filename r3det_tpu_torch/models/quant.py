@@ -17,10 +17,10 @@ Port of ``r3det_tpu/models/quant.py``: ``QConv``, ``conv_factory`` and
 - the product: int8 x int8 -> exact int32, then
   ``acc * (ascale * kscale) [+ bias]``. A bf16 model rounds the int32 sums
   to bf16 before that dequant, as the JAX package's bf16 conv output does;
-  an f32 model keeps them exact. ``ops/int8_conv.py::qconv`` runs it: the
-  int8 conv kernel on a card (``kernels`` on, bf16 output:
-  ``QConv.kernel_route``), its plain form (im2col + ``torch._int_mm``)
-  otherwise, an f32 model's on a card too.
+  an f32 model keeps them exact. The int8 conv kernel runs it where its
+  contract holds (``ops/int8_conv.py::refusal``: a card, bf16 output), on
+  the weights laid out once (``QConv.packed``); its plain form (im2col +
+  ``torch._int_mm``) otherwise, an f32 model's on a card too.
 
 A ``QConv`` may be handed a pre-quantized ``(int8 NHWC codes, ascale)``
 pair (the int8 activation storage of ``Bottleneck.int8_act``); it then
@@ -34,10 +34,10 @@ import functools
 import torch
 from torch import nn
 
-from ..ops.grad_guard import forbid_grad
-from ..ops.int8_conv import (pack_weights, qconv, qconv_fused,
-                             qconv_fused_reference, qconv_reference,
-                             quantize_weights)
+from ..ops import int8_conv
+from ..ops.route import forbid_grad
+from ..ops.int8_conv import (pack_weights, qconv_cuda, qconv_fused_reference,
+                             qconv_reference, quantize_weights)
 from .conv import Conv2d
 
 
@@ -63,9 +63,8 @@ class QConv(nn.Module):
     -> NCHW channels_last in ``x``'s dtype (or ``dtype``)."""
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
-                 padding=0, bias=True, static_scale=False, kernels=True):
+                 padding=0, bias=True, static_scale=False):
         super().__init__()
-        self.kernels = kernels
         kh, kw = _pair(kernel_size)
         self.stride = _pair(stride)
         self.padding = _pair(padding)
@@ -76,15 +75,14 @@ class QConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
         self.register_buffer('act_absmax', torch.zeros(()))
         self._codes = (None, None)
+        self._packed = None
         self._act_scale = (None, None)
 
     def codes(self):
         """The weight's int8 codes, derived once per weight (and bias)
-        version: ``(wi, kscale, bias, packed)`` with ``wi`` HWIO int8,
-        ``kscale`` the (Co,) f32 scale (per output channel over kh, kw,
-        ci), ``bias`` f32 or None, and ``packed`` the kernel's layout of
-        ``wi`` (``pack_weights``) when the weight lies on a card, else
-        None."""
+        version: ``(wi, kscale, bias)`` with ``wi`` HWIO int8, ``kscale``
+        the (Co,) f32 scale (per output channel over kh, kw, ci) and
+        ``bias`` f32 or None."""
         w, b = self.weight, self.bias
         key = (w.data_ptr(), w._version, w.device,
                None if b is None else (b.data_ptr(), b._version))
@@ -92,12 +90,18 @@ class QConv(nn.Module):
             with torch.no_grad():
                 wi, kscale = quantize_weights(w.permute(2, 3, 1, 0),
                                               axes=(0, 1, 2))
-                wi = wi.contiguous()
                 bias = None if b is None else b.detach().float().contiguous()
-                packed = pack_weights(wi) if wi.is_cuda else None
-            self._codes = (key, (wi, kscale.reshape(-1).contiguous(), bias,
-                                 packed))
+            self._codes = (key, (wi.contiguous(),
+                                 kscale.reshape(-1).contiguous(), bias))
+            self._packed = None
         return self._codes[1]
+
+    def packed(self):
+        """The kernel's layout of the codes (``pack_weights``), made once."""
+        wi = self.codes()[0]
+        if self._packed is None:
+            self._packed = pack_weights(wi)
+        return self._packed
 
     def act_scale(self):
         """The calibrated per-tensor input scale, ``max(act_absmax, 1e-8) /
@@ -109,16 +113,7 @@ class QConv(nn.Module):
             self._act_scale = (key, a.clamp_min(1e-8) / 127.0)
         return self._act_scale[1]
 
-    def kernel_route(self, x, dtype):
-        """Whether :meth:`forward` takes :func:`qconv` (the int8 conv
-        kernel): a card, kernels on, bf16 output (the kernel writes bf16
-        only; an f32 model takes the plain form)."""
-        return self.kernels and x.is_cuda and dtype == torch.bfloat16
-
     def forward(self, x, dtype=None):
-        forbid_grad('the int8 conv (QConv)', self.weight, self.bias,
-                    x[0] if isinstance(x, tuple) else x)
-        wi, kscale, bias, packed = self.codes()
         if isinstance(x, tuple):
             x, ascale = x                                    # int8 NHWC codes
         else:
@@ -127,13 +122,7 @@ class QConv(nn.Module):
             absmax = act_absmax(self.act_absmax, x, self.calibrating,
                                 self.static_scale)
             ascale = absmax.clamp_min(1e-8) / 127.0
-        if self.kernel_route(x, dtype):
-            y = qconv(x, ascale, wi, kscale, bias, self.stride, self.padding,
-                      dtype, packed=packed)
-        else:
-            y = qconv_reference(x, ascale, wi, kscale, bias, self.stride,
-                                self.padding, dtype)
-        return y.permute(0, 3, 1, 2)
+        return self._conv(x, ascale, dtype).permute(0, 3, 1, 2)
 
     def fused(self, x, *, affine=None, residual=None, relu=False,
               out_scale=None):
@@ -141,19 +130,26 @@ class QConv(nn.Module):
         :meth:`act_scale`) or ``(int8 NHWC codes, ascale)``; then the
         epilogue of ``qconv_fused`` (FrozenBN ``affine``, ``residual``,
         ``relu``, int8 codes at ``out_scale``). Returns NHWC bf16, or
-        ``(codes, out_scale)``; one kernel launch on a card (``kernels``
-        on), the plain composition otherwise. Neither has a backward."""
-        forbid_grad('the int8 conv (QConv)', self.weight, self.bias,
-                    x[0] if isinstance(x, tuple) else x)
-        wi, kscale, bias, packed = self.codes()
+        ``(codes, out_scale)``; one kernel launch where the kernel takes
+        it, the plain composition otherwise. Neither has a backward."""
         x, ascale = x if isinstance(x, tuple) else (x, self.act_scale())
-        kw = dict(affine=affine, residual=residual, relu=relu,
-                  out_scale=out_scale)
-        if self.kernels:
-            return qconv_fused(x, ascale, wi, kscale, bias, self.stride,
-                               self.padding, packed=packed, **kw)
-        return qconv_fused_reference(x, ascale, wi, kscale, bias,
-                                     self.stride, self.padding, **kw)
+        return self._conv(x, ascale, torch.bfloat16, affine=affine,
+                          residual=residual, relu=relu, out_scale=out_scale)
+
+    def _conv(self, x, ascale, dtype, **epilogue):
+        """The NHWC conv (bf16 with an ``epilogue``): the int8 conv kernel
+        where its contract holds, on :meth:`packed`; the plain form
+        otherwise. Under autograd it raises."""
+        forbid_grad('the int8 conv (QConv)', self.weight, self.bias, x)
+        wi, kscale, bias = self.codes()
+        args = (self.stride, self.padding)
+        if int8_conv.refusal(x, dtype, *self.weight.shape[1::-1]) is None:
+            return qconv_cuda(x.contiguous(), ascale, self.packed(), kscale,
+                              bias, *args, **epilogue)
+        if dtype == torch.bfloat16:
+            return qconv_fused_reference(x, ascale, wi, kscale, bias, *args,
+                                         **epilogue)
+        return qconv_reference(x, ascale, wi, kscale, bias, *args, dtype)
 
 
 def conv_factory(quantize):

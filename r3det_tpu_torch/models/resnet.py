@@ -13,39 +13,39 @@ dtype (``dtype`` for the whole trunk), as the flax modules do.
 
 The stem keeps the JAX package's folded ``(4, 4, 12, 64)`` HWIO kernel
 (``conv1.kernel``) and runs through :mod:`..ops.stem_pool`:
-``stem_fused_kernel`` (the port's default) takes the fused stem, K3 in a
-bf16 model on a card (on weights packed once, ``ResNet.stem_pack``); off,
-the conv and the pool run apart, and ``stem_pool_kernel`` takes K4 for the
-pool. ``quantize`` makes the stem and every bottleneck conv
-int8 (``models/quant.py``); ``fused_blocks`` sends stride-1 identity
-blocks through :mod:`..ops.bottleneck_fuse` (K5); ``int8_act`` stores each
-block input as int8 (serving, with ``quantize='static'``). The stem
-under autograd (``frozen_stages < 0``) takes its plain form, as the JAX
-package does; K4, K5 and the int8 convs have no backward, and their routes
-raise under autograd (``ops/grad_guard.py``). A bf16
-``quantize='static'`` block on a card runs each conv as one launch of the
-int8 conv kernel with its FrozenBN, ReLU, residual and the next conv's
-quantize fused (``Bottleneck.q8_fused_forward``). Any other bf16 block on
-a card with gradients off follows each cuDNN conv by one launch of the
-conv epilogue kernel, bit-equal to the unfused FrozenBN, ReLU and residual
-passes (``Bottleneck.epilogue_forward``). ``kernels`` off takes every
-plain version.
+``stem_fused_kernel`` (the port's default) takes the fused stem, K3 where
+its contract holds (a bf16 model on a card, on weights packed once,
+``ResNet.stem_pack``); off, the conv and the pool run apart, and
+``stem_pool_kernel`` takes K4 for the pool. ``quantize`` makes the stem
+and every bottleneck conv int8 (``models/quant.py``); ``fused_blocks``
+sends stride-1 identity blocks through :mod:`..ops.bottleneck_fuse` (K5);
+``int8_act`` stores each block input as int8 (serving, with
+``quantize='static'``). The stem under autograd (``frozen_stages < 0``)
+takes its plain form, as the JAX package does; K4, K5 and the int8 convs
+raise under autograd. A bf16 ``quantize='static'`` block on a card runs
+each conv as one launch of the int8 conv kernel with its FrozenBN, ReLU,
+residual and the next conv's quantize fused (``q8_fused_forward``); any
+other bf16 block on a card with gradients off follows each cuDNN conv by
+one launch of the conv epilogue kernel, bit-equal to the unfused passes
+(``epilogue_forward``). Each kernel runs where its contract holds
+(``ops/route.py``).
 """
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import bottleneck_fuse, conv_epilogue, int8_conv
 from ..ops.bottleneck_fuse import (fold_bn, fused_bottleneck_packed,
                                    fused_bottleneck_q8_reference,
                                    fused_bottleneck_reference,
                                    pack_bottleneck)
-from ..ops.conv_epilogue import conv_epilogue
-from ..ops.grad_guard import forbid_grad
 from ..ops.int8_conv import quantize_act
+from ..ops.route import forbid_grad
 from ..ops.stem_pool import (pack_stem, stem_conv_pool_cuda,
                              stem_conv_pool_q8_reference,
-                             stem_conv_pool_reference, stem_conv_pool_unfused)
+                             stem_conv_pool_reference, stem_conv_pool_unfused,
+                             stem_refusal)
 from ..utils.tracing import span
 from .quant import act_absmax, conv_factory
 
@@ -102,14 +102,13 @@ class Bottleneck(nn.Module):
     """
 
     def __init__(self, inplanes, features, stride=1, quantize=False,
-                 int8_act=False, fused=False, kernels=True):
+                 int8_act=False, fused=False):
         super().__init__()
         conv = conv_factory(quantize)
         self.features = features
         self.stride = stride
         self.quantize = quantize
         self.fused = fused
-        self.kernels = kernels
         self.conv1 = conv(inplanes, features, 1, bias=False)
         self.bn1 = FrozenBN(features)
         self.conv2 = conv(features, features, 3, stride=stride, padding=1,
@@ -129,11 +128,11 @@ class Bottleneck(nn.Module):
             self.register_buffer('in_absmax', torch.zeros(()))
 
     def q8_fused_route(self, x):
-        """Whether this call takes :meth:`q8_fused_forward`: a bf16
-        ``quantize='static'`` block on a card, kernels on, not
-        calibrating."""
-        return (self.quantize == 'static' and self.kernels and x.is_cuda
-                and x.dtype == torch.bfloat16 and not self.conv1.calibrating)
+        """Whether this call takes :meth:`q8_fused_forward`: a static int8
+        block, not calibrating, where the int8 conv kernel takes ``x``."""
+        return (self.quantize == 'static' and not self.conv1.calibrating
+                and int8_conv.refusal(x, x.dtype, x.shape[1],
+                                      self.features) is None)
 
     def q8_fused_forward(self, x):
         """The static int8 block with every FrozenBN, ReLU, residual and
@@ -157,12 +156,10 @@ class Bottleneck(nn.Module):
         return y.permute(0, 3, 1, 2)
 
     def epilogue_route(self, x):
-        """Whether this call takes :meth:`epilogue_forward`: a bf16 block
-        on a card, kernels on, gradients off (the kernel has no backward),
-        not quantized and not taking K5 (:meth:`can_fuse`)."""
-        return (self.kernels and x.is_cuda and x.dtype == torch.bfloat16
-                and not torch.is_grad_enabled() and not self.quantize
-                and not self.can_fuse(x))
+        """Whether this call takes :meth:`epilogue_forward`: a block neither
+        quantized nor on K5, where the epilogue kernel takes ``x``."""
+        return (not self.quantize and not self.can_fuse(x)
+                and conv_epilogue.refusal(x, self.conv1.weight) is None)
 
     def epilogue_forward(self, x):
         """The bf16 block with what follows each conv in one pass
@@ -182,7 +179,8 @@ class Bottleneck(nn.Module):
     @staticmethod
     def _epilogue(a, bn, residual=None):
         with span('backbone.epilogue'):
-            return conv_epilogue(a, *bn.affine(torch.bfloat16), residual)
+            return conv_epilogue.conv_epilogue(a, *bn.affine(torch.bfloat16),
+                                               residual)
 
     def _block_codes(self, x):
         """``int8_act``: the block input's NHWC int8 codes and scale (the
@@ -239,11 +237,11 @@ class Bottleneck(nn.Module):
 
     def _fused_forward(self, x):
         """The fused block: K5 (bf16, or int8 with 'static') on the cached
-        pack on a card with kernels on, its plain form otherwise. It has
-        no backward: under autograd it raises."""
+        pack where its contract holds, its plain form otherwise. It has no
+        backward: under autograd it raises."""
         forbid_grad('the fused bottleneck (K5)', x, *self.parameters())
         xs = x.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
-        if self.kernels and xs.is_cuda:
+        if bottleneck_fuse.refusal(xs, self.features) is None:
             y = fused_bottleneck_packed(xs, self.fused_pack())
         elif self._fused_q8():
             y = fused_bottleneck_q8_reference(
@@ -314,7 +312,7 @@ class ResNet(nn.Module):
 
     out_channels = tuple(4 * w for w in WIDTHS)
 
-    def __init__(self, depth=50, dtype=torch.float32, kernels=True,
+    def __init__(self, depth=50, dtype=torch.float32,
                  stem_fused_kernel=True, stem_pool_kernel=False,
                  quantize=False, fused_blocks=False, int8_act=False,
                  frozen_stages=1):
@@ -322,7 +320,6 @@ class ResNet(nn.Module):
         self.depth = depth
         self.frozen_stages = frozen_stages
         self.dtype = dtype
-        self.kernels = kernels
         self.stem_fused_kernel = stem_fused_kernel
         self.stem_pool_kernel = stem_pool_kernel
         self.quantize = quantize
@@ -335,20 +332,13 @@ class ResNet(nn.Module):
                 stride = 2 if (blk == 0 and stage > 0) else 1
                 self.add_module(f'layer{stage + 1}_{blk}', Bottleneck(
                     inplanes, WIDTHS[stage], stride, quantize=quantize,
-                    int8_act=int8_act, fused=fused_blocks, kernels=kernels))
+                    int8_act=int8_act, fused=fused_blocks))
                 inplanes = WIDTHS[stage] * 4
 
     def stem_affine(self):
         """Folded FrozenBN of the stem (f32): ``(inv, off)``."""
         inv = self.bn1.scale * torch.rsqrt(self.bn1.var + 1e-5)
         return inv, self.bn1.bias - self.bn1.mean * inv
-
-    def stem_kernel_route(self, x12):
-        """Whether the fused stem takes its kernel (K3): a bf16 model on a
-        card, kernels on (the kernel computes in bf16 only; an f32 model
-        takes the plain form)."""
-        return (self.kernels and x12.is_cuda
-                and self.dtype == torch.bfloat16)
 
     def stem_pack(self):
         """The K3 kernel's operands (``pack_stem``: packed weights, folded
@@ -366,20 +356,17 @@ class ResNet(nn.Module):
         return self._stem_pack[1]
 
     def stem(self, x12):
-        """The stem on the s2d image: K3 on its route unless gradients
-        reach the stem's weights (an unfrozen stem under autograd), which
-        take the plain form."""
-        grad = torch.is_grad_enabled() and self.conv1.kernel.requires_grad
-        if self.stem_fused_kernel and self.stem_kernel_route(x12) \
-                and not grad:
+        """The stem on the s2d image: K3 where its contract holds (an
+        unfrozen stem under autograd takes the plain form)."""
+        if self.stem_fused_kernel and stem_refusal(
+                x12, self.dtype, self.conv1.kernel) is None:
             return stem_conv_pool_cuda(x12.contiguous(), self.stem_pack())
         inv, off = self.stem_affine()
         args = (x12, self.conv1.kernel, inv, off, self.dtype)
         q = bool(self.quantize)
         if not self.stem_fused_kernel:
             return stem_conv_pool_unfused(
-                *args, quantize=q,
-                pool_kernel=self.stem_pool_kernel and self.kernels)
+                *args, quantize=q, pool_kernel=self.stem_pool_kernel)
         ref = stem_conv_pool_q8_reference if q else stem_conv_pool_reference
         return ref(*args)
 

@@ -13,10 +13,10 @@ int8 codes (``RRetinaHead.fused_towers``).
 """
 import math
 
-import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import int8_conv
 from .conv import Conv2d
 from .quant import conv_factory
 
@@ -43,14 +43,13 @@ class RRetinaHead(nn.Module):
         self.quantize = quantize
 
     def fused_route(self, x):
-        """Whether this call takes :meth:`fused_towers`: a bf16
-        ``quantize='static'`` tower on a card, kernels on, not
-        calibrating."""
+        """Whether this call takes :meth:`fused_towers`: static int8
+        towers, not calibrating, where the int8 conv kernel takes ``x``."""
         if self.quantize != 'static' or not self.stacked_convs:
             return False
         conv = self.cls_conv_0
-        return (conv.kernels and x.is_cuda and x.dtype == torch.bfloat16
-                and not conv.calibrating)
+        return not conv.calibrating and int8_conv.refusal(
+            x, x.dtype, *conv.weight.shape[1::-1]) is None
 
     def fused_towers(self, x):
         """Both towers on one level with ``QConv.fused``: each conv applies

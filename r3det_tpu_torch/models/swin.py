@@ -38,14 +38,12 @@ gathered position bias, added together, are made on the device once per
 (``WindowMSA.bias``): the forward makes no host-to-device copy and reads
 nothing back.
 
-With ``kernels`` on, a bf16 block on a card with gradients off, head_dim
-32, C up to 768 and window**2 <= 64 runs ``norm1`` through its attention
-output as two hand-written CUDA kernels around the qkv and proj products
-(``ShiftWindowMSA.kernel_forward``, ``ops/swin_attn.py``): the pad, the
-shift, the windows, their inverse, the crop, the bias and the mask become
-the kernels' addressing, and the scores stay float32 up to P. Everything
-else (the CPU, float32, gradients, wider maps, larger windows) takes the
-plain code below, which the kernels are held to.
+Where the sub-block's contract holds (``ops/swin_attn.py::refusal``: bf16
+on a card, no gradient, head_dim 32, C up to 768, window**2 <= 64), a
+block runs ``norm1`` through its attention output as two CUDA kernels
+around the qkv and proj products (``ShiftWindowMSA.kernel_forward``): the
+pad, shift, windows, crop, bias and mask are their addressing. Everything
+else takes the plain code below, which the kernels are held to.
 
 Spans (``utils/tracing.py``): ``backbone.swin.embed``;
 ``backbone.swin.attn`` (each block, from ``norm1`` through the residual
@@ -242,26 +240,18 @@ class FFN(nn.Module):
 
 
 class SwinBlock(nn.Module):
-    def __init__(self, dims, heads, hidden, window, shift, kernels=True):
+    def __init__(self, dims, heads, hidden, window, shift):
         super().__init__()
-        self.kernels = kernels
         self.norm1 = LayerNorm(dims)
         self.attn = ShiftWindowMSA(dims, heads, window,
                                    window // 2 if shift else 0)
         self.norm2 = LayerNorm(dims)
         self.ffn = FFN(dims, hidden)
 
-    def attn_route(self, x):
-        """Whether this call takes :meth:`ShiftWindowMSA.kernel_forward`:
-        kernels on, a bf16 map on a card, gradients off (the kernels have
-        no backward), and a head_dim, width and window the kernels take."""
-        return (self.kernels and x.is_cuda and not torch.is_grad_enabled()
-                and swin_attn.refusal(x.dtype, self.attn.w_msa.num_heads,
-                                      x.shape[-1], self.attn.window) is None)
-
     def forward(self, x):
         with span('backbone.swin.attn'):
-            if self.attn_route(x):
+            if swin_attn.refusal(x, self.attn.w_msa.num_heads,
+                                 self.attn.window, self.norm1.weight) is None:
                 x = x + self.attn.kernel_forward(x, self.norm1)
             else:
                 x = x + self.attn(self.norm1(x))
@@ -300,25 +290,22 @@ class PatchMerging(nn.Module):
 
 
 class SwinBlockSequence(nn.Module):
-    def __init__(self, dims, heads, depth, window, mlp_ratio, downsample,
-                 kernels=True):
+    def __init__(self, dims, heads, depth, window, mlp_ratio, downsample):
         super().__init__()
         self.blocks = nn.ModuleList(
-            SwinBlock(dims, heads, mlp_ratio * dims, window, i % 2 == 1,
-                      kernels)
+            SwinBlock(dims, heads, mlp_ratio * dims, window, i % 2 == 1)
             for i in range(depth))
         self.downsample = PatchMerging(dims) if downsample else None
 
 
 class SwinTransformer(nn.Module):
     """NHWC image (B, H, W, 3) -> the ``out_indices`` stages' maps, NCHW
-    channels_last, in ``dtype``; ``kernels`` routes the attention
-    sub-blocks through the CUDA kernels where they take them."""
+    channels_last, in ``dtype``; the attention sub-blocks run the CUDA
+    kernels where they take them."""
 
     def __init__(self, embed_dims=96, depths=(2, 2, 6, 2),
                  num_heads=(3, 6, 12, 24), window_size=7, mlp_ratio=4,
-                 patch_size=4, out_indices=(1, 2, 3), dtype=torch.float32,
-                 kernels=True):
+                 patch_size=4, out_indices=(1, 2, 3), dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
         self.out_indices = tuple(out_indices)
@@ -329,8 +316,7 @@ class SwinTransformer(nn.Module):
         for i, (depth, heads) in enumerate(zip(depths, num_heads)):
             last = i == len(depths) - 1
             self.stages.append(SwinBlockSequence(
-                dims, heads, depth, window_size, mlp_ratio, not last,
-                kernels))
+                dims, heads, depth, window_size, mlp_ratio, not last))
             widths.append(dims)
             dims *= 2
         for i in self.out_indices:

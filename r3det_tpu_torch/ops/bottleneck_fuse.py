@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _ext
+from . import route
 from .int8_conv import int8_conv_nhwc, quantize_weights
 
 BTL_TH = 8                      # the gate's row multiple (H % 8 == 0)
@@ -197,21 +198,26 @@ def _f32(*ts):
     return [t.to(torch.float32).reshape(-1).contiguous() for t in ts]
 
 
+def refusal(x, features, *needs):
+    """K5's contract (``ops/route.py``), both variants: the bf16 NHWC block
+    input ``x`` of width ``features`` in ``FEATURES``, C = 4F, H % 8 == 0."""
+    if features not in FEATURES or x.shape[-1] != 4 * features \
+            or x.shape[1] % BTL_TH:
+        return (f'the kernel takes F in {FEATURES}, C = 4F and H % {BTL_TH} '
+                f'== 0, not F={features}, x {tuple(x.shape)}')
+    return route.refusal(x, x.dtype, x, *needs)
+
+
 def fused_bottleneck_packed(x, pack):
     """Launch the K5 kernel (``csrc/bottleneck.cu``) on ``pack``
     (:func:`pack_bottleneck`): bf16, or int8 for a q8 pack. Raises on
     inputs the kernel does not take."""
-    if not x.is_cuda or x.dtype != torch.bfloat16 or x.dim() != 4 \
-            or not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError(f'x must be a contiguous, 16-byte aligned NHWC '
-                         f'bfloat16 CUDA tensor, got {x.dtype} '
-                         f'{tuple(x.shape)} on {x.device}')
-    b, h, w, c4 = x.shape
     f = pack.features
-    if f not in FEATURES or c4 != 4 * f or h % BTL_TH:
-        raise ValueError(f'the bottleneck kernel takes F in {FEATURES}, '
-                         f'C = 4F and H % {BTL_TH} == 0; got F={f}, '
-                         f'x {tuple(x.shape)}')
+    route.check(refusal(x, f), 'bottleneck')
+    if x.dim() != 4 or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f'x must be a contiguous, 16-byte aligned NHWC '
+                         f'tensor, got {tuple(x.shape)}')
+    b, h, w, c4 = x.shape
     nbytes = (4 + 9 + 4) * f * f * (1 if pack.q8 else 2)
     if pack.weights.dtype != torch.uint8 or pack.weights.numel() != nbytes:
         raise ValueError(f'the pack holds {pack.weights.numel()} weight '
@@ -248,15 +254,18 @@ def fused_bottleneck_q8_cuda(x, w1, b1, w2, b2, w3, b3, amax1, amax2, amax3):
 
 
 def fused_bottleneck(x, w1, b1, w2, b2, w3, b3):
-    """The bf16 fused bottleneck: plain form on CPU tensors, the kernel on
-    CUDA tensors."""
-    fn = fused_bottleneck_cuda if x.is_cuda else fused_bottleneck_reference
+    """The bf16 fused bottleneck: the kernel where :func:`refusal` holds,
+    the plain form otherwise."""
+    fn = fused_bottleneck_cuda if refusal(
+        x, w1.shape[-1], w1, b1, w2, b2, w3, b3) is None else \
+        fused_bottleneck_reference
     return fn(x, w1, b1, w2, b2, w3, b3)
 
 
 def fused_bottleneck_q8(x, w1, b1, w2, b2, w3, b3, amax1, amax2, amax3):
-    """The int8 fused bottleneck: plain form on CPU tensors, the kernel on
-    CUDA tensors."""
-    fn = fused_bottleneck_q8_cuda if x.is_cuda else \
+    """The int8 fused bottleneck: the kernel where :func:`refusal` holds,
+    the plain form otherwise."""
+    fn = fused_bottleneck_q8_cuda if refusal(
+        x, w1.shape[-1], w1, b1, w2, b2, w3, b3) is None else \
         fused_bottleneck_q8_reference
     return fn(x, w1, b1, w2, b2, w3, b3, amax1, amax2, amax3)

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _ext
+from . import route
 
 CHANNEL_MULTIPLE = 64           # every ResNet-50 width is a multiple
 
@@ -43,6 +44,13 @@ def conv_epilogue_reference(a, inv, b, residual=None, relu=True):
         r = _affine(*residual) if isinstance(residual, tuple) else residual
         y = (y.float() + r.float()).to(torch.bfloat16)
     return F.relu(y) if relu else y
+
+
+def refusal(a, *needs):
+    """The kernel's contract (``ops/route.py``): bf16 ``a``, C % 64 == 0."""
+    if a.shape[1] % CHANNEL_MULTIPLE:
+        return f'the kernel takes C % 64 == 0, not {a.shape[1]}'
+    return route.refusal(a, a.dtype, a, *needs)
 
 
 def _check(t, shape, what):
@@ -67,9 +75,9 @@ def conv_epilogue_cuda(a, inv, b, residual=None, relu=True):
     returns ``a``. (B, C, H, W) channels_last bf16 on a card, C a multiple
     of 64; ``residual`` as in :func:`conv_epilogue_reference`."""
     shape = tuple(a.shape)
-    if len(shape) != 4 or shape[1] % CHANNEL_MULTIPLE:
-        raise ValueError(f'the conv epilogue takes (B, C, H, W) with C a '
-                         f'multiple of {CHANNEL_MULTIPLE}, got {shape}')
+    if len(shape) != 4:
+        raise ValueError(f'the conv epilogue takes (B, C, H, W), got {shape}')
+    route.check(refusal(a), 'conv_epilogue')
     _check(a, shape, 'a')
     c = shape[1]
     kind = 0 if residual is None else 2 if isinstance(residual, tuple) else 1
@@ -92,8 +100,9 @@ def conv_epilogue_cuda(a, inv, b, residual=None, relu=True):
 
 
 def conv_epilogue(a, inv, b, residual=None, relu=True):
-    """The epilogue: the kernel on CUDA tensors (in place in ``a``), the
-    plain form on CPU tensors."""
-    if a.is_cuda:
+    """The epilogue: the kernel where :func:`refusal` holds (in place in
+    ``a``), the plain form otherwise."""
+    rest = residual if isinstance(residual, tuple) else (residual,)
+    if refusal(a, inv, b, *rest) is None:
         return conv_epilogue_cuda(a, inv, b, residual, relu)
     return conv_epilogue_reference(a, inv, b, residual, relu)

@@ -17,13 +17,13 @@ quirk is on by default (row <- cx * scale, col <- cy * scale). Corner
 weights stay f32 (JAX's gather rounded them to ``feat``'s dtype; the band
 kernel kept f32).
 
-On CUDA tensors :func:`frm_sample_levels` is a ``torch.autograd.Function``
-over the flat ``(*xs, *feats)`` (``rois`` and the scales carry no
-gradient): its backward gives ``dx = g`` itself and ``dfeat = g + S^T g``,
-``S^T`` sending each cell's gradient, times the f32 weights of the
-corners its points read, onto those corners, by one launch of K2's
-backward kernel for all levels (:func:`frm_sample_levels_bwd_cuda`). The
-kernel gathers each corner's contributions in a fixed order, with no
+Where :func:`refusal` holds, :func:`frm_sample_levels` is a
+``torch.autograd.Function`` over the flat ``(*xs, *feats)`` (``rois`` and
+the scales carry no gradient): its backward gives ``dx = g`` itself and
+``dfeat = g + S^T g``, ``S^T`` sending each cell's gradient, times the f32
+weights of the corners its points read, onto those corners, by one launch
+of K2's backward kernel for all levels (:func:`frm_sample_levels_bwd_cuda`).
+The kernel gathers each corner's contributions in a fixed order, with no
 atomics on the sums, so it is deterministic and bit-equal to
 :func:`frm_sample_levels_bwd_ordered`, the plain form of that order. The
 autograd form through :func:`frm_sample_levels_reference`
@@ -36,6 +36,7 @@ import ctypes
 import torch
 
 from .. import _ext
+from . import route
 
 MAX_LEVELS = 8            # levels of one kernel launch
 # K2's backward: a corner row with more contributions than this sums them
@@ -140,18 +141,11 @@ def feature_refine_sample(feat, best_bboxes, spatial_scale, points=1,
     return feat + acc
 
 
-def frm_sample_reference(x, feat, rois, spatial_scale, transpose_quirk=True,
-                         points=1):
-    """Plain version of :func:`frm_sample`: ``x + (feat + acc)``."""
-    return x + feature_refine_sample(feat, rois, spatial_scale, points,
-                                     transpose_quirk)
-
-
 def frm_sample_levels_reference(xs, feats, rois, scales, points=1,
                                 transpose_quirk=True):
-    """Plain version of :func:`frm_sample_levels`: one
-    :func:`frm_sample_reference` a level."""
-    return [frm_sample_reference(x, f, r, s, transpose_quirk, points)
+    """Plain version of :func:`frm_sample_levels`: ``x + (feat + acc)`` a
+    level."""
+    return [x + feature_refine_sample(f, r, s, points, transpose_quirk)
             for x, f, r, s in zip(xs, feats, rois, scales)]
 
 
@@ -180,22 +174,12 @@ def _check_level(x, feat, rois, device, b, c):
                          f'{tuple(rois.shape)}')
 
 
-def _check_cuda(device):
-    if device.type != 'cuda':
-        raise ValueError(f'the K2 kernel takes CUDA tensors, got {device}')
-
-
-def frm_sample_cuda(x, feat, rois, spatial_scale, transpose_quirk=True):
-    """Launch the K2 kernel (``csrc/frm_sample.cu``) on one level's CUDA
-    tensors, points=1."""
-    _check_level(x, feat, rois, feat.device, feat.shape[0], feat.shape[-1])
-    _check_cuda(feat.device)
-    b, h, w, c = feat.shape
-    out = torch.empty_like(feat)
-    _ext.launch('frm_sample', x.data_ptr(), feat.data_ptr(), rois.data_ptr(),
-                out.data_ptr(), b, h, w, c, float(spatial_scale),
-                int(bool(transpose_quirk)), _ext.current_stream(feat.device))
-    return out
+def refusal(feats):
+    """K2's contract (``ops/route.py``): <= 8 bf16 levels, C % 8 == 0."""
+    f = feats[0]
+    if len(feats) > MAX_LEVELS or f.shape[-1] % 8:
+        return f'the kernel takes <= 8 levels of C % 8 == 0, not {len(feats)}'
+    return route.refusal(f, f.dtype)
 
 
 def frm_sample_levels_cuda(xs, feats, rois, scales, points=1,
@@ -216,7 +200,7 @@ def frm_sample_levels_cuda(xs, feats, rois, scales, points=1,
     b, c = feats[0].shape[0], feats[0].shape[-1]
     for x, f, r in zip(xs, feats, rois):
         _check_level(x, f, r, dev, b, c)
-    _check_cuda(dev)
+    route.check(refusal(feats), 'frm_sample_levels')
     outs = [torch.empty_like(f) for f in feats]
     if points == 5 and trig is None:
         trig = angle_trig(rois)
@@ -306,7 +290,8 @@ def frm_sample_levels_bwd_cuda(grads, rois, scales, points=1,
     b, c = grads[0].shape[0], grads[0].shape[-1]
     for g, r in zip(grads, rois):
         _check_level(g, g, r, dev, b, c)
-    _check_cuda(dev)
+    if dev.type != 'cuda':
+        raise ValueError(f'the K2 kernel takes CUDA tensors, got {dev}')
     if points == 5 and trig is None:
         trig = angle_trig(rois)
     cells = sum(g.shape[0] * g.shape[1] * g.shape[2] for g in grads)
@@ -427,26 +412,13 @@ class FRMSampleLevels(torch.autograd.Function):
         return (None, None, None, None, *grads, *dfeats)
 
 
-def frm_sample(x, feat, rois, spatial_scale, transpose_quirk=True):
-    """FRM points=1 refinement of one level: ``x + (feat + sample)``.
-
-    x, feat: (B, H, W, C) NHWC; rois: (B, H*W, 5) f32 best boxes in image
-    coordinates; ``spatial_scale`` = 1 / stride. CPU tensors take the plain
-    form; CUDA tensors launch the kernel, which takes bfloat16 only.
-    """
-    if feat.is_cuda:
-        return frm_sample_cuda(x, feat, rois, spatial_scale, transpose_quirk)
-    return frm_sample_reference(x, feat, rois, spatial_scale, transpose_quirk)
-
-
 def frm_sample_levels(xs, feats, rois, scales, points=1, transpose_quirk=True):
     """FRM refinement of every level of a stage, ``x + (feat + acc)`` a
     level: lists of (B, H, W, C) NHWC ``xs`` and ``feats``, (B, H*W, 5) f32
-    ``rois`` and ``scales`` (1 / stride). CPU tensors take the plain form;
-    CUDA tensors launch the kernel once for all levels (bfloat16 only),
-    through :class:`FRMSampleLevels`, whose backward is K2's backward
-    kernel."""
-    if feats[0].is_cuda:
+    ``rois`` and ``scales`` (1 / stride). Where :func:`refusal` holds, one
+    launch of the kernel for all levels, through :class:`FRMSampleLevels`,
+    whose backward is K2's backward kernel; the plain form otherwise."""
+    if refusal(feats) is None:
         return list(FRMSampleLevels.apply(rois, scales, points,
                                           transpose_quirk, *xs, *feats))
     return frm_sample_levels_reference(xs, feats, rois, scales, points,

@@ -7,12 +7,13 @@ outside any Pallas kernel, and leaves them to XLA. PyTorch has no int8
 convolution on CUDA, so the plain form here is an int8 im2col feeding
 ``torch._int_mm`` ((M, K) x (K, N) int8 -> int32; cuBLASLt on the card,
 exact on the CPU); a 1x1 stride-1 convolution needs no im2col: its NHWC
-rows are the matrix. :func:`qconv` is the whole quantized convolution of
-``QConv`` (quantize, int8 product, dequant); :func:`qconv_fused` adds the
-ops that follow it in the serving path (FrozenBN, residual, ReLU, the next
-conv's quantize). On a card in a bf16 model both run as one launch of the
-hand kernel ``csrc/int8_conv.cu``, whose weights :func:`pack_weights` lays
-out once per weight version (``QConv.codes``).
+rows are the matrix. :func:`qconv_reference` is the whole quantized
+convolution of ``QConv`` (quantize, int8 product, dequant);
+:func:`qconv_fused` adds the ops that follow it in the serving path
+(FrozenBN, residual, ReLU, the next conv's quantize). Where its contract
+:func:`refusal` holds (``ops/route.py``) either is one launch of the hand
+kernel ``csrc/int8_conv.cu`` (:func:`qconv_cuda`), whose weights
+:func:`pack_weights` lays out once per weight version (``QConv.packed``).
 
 The quantization helpers keep the JAX package's arithmetic: per-output-
 channel weight scales ``max(max|w|, 1e-8) / 127``, codes
@@ -23,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _ext
+from . import route
 
 # torch._int_mm needs M > 16 and K, N multiples of 8
 _MIN_M = 17
@@ -89,8 +91,8 @@ def int8_conv_nhwc(xi, wi, stride=(1, 1), padding=((0, 0), (0, 0))):
 
 
 def qconv_reference(x, ascale, wi, kscale, bias, stride, padding, dtype):
-    """Plain version of :func:`qconv`: ``x`` NHWC (quantized here by
-    ``ascale``) or int8 NHWC codes; ``wi`` HWIO int8, ``kscale`` (Co,);
+    """QConv's quantized convolution, plain form: ``x`` NHWC (quantized
+    here by ``ascale``) or int8 NHWC codes; ``wi`` HWIO int8, ``kscale`` (Co,);
     ``padding`` (ph, pw) symmetric. Returns NHWC in ``dtype``: the int32
     sums, rounded to bf16 in a bf16 model, times ``ascale * kscale``, plus
     ``bias``."""
@@ -139,23 +141,32 @@ def _check(cond, msg):
         raise ValueError(msg)
 
 
+def refusal(x, dtype, ci, co, *needs):
+    """The kernel's contract (``ops/route.py``): a ``ci`` -> ``co`` conv,
+    Ci % 32 == 0 and Co % 64 == 0, of NHWC bf16 or int8 ``x``, to bf16."""
+    if ci % 32 or co % 64:
+        return f'the kernel takes Ci % 32 == Co % 64 == 0, not {ci} -> {co}'
+    if x.dtype not in (torch.bfloat16, torch.int8):
+        return f'the kernel reads bfloat16 or int8, not {x.dtype}'
+    return route.refusal(x, dtype, x, *needs)
+
+
 def qconv_cuda(x, ascale, packed, kscale, bias, stride, padding, *,
                affine=None, residual=None, relu=False, out_scale=None):
     """Launch the int8 conv kernel (``csrc/int8_conv.cu``) with
     ``pack_weights``' layout; see :func:`qconv_fused` for the epilogue.
     Returns bf16 NHWC, or ``(int8 codes, out_scale)`` when ``out_scale``
     is given."""
-    _check(x.is_cuda and x.dim() == 4 and x.is_contiguous()
-           and x.dtype in (torch.bfloat16, torch.int8),
-           f'x must be a contiguous NHWC bfloat16 or int8 CUDA tensor, got '
-           f'{x.dtype} {tuple(x.shape)} on {x.device}')
     _check(packed.dim() == 6 and packed.dtype == torch.int8
            and packed.is_contiguous() and packed.device == x.device,
            'packed must be pack_weights\' int8 layout on the input\'s '
            'device')
-    b, h, w, ci = x.shape
     nb, nc, kh, kw, bn, ck = packed.shape
     co = nb * bn
+    route.check(refusal(x, torch.bfloat16, nc * ck, co), 'int8_conv')
+    _check(x.dim() == 4 and x.is_contiguous(),
+           f'x must be a contiguous NHWC tensor, got {tuple(x.shape)}')
+    b, h, w, ci = x.shape
     _check(ci == nc * ck, f'input has {ci} channels, weights {nc * ck}')
     (sh, sw), (ph, pw) = stride, padding
     ho = (h + 2 * ph - kh) // sh + 1
@@ -208,21 +219,6 @@ def qconv_cuda(x, ascale, packed, kscale, bias, stride, padding, *,
     return out if oscale is None else (out, out_scale)
 
 
-def qconv(x, ascale, wi, kscale, bias, stride, padding, dtype, packed=None):
-    """The quantized convolution: the plain form on CPU tensors; the kernel
-    on CUDA tensors, which computes in bf16 only and raises otherwise.
-    ``packed`` is ``pack_weights(wi)``, made here when not given."""
-    if x.is_cuda:
-        if dtype != torch.bfloat16:
-            raise ValueError(f'the CUDA int8 conv kernel writes bfloat16, '
-                             f'not {dtype}')
-        return qconv_cuda(x.contiguous(), ascale,
-                          pack_weights(wi) if packed is None else packed,
-                          kscale, bias, stride, padding)
-    return qconv_reference(x, ascale, wi, kscale, bias, stride, padding,
-                           dtype)
-
-
 def qconv_fused_reference(x, ascale, wi, kscale, bias, stride, padding, *,
                           affine=None, residual=None, relu=False,
                           out_scale=None):
@@ -259,11 +255,11 @@ def qconv_fused(x, ascale, wi, kscale, bias, stride, padding, *, affine=None,
     - ``relu``; ``out_scale``: return ``(int8 codes, out_scale)`` of the
       result (the next static ``QConv``'s input) instead of bf16.
 
-    The plain form (:func:`qconv_fused_reference`) on CPU tensors; the
-    kernel on CUDA tensors, which raises on what it does not take."""
+    The kernel where :func:`refusal` holds, the plain form
+    (:func:`qconv_fused_reference`) otherwise."""
     kw = dict(affine=affine, residual=residual, relu=relu,
               out_scale=out_scale)
-    if x.is_cuda:
+    if refusal(x, torch.bfloat16, *wi.shape[2:], wi, kscale, bias) is None:
         return qconv_cuda(x.contiguous(), ascale,
                           pack_weights(wi) if packed is None else packed,
                           kscale, bias, stride, padding, **kw)

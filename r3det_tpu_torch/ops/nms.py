@@ -26,8 +26,7 @@ Differences from the JAX form, none of which changes a keep set:
 import torch
 
 from ..utils.tracing import span
-from .rotated_iou import (negate_theta, quad_iou_pairwise, rotated_iou,
-                          rotated_iou_reference)
+from .rotated_iou import negate_theta, quad_iou_pairwise, rotated_iou
 
 NEG_INF = -1e30
 BLOCK_S = 256
@@ -85,20 +84,19 @@ def greedy_keep_blocked(iou, valid, iou_thr, block=BLOCK_S):
     return keep[:, :k]
 
 
-def greedy_keep_dense(boxes, valid, labels, iou_thr, vcount, kernels=True):
+def greedy_keep_dense(boxes, valid, labels, iou_thr, vcount):
     """Label-gated greedy keep of score-sorted candidates (B, K) from the
-    whole (B, K, K) IoU: one IoU call (K1 on CUDA tensors, ``upper_only``,
+    whole (B, K, K) IoU: one IoU call (K1 on a card, ``upper_only``,
     tiles past ``vcount`` (B,) skipped), then :func:`greedy_keep_blocked`.
     """
-    iou_fn = rotated_iou if kernels else rotated_iou_reference
-    iou = iou_fn(boxes.contiguous(), boxes.contiguous(), upper_only=True,
-                 valid_count=vcount.to(torch.int32))
+    iou = rotated_iou(boxes.contiguous(), boxes.contiguous(),
+                      upper_only=True, valid_count=vcount.to(torch.int32))
     iou = torch.where(labels[:, :, None] == labels[:, None, :], iou,
                       torch.zeros_like(iou))
     return greedy_keep_blocked(iou, valid, iou_thr)
 
 
-def greedy_keep_streamed(boxes, valid, labels, iou_thr, vcount, kernels=True,
+def greedy_keep_streamed(boxes, valid, labels, iou_thr, vcount,
                          block=STREAM_BLOCK):
     """:func:`greedy_keep_dense`'s keep set without the (B, K, K) matrix.
 
@@ -118,13 +116,12 @@ def greedy_keep_streamed(boxes, valid, labels, iou_thr, vcount, kernels=True,
         labels = torch.nn.functional.pad(labels, (0, pad), value=-2)
     kp = k + pad
     boxes = boxes.contiguous()
-    iou_fn = rotated_iou if kernels else rotated_iou_reference
     row = torch.arange(kp, device=boxes.device)
     keep = torch.zeros((b, kp), dtype=torch.bool, device=boxes.device)
     for start in range(0, kp, block):
         stop = start + block
-        cols = iou_fn(boxes, boxes[:, start:stop].contiguous(),
-                      valid_count=vcount.clamp_max(stop).to(torch.int32))
+        cols = rotated_iou(boxes, boxes[:, start:stop].contiguous(),
+                           valid_count=vcount.clamp_max(stop).to(torch.int32))
         cols = torch.where(labels[:, :, None] == labels[:, None, start:stop],
                            cols, torch.zeros_like(cols))
         supp = (cols > iou_thr) & (row[:, None] < row[None, start:stop])
@@ -162,13 +159,12 @@ def select_candidates(mboxes, mscores, score_thr, k):
 
 
 def nms_core_presorted(boxes, valid, labels, iou_thr, max_out,
-                       negate_angle=False, kernels=True):
+                       negate_angle=False):
     """Label-gated greedy NMS on score-sorted candidates (B, K).
 
     Returns keep_idx (B, min(K, max_out)) (kept candidates first, in score
     order, padded with -1) and the kept count (B,). Budgets above
-    ``STREAM_THRESHOLD`` take the streamed sweep. ``kernels`` off takes
-    the plain IoU even on CUDA tensors.
+    ``STREAM_THRESHOLD`` take the streamed sweep.
     """
     k = boxes.shape[1]
     ar = torch.arange(k, device=boxes.device)
@@ -180,7 +176,7 @@ def nms_core_presorted(boxes, valid, labels, iou_thr, max_out,
     vcount = torch.where(valid, ar + 1, torch.zeros_like(ar)).amax(1)
     sweep = greedy_keep_streamed if k > STREAM_THRESHOLD \
         else greedy_keep_dense
-    keep = sweep(boxes, valid, labels, iou_thr, vcount, kernels=kernels)
+    keep = sweep(boxes, valid, labels, iou_thr, vcount)
     return _keep_indices(keep, max_out)
 
 
@@ -208,7 +204,7 @@ def gather_dets(boxes, scores, labels, keep_idx):
 
 
 def sweep_dets(top_boxes, top_scores, top_labels, valid, iou_thr, version,
-               max_num, kernels=True):
+               max_num):
     """Greedy sweep + det gathering on score-sorted candidates."""
     if version not in ('v1', 'v2', 'v3', 'mmcv'):
         raise ValueError(f'unknown NMS version {version!r}')
@@ -217,14 +213,14 @@ def sweep_dets(top_boxes, top_scores, top_labels, valid, iou_thr, version,
                                        top_boxes[..., 3]) >= 1e-3)
     keep_idx, num = nms_core_presorted(
         top_boxes, valid, top_labels, iou_thr, max_num,
-        negate_angle=version in ('v3', 'mmcv'), kernels=kernels)
+        negate_angle=version in ('v3', 'mmcv'))
     dets, labels = gather_dets(top_boxes, top_scores, top_labels, keep_idx)
     return dets, labels, num.clamp_max(max_num)
 
 
 def multiclass_nms_rotated_batched(mboxes, mscores, score_thr, iou_thr,
                                    version='v1', max_num=2000, pre_topk=2000,
-                                   small_k=None, kernels=True):
+                                   small_k=None):
     """Batched multiclass NMS with the adaptive exact sweep budget.
 
     mboxes (B, N, 5) or (B, N, C, 5); mscores (B, N, C+1). Candidates are
@@ -232,8 +228,8 @@ def multiclass_nms_rotated_batched(mboxes, mscores, score_thr, iou_thr,
     image's live count fits in ``small_k`` (clamped to >= max_num), the
     sweep runs on that score-sorted prefix only, which gives the same keep
     sets; otherwise on all ``pre_topk``. Returns (dets (B, max_num, 6),
-    labels (B, max_num), num (B,)). ``kernels`` off takes the plain IoU
-    even on CUDA tensors. Spans: ``nms`` around the whole, ``sync.budget``
+    labels (B, max_num), num (B,)). Spans: ``nms`` around the whole,
+    ``sync.budget``
     around the live count's read, and the sweep in ``nms.sweep.single``,
     ``.small`` or ``.big``, named by the budget's branch.
     """
@@ -254,7 +250,7 @@ def multiclass_nms_rotated_batched(mboxes, mscores, score_thr, iou_thr,
                 branch = 'big'
         with span('nms.sweep.' + branch):
             return sweep_dets(*sel, iou_thr=iou_thr, version=version,
-                              max_num=max_num, kernels=kernels)
+                              max_num=max_num)
 
 
 # ---------------------------------------------------------------------------
@@ -262,7 +258,7 @@ def multiclass_nms_rotated_batched(mboxes, mscores, score_thr, iou_thr,
 # ---------------------------------------------------------------------------
 
 def _nms_single(boxes, scores, iou_thr, max_out, valid=None, labels=None,
-                negate_angle=False, kernels=True):
+                negate_angle=False):
     """JAX's ``_nms_core`` on one image: sort (valid first, score
     descending, ties in ascending index), sweep, and map back. Returns
     keep_idx (min(N, max_out),) into the inputs, kept first in score order,
@@ -277,7 +273,7 @@ def _nms_single(boxes, scores, iou_thr, max_out, valid=None, labels=None,
     order = torch.sort(key, stable=True).indices
     keep_idx, num = nms_core_presorted(
         boxes[order][None], valid[order][None], labels[order][None], iou_thr,
-        max_out, negate_angle=negate_angle, kernels=kernels)
+        max_out, negate_angle=negate_angle)
     return _unsort(keep_idx[0], order), num[0]
 
 
@@ -293,40 +289,38 @@ def _gather_single(boxes, scores, labels, keep_idx):
     return dets[0], out_labels[0]
 
 
-def rnms(dets, iou_thr, max_out=2000, negate_angle=False, kernels=True):
+def rnms(dets, iou_thr, max_out=2000, negate_angle=False):
     """Single-class rotated NMS on (N, 6) scored dets: (keep_idx
     (min(N, max_out),) padded with -1 in score order, the kept count).
     ``negate_angle`` takes the v3 backend's angle convention."""
     return _nms_single(dets[:, :5], dets[:, 5], iou_thr, max_out,
-                       negate_angle=negate_angle, kernels=kernels)
+                       negate_angle=negate_angle)
 
 
-def batched_rnms(boxes, scores, labels, iou_thr, max_out=2000, kernels=True):
+def batched_rnms(boxes, scores, labels, iou_thr, max_out=2000):
     """v1 multi-class NMS (label gating gives the reference's class-offset
     keep sets): ((dets (min(N, max_out), 6), labels), the kept count);
     padded rows zero, labels -1."""
     keep_idx, num = _nms_single(boxes, scores, iou_thr, max_out,
-                                labels=labels, kernels=kernels)
+                                labels=labels)
     return _gather_single(boxes, scores, labels, keep_idx), num
 
 
-def ml_nms_rotated(boxes, scores, labels, iou_thr, max_out=2000,
-                   kernels=True):
+def ml_nms_rotated(boxes, scores, labels, iou_thr, max_out=2000):
     """v2 multi-class NMS: IoU gated to zero across labels; the outputs of
     :func:`batched_rnms`."""
-    return batched_rnms(boxes, scores, labels, iou_thr, max_out,
-                        kernels=kernels)
+    return batched_rnms(boxes, scores, labels, iou_thr, max_out)
 
 
 def obb_batched_nms(boxes, scores, labels, iou_thr, max_out=2000,
-                    small_box_thr=1e-3, kernels=True):
+                    small_box_thr=1e-3):
     """v3 multi-class NMS: boxes with min(w, h) below ``small_box_thr``
     skipped, the detectron2/mmcv angle convention; the outputs of
     :func:`batched_rnms`."""
     valid = torch.minimum(boxes[:, 2], boxes[:, 3]) >= small_box_thr
     keep_idx, num = _nms_single(boxes, scores, iou_thr, max_out,
                                 valid=valid, labels=labels,
-                                negate_angle=True, kernels=kernels)
+                                negate_angle=True)
     return _gather_single(boxes, scores, labels, keep_idx), num
 
 
@@ -347,7 +341,7 @@ def poly_nms(polys_scored, iou_thr, max_out=2000):
 
 def multiclass_nms_rotated(mboxes, mscores, score_thr, iou_thr,
                            version='v1', max_num=2000, pre_topk=2000,
-                           approx_topk=False, kernels=True):
+                           approx_topk=False):
     """Multiclass rotated NMS of one image: mboxes (N, 5) or (N, C, 5),
     mscores (N, C+1) (background last). The top ``pre_topk`` (position,
     class) pairs above ``score_thr`` compete. Returns (dets (max_num', 6),
@@ -358,5 +352,5 @@ def multiclass_nms_rotated(mboxes, mscores, score_thr, iou_thr,
                                   'selects candidates exactly')
     sel = select_candidates(mboxes[None], mscores[None], score_thr, pre_topk)
     dets, labels, num = sweep_dets(*sel, iou_thr=iou_thr, version=version,
-                                   max_num=max_num, kernels=kernels)
+                                   max_num=max_num)
     return dets[0], labels[0], num[0]

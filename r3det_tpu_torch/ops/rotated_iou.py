@@ -15,8 +15,8 @@ scale. Everything is f32.
 
 :func:`rotated_iou` is the batched entry point NMS uses: ``(B, N, 5) x
 (B, M, 5) -> (B, N, M)`` with the kernel's ``upper_only`` / ``valid_count``
-zero-fill rules. On a CPU tensor it computes the plain form; on a CUDA
-tensor it launches the kernel or raises.
+zero-fill rules. It launches the kernel where :func:`refusal` holds
+(``ops/route.py``) and computes the plain form otherwise.
 
 The config-facing API of ``r3det_tpu/ops/rotated_iou.py`` is here too:
 :func:`rbbox_overlaps` (pairwise through :func:`rotated_iou`),
@@ -26,6 +26,7 @@ ops on any device, as the JAX package computes them in jnp).
 import torch
 
 from .. import _ext
+from . import route
 
 EPS_AREA = 1e-14
 TILE_R = 8          # pair-tile rows for small problems
@@ -157,17 +158,23 @@ def rotated_iou_reference(boxes1, boxes2, mode='iou', upper_only=False,
     return iou
 
 
+def refusal(boxes1, boxes2):
+    """K1's contract (``ops/route.py``): float32 boxes."""
+    f32 = torch.float32
+    return route.refusal(boxes2, boxes2.dtype, want=f32) or \
+        route.refusal(boxes1, boxes1.dtype, boxes1, boxes2, want=f32)
+
+
 def rotated_iou_cuda(boxes1, boxes2, mode='iou', upper_only=False,
                      valid_count=None):
     """Launch the K1 kernel (``csrc/rotated_iou.cu``) on CUDA tensors."""
+    route.check(refusal(boxes1, boxes2), 'rotated_iou')
     if mode not in ('iou', 'iof'):
         raise ValueError(f'mode must be iou or iof, got {mode!r}')
     for name, t in (('boxes1', boxes1), ('boxes2', boxes2)):
-        if not t.is_cuda or t.dtype != torch.float32 or t.dim() != 3 \
-                or t.shape[-1] != 5 or not t.is_contiguous():
-            raise ValueError(f'{name} must be a contiguous (B, K, 5) float32 '
-                             f'CUDA tensor, got {t.dtype} {tuple(t.shape)} '
-                             f'on {t.device}')
+        if t.dim() != 3 or t.shape[-1] != 5 or not t.is_contiguous():
+            raise ValueError(f'{name} must be a contiguous (B, K, 5) '
+                             f'tensor, got {tuple(t.shape)}')
     b, n, _ = boxes1.shape
     if boxes2.shape[0] != b or boxes2.device != boxes1.device:
         raise ValueError('boxes1 and boxes2 must share batch size and device')
@@ -194,10 +201,10 @@ def rotated_iou(boxes1, boxes2, mode='iou', upper_only=False,
 
     ``upper_only`` zero-fills pair tiles strictly below the diagonal (greedy
     NMS reads j < i pairs only); ``valid_count`` ((B,) int32) zero-fills
-    tiles past each image's live prefix. CPU tensors take the plain form;
-    CUDA tensors launch the kernel.
+    tiles past each image's live prefix. The kernel where :func:`refusal`
+    holds, the plain form otherwise.
     """
-    if boxes1.is_cuda:
+    if refusal(boxes1, boxes2) is None:
         return rotated_iou_cuda(boxes1, boxes2, mode, upper_only, valid_count)
     return rotated_iou_reference(boxes1, boxes2, mode, upper_only,
                                  valid_count)
@@ -249,15 +256,15 @@ def quad_iou_pairwise(quads1, quads2):
 
 
 def rbbox_overlaps(bboxes1, bboxes2, mode='iou', is_aligned=False,
-                   small_box_thr=None, negate_angle=False, kernels=True):
+                   small_box_thr=None, negate_angle=False):
     """The IoU calculators' entry: ``(N, 5[+score]) x (M, 5[+score]) ->
     (N, M)``, or ``(N,)`` when ``is_aligned``.
 
     A 6th (score) column is trimmed; ``negate_angle`` takes the
     detectron2/mmcv angle convention (:func:`negate_theta`); boxes with
     min(w, h) below ``small_box_thr`` get overlap 0. The pairwise form is
-    :func:`rotated_iou` on a batch of 1 (K1 on CUDA tensors; ``kernels``
-    off takes its plain form), the aligned form plain torch ops.
+    :func:`rotated_iou` on a batch of 1 (K1 where it takes the boxes),
+    the aligned form plain torch ops.
     """
     if mode not in ('iou', 'iof'):
         raise ValueError(f'mode must be iou or iof, got {mode!r}')
@@ -279,9 +286,8 @@ def rbbox_overlaps(bboxes1, bboxes2, mode='iou', is_aligned=False,
     if bboxes1.shape[0] == 0 or bboxes2.shape[0] == 0:
         return bboxes1.new_zeros((bboxes1.shape[0], bboxes2.shape[0]),
                                  dtype=torch.float32)
-    iou = rotated_iou if kernels else rotated_iou_reference
-    out = iou(bboxes1.float().contiguous()[None],
-              bboxes2.float().contiguous()[None], mode=mode)[0]
+    out = rotated_iou(bboxes1.float().contiguous()[None],
+                      bboxes2.float().contiguous()[None], mode=mode)[0]
     if small_box_thr is not None:
         out = out.masked_fill(tiny1[:, None] | tiny2[None, :], 0.0)
     return out

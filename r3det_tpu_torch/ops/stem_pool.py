@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _ext
-from .grad_guard import forbid_grad
+from . import route
 from .int8_conv import int8_conv_nhwc, quantize_act, quantize_weights
 
 CIN = 12
@@ -137,20 +137,23 @@ def abs_max(x):
     return torch.maximum(hi, -lo).float().reshape(1)
 
 
+def stem_refusal(x12, dtype, *needs):
+    """K3's contract (``ops/route.py``): even H and W, computing in bf16."""
+    if x12.shape[1] % 2 or x12.shape[2] % 2:
+        return f'the kernel takes an even H and W, not {x12.shape[1:3]}'
+    return route.refusal(x12, dtype, x12, *needs)
+
+
 def stem_conv_pool_cuda(x12, pack, amax=None):
     """Launch the K3 kernel (``csrc/stem_pool.cu``) on ``pack``
     (:func:`pack_stem`): bf16 in and out; an int8 ``pack`` takes the int8
     variant, which quantizes ``x12`` by ``amax`` = max|x12| ((1,) f32,
     computed here when not given)."""
-    if not x12.is_cuda or x12.dtype != torch.bfloat16 or x12.dim() != 4 \
-            or x12.shape[-1] != CIN or not x12.is_contiguous():
-        raise ValueError(f'x12 must be a contiguous (B, H, W, {CIN}) bfloat16 '
-                         f'CUDA tensor, got {x12.dtype} {tuple(x12.shape)} '
-                         f'on {x12.device}')
+    route.check(stem_refusal(x12, x12.dtype), 'stem_conv_pool')
+    if x12.dim() != 4 or x12.shape[-1] != CIN or not x12.is_contiguous():
+        raise ValueError(f'x12 must be a contiguous (B, H, W, {CIN}) tensor, '
+                         f'got {tuple(x12.shape)}')
     b, h, w, _ = x12.shape
-    if h % 2 or w % 2:
-        raise ValueError(f'stem input height and width must be even, got '
-                         f'{h}x{w}')
     q8 = pack.kscale is not None
     shape = (4, COUT, Q8_ROW if q8 else BF16_ROW)
     if tuple(pack.weights.shape) != shape or pack.weights.dtype != (
@@ -189,14 +192,11 @@ def stem_conv_pool_cuda(x12, pack, amax=None):
 
 def stem_conv_pool(x12, kernel, scale, bias, dtype=torch.bfloat16,
                    quantize=False):
-    """The fused stem (``quantize``: its int8 variant). CPU tensors take the
-    plain form; CUDA tensors pack the weights and launch the kernel, which
-    computes in bf16 only and raises for another ``dtype`` (a model packs
-    once: ``ResNet.stem_pack``)."""
-    if x12.is_cuda:
-        if dtype != torch.bfloat16:
-            raise ValueError(f'the CUDA stem kernel computes in bfloat16, '
-                             f'not {dtype}')
+    """The fused stem (``quantize``: its int8 variant): where
+    :func:`stem_refusal` holds, the weights packed and the kernel launched
+    (a model packs once: ``ResNet.stem_pack``); the plain form
+    otherwise."""
+    if stem_refusal(x12, dtype, kernel, scale, bias) is None:
         return stem_conv_pool_cuda(x12.to(torch.bfloat16).contiguous(),
                                    pack_stem(kernel, scale, bias, quantize))
     ref = stem_conv_pool_q8_reference if quantize else \
@@ -204,13 +204,19 @@ def stem_conv_pool(x12, kernel, scale, bias, dtype=torch.bfloat16,
     return ref(x12, kernel, scale, bias, dtype)
 
 
+def pool_refusal(y):
+    """K4's contract (``ops/route.py``): a bf16 (B, H, W, 64) ``y``."""
+    if y.shape[-1] != COUT:
+        return f'the kernel takes {COUT} channels, not {y.shape[-1]}'
+    return route.refusal(y, y.dtype, y)
+
+
 def stem_pool_cuda(y):
     """Launch the K4 pool kernel (``csrc/stem_pool.cu``): bf16 NHWC."""
-    if not y.is_cuda or y.dtype != torch.bfloat16 or y.dim() != 4 \
-            or y.shape[-1] != COUT or not y.is_contiguous():
-        raise ValueError(f'y must be a contiguous (B, H, W, {COUT}) bfloat16 '
-                         f'CUDA tensor, got {y.dtype} {tuple(y.shape)} on '
-                         f'{y.device}')
+    route.check(pool_refusal(y), 'stem_pool')
+    if y.dim() != 4 or not y.is_contiguous():
+        raise ValueError(f'y must be a contiguous (B, H, W, {COUT}) tensor, '
+                         f'got {tuple(y.shape)}')
     b, h, w, _ = y.shape
     out = torch.empty((b, h // 2, w // 2, COUT), dtype=torch.bfloat16,
                       device=y.device)
@@ -220,9 +226,10 @@ def stem_pool_cuda(y):
 
 
 def stem_pool(y):
-    """The stem's max-pool: the plain form on CPU tensors, the K4 kernel on
-    CUDA tensors (bf16 only)."""
-    return stem_pool_cuda(y) if y.is_cuda else stem_pool_reference(y)
+    """The stem's max-pool: the K4 kernel where :func:`pool_refusal`
+    holds, the plain form otherwise."""
+    return stem_pool_cuda(y) if pool_refusal(y) is None else \
+        stem_pool_reference(y)
 
 
 def stem_conv_pool_unfused(x12, kernel, scale, bias, dtype=torch.bfloat16,
@@ -232,7 +239,8 @@ def stem_conv_pool_unfused(x12, kernel, scale, bias, dtype=torch.bfloat16,
     sums round to bf16 in a bf16 model (the JAX route's bf16 conv output)
     and dequantize with two multiplies, ``acc * (ascale * kscale)`` then
     ``* scale + bias``. ``pool_kernel`` takes :func:`stem_pool` (K4 on a
-    card) in a bf16 model, the plain pool otherwise."""
+    card; no backward) in a bf16 model with the switch on, else the plain
+    pool."""
     if quantize:
         acc, ascale, kscale = _stem_conv_q8(x12, kernel, dtype)
         if dtype == torch.bfloat16:
@@ -244,7 +252,7 @@ def stem_conv_pool_unfused(x12, kernel, scale, bias, dtype=torch.bfloat16,
         y = F.conv2d(x, kernel.to(dtype).float().permute(3, 2, 0, 1))
         y = y.permute(0, 2, 3, 1)
     y = (y * scale + bias).clamp_min(0.0).to(dtype).contiguous()
-    if pool_kernel and dtype == torch.bfloat16:
-        forbid_grad('the stem pool (K4)', y)
+    if pool_kernel and dtype == torch.bfloat16 and route.kernels_on():
+        route.forbid_grad('the stem pool (K4)', y)
         return stem_pool(y)
     return stem_pool_reference(y)

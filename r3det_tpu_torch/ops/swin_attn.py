@@ -17,9 +17,9 @@ PyTorch forms and the CUDA kernels (``csrc/swin_attn.cu``).
 
 The plain forms repeat the kernels' arithmetic and addressing (the
 windows are gathered through the shift, the region of each token is read
-off its rolled-map coordinates) and are what the kernels are held to; the
-CPU takes them. On a card the wrappers launch the kernels or raise. The
-JAX package has no Swin, so no TPU kernel stands behind either.
+off its rolled-map coordinates) and are what the kernels are held to;
+every call their contracts refuse takes them. The JAX package has no
+Swin, so no TPU kernel stands behind either.
 
 Scores, bias, mask and softmax are float32; P is rounded to the input's
 dtype before P.V, whose sums are float32 (``csrc/swin_attn.cu``).
@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _ext
-from .grad_guard import forbid_grad
+from . import route
 
 HEAD_DIM = 32                  # the kernel's head width
 MAX_TOKENS = 64                # window**2 a kernel block holds
@@ -36,20 +36,32 @@ MAX_NORM_WIDTH = 768           # C the norm kernel holds in registers
 MASK_VALUE = -100.0            # mmdet's shifted-window mask
 
 
-def refusal(dtype, heads, dims, window):
-    """Why the kernels do not take a block of these properties, or None:
-    bf16 only, head_dim 32, C a multiple of 8 up to ``MAX_NORM_WIDTH``,
-    window**2 <= 64."""
-    if dtype != torch.bfloat16:
-        return f'the kernels take bfloat16, not {dtype}'
+def _windows(dims, heads, window):
     if dims != heads * HEAD_DIM:
         return f'the kernels take head_dim {HEAD_DIM}, not {dims / heads:g}'
-    if dims % 8 or dims > MAX_NORM_WIDTH:
-        return (f'the kernels take C a multiple of 8 up to '
-                f'{MAX_NORM_WIDTH}, not {dims}')
     if window * window > MAX_TOKENS:
         return f'the kernels take window**2 <= {MAX_TOKENS}, not {window}**2'
-    return None
+
+
+def norm_pad_refusal(x, *needs):
+    """``swin_norm_pad``'s contract: bf16 ``x``, C % 8 == 0, C <= 768."""
+    c = x.shape[-1]
+    if c % 8 or c > MAX_NORM_WIDTH:
+        return (f'the kernels take C a multiple of 8 up to '
+                f'{MAX_NORM_WIDTH}, not {c}')
+    return route.refusal(x, x.dtype, x, *needs)
+
+
+def window_attn_refusal(qkv, heads, window, *needs):
+    """``swin_window_attn``'s contract: bf16, head_dim 32, window**2 <= 64."""
+    return _windows(qkv.shape[-1] // 3, heads, window) or \
+        route.refusal(qkv, qkv.dtype, qkv, *needs)
+
+
+def refusal(x, heads, window, *needs):
+    """The attention sub-block's contract: both kernels', on its map ``x``."""
+    return _windows(x.shape[-1], heads, window) or \
+        norm_pad_refusal(x, *needs)
 
 
 def _check(t, what):
@@ -84,16 +96,13 @@ def norm_pad_cuda(x, weight, bias, eps, hp, wp):
     of 8 up to ``MAX_NORM_WIDTH``, ``weight`` and ``bias`` (C,) float32 ->
     (B, hp, wp, C)."""
     b, h, w, c = x.shape
-    if x.dtype != torch.bfloat16 or not x.is_cuda or c % 8 \
-            or c > MAX_NORM_WIDTH or hp < h or wp < w:
-        raise ValueError(f'swin_norm_pad takes a bfloat16 CUDA map, C a '
-                         f'multiple of 8 up to {MAX_NORM_WIDTH}, padded to '
-                         f'at least its size; got {x.dtype} {tuple(x.shape)} '
-                         f'on {x.device} padded to ({hp}, {wp})')
+    route.check(norm_pad_refusal(x, weight, bias), 'swin_norm_pad')
+    if hp < h or wp < w:
+        raise ValueError(f'swin_norm_pad: a map of {h} x {w} padded to '
+                         f'({hp}, {wp})')
     _check(x, 'swin_norm_pad: x')
     for t, what in ((weight, 'weight'), (bias, 'bias')):
         _check_param(t, (c,), x.device, f'swin_norm_pad: {what}')
-    forbid_grad('swin_norm_pad', x, weight, bias)
     out = torch.empty(b, hp, wp, c, dtype=x.dtype, device=x.device)
     _ext.launch('swin_norm_pad', x.data_ptr(), weight.data_ptr(),
                 bias.data_ptr(), out.data_ptr(), b, h, w, hp, wp, c,
@@ -103,8 +112,9 @@ def norm_pad_cuda(x, weight, bias, eps, hp, wp):
 
 
 def norm_pad(x, weight, bias, eps, hp, wp):
-    """The kernel on CUDA tensors, the plain form on CPU tensors."""
-    if x.is_cuda:
+    """The kernel where :func:`norm_pad_refusal` holds, the plain form
+    otherwise."""
+    if norm_pad_refusal(x, weight, bias) is None:
         return norm_pad_cuda(x, weight, bias, eps, hp, wp)
     return norm_pad_reference(x, weight, bias, eps, hp, wp)
 
@@ -175,11 +185,8 @@ def window_attn_cuda(qkv, table, heads, window, shift, h, w):
     ``table`` ((2 * window - 1)**2, heads) float32 -> (B, h, w, C)."""
     b, hp, wp, c3 = qkv.shape
     c = c3 // 3
-    why = refusal(qkv.dtype, heads, c, window)
-    if why is None and not qkv.is_cuda:
-        why = f'the kernels take CUDA tensors, not {qkv.device}'
-    if why is not None:
-        raise ValueError(f'swin_window_attn: {why}')
+    route.check(window_attn_refusal(qkv, heads, window, table),
+                'swin_window_attn')
     if c3 % 3 or hp % window or wp % window or hp < h or wp < w \
             or not 0 <= shift < window:
         raise ValueError(f'swin_window_attn: qkv {tuple(qkv.shape)} is no '
@@ -188,7 +195,6 @@ def window_attn_cuda(qkv, table, heads, window, shift, h, w):
     _check(qkv, 'swin_window_attn: qkv')
     _check_param(table, ((2 * window - 1) ** 2, heads), qkv.device,
                  'swin_window_attn: table')
-    forbid_grad('swin_window_attn', qkv, table)
     out = torch.empty(b, h, w, c, dtype=qkv.dtype, device=qkv.device)
     _ext.launch('swin_window_attn', qkv.data_ptr(), table.data_ptr(),
                 out.data_ptr(), b, h, w, hp, wp, c, heads, window, shift,
@@ -197,7 +203,8 @@ def window_attn_cuda(qkv, table, heads, window, shift, h, w):
 
 
 def window_attn(qkv, table, heads, window, shift, h, w):
-    """The kernel on CUDA tensors, the plain form on CPU tensors."""
-    if qkv.is_cuda:
+    """The kernel where :func:`window_attn_refusal` holds, the plain form
+    otherwise."""
+    if window_attn_refusal(qkv, heads, window, table) is None:
         return window_attn_cuda(qkv, table, heads, window, shift, h, w)
     return window_attn_reference(qkv, table, heads, window, shift, h, w)

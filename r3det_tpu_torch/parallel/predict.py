@@ -14,7 +14,7 @@ from ..utils.tracing import span
 
 def make_predict_step(model, cfg, featmap_sizes, img_shape=None):
     """``step(images) -> (dets (B, max_per_img, 6), labels, num)``; NMS
-    follows the model's ``kernels`` switch. Spans (``utils/tracing.py``):
+    follows the detector's ``kernels`` switch. Spans (``utils/tracing.py``):
     ``predict`` around the step, ``forward`` around the model call."""
     @torch.no_grad()
     def step(images):

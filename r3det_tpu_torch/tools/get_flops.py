@@ -8,7 +8,8 @@ JAX tool's (every parameter, the FrozenBN affines included). The FLOPs
 differ in kind: the JAX tool prints XLA's cost analysis of the compiled
 forward; this tool counts with ``torch.utils.flop_counter.FlopCounterMode``
 over one forward of a (1, H, W, 3) f32 image through the plain route
-(``use_kernels(model, False)``, the same function as the kernel route),
+(under ``ops/route.py``'s ``kernels(False)``, the same function as the
+kernel route),
 which counts the convolutions and matmuls, two FLOPs a multiply-add. The
 hand kernels would be opaque to the counter, which is why the plain route
 runs. It runs on the card unless given ``--device cpu``.
@@ -32,17 +33,13 @@ def count(model, shape):
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
-    from ..models.detectors import use_kernels
+    from ..ops.route import kernels
     n_params = sum(p.numel() for p in model.parameters())
     device = next(model.parameters()).device
     x = torch.zeros((1,) + tuple(shape) + (3,), device=device)
-    use_kernels(model, False)
-    try:
-        counter = FlopCounterMode(display=False)
-        with torch.no_grad(), counter:
-            model(x)
-    finally:
-        use_kernels(model, True)
+    counter = FlopCounterMode(display=False)
+    with torch.no_grad(), kernels(False), counter:
+        model(x)
     return n_params, counter.get_total_flops()
 
 

@@ -210,6 +210,7 @@ def _epilogue_at(x, gen, parity, bound_of):
 
     from ..models.resnet import Bottleneck
     from ..ops import conv_epilogue as E
+    from ..ops.route import kernels
     c4 = x.shape[-1]
     torch.manual_seed(SEED)
     block = Bottleneck(c4, c4 // 4).to(DEV)
@@ -230,13 +231,11 @@ def _epilogue_at(x, gen, parity, bound_of):
                 'C2 conv epilogue vs unfused (b1)', parity)
         work = a.clone()
 
-        def route(on):
-            def call():
-                block.kernels = on
+        def unfused_block():
+            with kernels(False):
                 return block(xc)
-            return call
-        ms = _time([('block, unfused bf16', route(False), True),
-                    ('block, epilogue route', route(True), False)],
+        ms = _time([('block, unfused bf16', unfused_block, True),
+                    ('block, epilogue route', lambda: block(xc), False)],
                    x.shape[0], bound_of, '[C2] ')
         nbytes = epilogue_bytes(tuple(a.shape), 'identity')
         ms.update(_time([('conv3 passes, unfused', unfused, True),
@@ -280,9 +279,10 @@ def run_frm(batch=BATCH):
     rois = frm_rois(gen, batch, h, w)
     x = torch.zeros_like(feat)
     res = {'parity': {}}
+    one = ([x[:1]], [feat[:1]], [rois[:1]], [1.0])
     with torch.no_grad():
-        _parity(K2.frm_sample_cuda(x[:1], feat[:1], rois[:1], 1.0),
-                K2.frm_sample_reference(x[:1], feat[:1], rois[:1], 1.0),
+        _parity(K2.frm_sample_levels_cuda(*one)[0],
+                K2.frm_sample_levels_reference(*one)[0],
                 'K2 vs plain gather (b1)', res['parity'])
     nbytes, ops = frm_work([feat], [rois], 1)
 
@@ -290,9 +290,10 @@ def run_frm(batch=BATCH):
         return bound(nbytes, ops, 'f32')
     with torch.no_grad():
         res['ms'] = _time([
-            ('plain gather', lambda: K2.frm_sample_reference(
-                x, feat, rois, 1.0), True),
-            ('K2', lambda: K2.frm_sample_cuda(x, feat, rois, 1.0), False),
+            ('plain gather', lambda: K2.frm_sample_levels_reference(
+                [x], [feat], [rois], [1.0]), True),
+            ('K2', lambda: K2.frm_sample_levels_cuda(
+                [x], [feat], [rois], [1.0]), False),
         ], batch, bound_of)
     return res
 

@@ -6,9 +6,9 @@ route through it (``Bottleneck.epilogue_forward``), on the CPU.
   add, ``F.relu``) bit for bit in bf16, for each variant and with NaN,
   +-inf, -0.0 and overflowing inputs: that plain form is what the CUDA
   kernel is held to on the card.
-- The route engages only for a bf16 block on a card with kernels on,
-  gradients off, not quantized and not taking K5; the route's inputs are
-  given here as flags.
+- The route engages only for a bf16 block on a card with the kernels
+  switched on, gradients off, not quantized and not taking K5; the
+  route's inputs are given here as flags.
 - Forced onto its route (on the CPU it runs the plain form), a block and a
   whole ResNet-50 equal their unfused route bit for bit, and a traced
   ResNet-50 call records one ``r3det.backbone.epilogue`` span a conv
@@ -21,6 +21,7 @@ import torch
 
 from r3det_tpu_torch.models.resnet import Bottleneck, FrozenBN, ResNet
 from r3det_tpu_torch.ops import conv_epilogue as E
+from r3det_tpu_torch.ops.route import kernels
 from r3det_tpu_torch.utils.convert import seeded_state_dict
 
 from program_spans import traced
@@ -98,30 +99,34 @@ def test_plain_form_equals_unfused_ops(variant, relu):
 
 
 def flags(is_cuda=True, dtype=BF16, h=16):
-    return types.SimpleNamespace(is_cuda=is_cuda, dtype=dtype,
-                                 shape=(2, 256, h, 16))
+    return types.SimpleNamespace(
+        is_cuda=is_cuda, dtype=dtype, shape=(2, 256, h, 16),
+        device=torch.device('cuda' if is_cuda else 'cpu'),
+        requires_grad=False)
 
 
-# (block options, input flags, gradients on, expected route)
+# (block options, input flags, gradients on, kernels on, expected route)
 ROUTE_CASES = {
-    'bf16_card': ({}, flags(), False, True),
-    'autograd': ({}, flags(), True, False),
-    'f32': ({}, flags(dtype=torch.float32), False, False),
-    'cpu': ({}, flags(is_cuda=False), False, False),
-    'kernels_off': (dict(kernels=False), flags(), False, False),
-    'quantize': (dict(quantize=True), flags(), False, False),
-    'quantize_static': (dict(quantize='static'), flags(), False, False),
-    'k5_block': (dict(fused=True), flags(), False, False),
-    'k5_off_for_h': (dict(fused=True), flags(h=12), False, True),
-    'k5_off_for_stride': (dict(fused=True, stride=2), flags(), False, True),
+    'bf16_card': ({}, flags(), False, True, True),
+    'autograd': ({}, flags(), True, True, False),
+    'f32': ({}, flags(dtype=torch.float32), False, True, False),
+    'cpu': ({}, flags(is_cuda=False), False, True, False),
+    'kernels_off': ({}, flags(), False, False, False),
+    'quantize': (dict(quantize=True), flags(), False, True, False),
+    'quantize_static': (dict(quantize='static'), flags(), False, True,
+                        False),
+    'k5_block': (dict(fused=True), flags(), False, True, False),
+    'k5_off_for_h': (dict(fused=True), flags(h=12), False, True, True),
+    'k5_off_for_stride': (dict(fused=True, stride=2), flags(), False, True,
+                          True),
 }
 
 
 @pytest.mark.parametrize('case', list(ROUTE_CASES))
 def test_epilogue_route_engages_only_as_specified(case):
-    options, x, grad, expected = ROUTE_CASES[case]
+    options, x, grad, on, expected = ROUTE_CASES[case]
     block = Bottleneck(256, 64, **options)
-    with torch.set_grad_enabled(grad):
+    with torch.set_grad_enabled(grad), kernels(on):
         assert block.epilogue_route(x) == expected
 
 

@@ -27,6 +27,7 @@ from r3det_tpu.ops.convex import convex_sort as j_convex_sort
 from r3det_tpu_torch.core import iou_calculators as TI
 from r3det_tpu_torch.ops import rotated_iou as TR
 from r3det_tpu_torch.ops.convex import convex_sort
+from r3det_tpu_torch.ops.route import kernels
 
 torch.set_num_threads(2)
 ATOL = 1e-5
@@ -105,10 +106,11 @@ def test_rbbox_overlaps_matches_jax(scenes, negate, thr):
     kw = dict(small_box_thr=thr, negate_angle=negate)
     close(TR.rbbox_overlaps(t(a), t(b), **kw),
           JR.rbbox_overlaps(jnp.asarray(a), jnp.asarray(b), **kw), a, b)
-    # the plain route (what ``kernels`` off takes on a card) is the same
+    # the plain route (what the switch off takes on a card) is the same
     # function on the CPU
-    assert torch.equal(TR.rbbox_overlaps(t(a), t(b), **kw),
-                       TR.rbbox_overlaps(t(a), t(b), kernels=False, **kw))
+    with kernels(False):
+        plain = TR.rbbox_overlaps(t(a), t(b), **kw)
+    assert torch.equal(TR.rbbox_overlaps(t(a), t(b), **kw), plain)
 
 
 def test_rbbox_overlaps_empty_and_bad_mode():

@@ -24,6 +24,8 @@ from r3det_tpu_torch.ops import frm_sample as K2
 from r3det_tpu_torch.ops import int8_conv as Q
 from r3det_tpu_torch.ops import rotated_iou as K1
 from r3det_tpu_torch.ops import stem_pool as K3
+from r3det_tpu_torch.ops import swin_attn as A
+from r3det_tpu_torch.ops.route import kernels
 from r3det_tpu_torch.parallel.predict import make_predict_step
 from r3det_tpu_torch.utils.convert import seeded_state_dict
 
@@ -136,8 +138,9 @@ def test_streamed_sweep_kernel_matches_plain(cuda):
     before = _ext.LAUNCHES['rotated_iou']
     keep = nms.greedy_keep_streamed(b, valid, labels, 0.2, vcount)
     assert _ext.LAUNCHES['rotated_iou'] == before + math.ceil(k / 512)
-    assert torch.equal(keep, nms.greedy_keep_streamed(
-        b, valid, labels, 0.2, vcount, kernels=False))
+    with kernels(False):
+        plain = nms.greedy_keep_streamed(b, valid, labels, 0.2, vcount)
+    assert torch.equal(keep, plain)
     assert torch.equal(keep, nms.greedy_keep_dense(b, valid, labels, 0.2,
                                                    vcount))
     assert keep.any(1).all()
@@ -148,8 +151,8 @@ def test_streamed_sweep_kernel_matches_plain(cuda):
         .astype(np.float32)).to(cuda)
     args = dict(score_thr=0.05, iou_thr=0.1, max_num=500, pre_topk=5000)
     got = nms.multiclass_nms_rotated_batched(mboxes, mscores, **args)
-    want = nms.multiclass_nms_rotated_batched(mboxes, mscores, kernels=False,
-                                              **args)
+    with kernels(False):
+        want = nms.multiclass_nms_rotated_batched(mboxes, mscores, **args)
     assert all(torch.equal(u, v) for u, v in zip(got, want))
 
 
@@ -243,19 +246,29 @@ def test_frm_sample_kernel_matches_plain(cuda):
     for quirk in (True, False):
         # same operation order and roundings as the plain form: bit-equal
         before = _ext.LAUNCHES['frm_sample']
-        got = K2.frm_sample(x, feat, rois, 1 / stride, quirk)
+        got = K2.frm_sample_levels_cuda([x], [feat], [rois], [1 / stride],
+                                        transpose_quirk=quirk)[0]
         assert _ext.LAUNCHES['frm_sample'] == before + 1
-        want = K2.frm_sample_reference(x, feat, rois, 1 / stride, quirk)
+        want = K2.frm_sample_levels_reference([x], [feat], [rois],
+                                              [1 / stride],
+                                              transpose_quirk=quirk)[0]
         assert torch.equal(got, want)
     # f32, a channel count that is no multiple of 8, a misaligned view:
-    # both wrappers raise
+    # the wrapper raises; the public entry takes the plain form for what
+    # only the route rules out (f32, 12 channels)
     x12 = x[..., :12].contiguous()
     for args in ((x.float(), feat.float()), (x12, x12),
                  (misaligned(x), feat), (x, misaligned(feat))):
         with pytest.raises(ValueError):
-            K2.frm_sample(*args, rois, 1 / stride)
-        with pytest.raises(ValueError):
-            K2.frm_sample_levels([args[0]], [args[1]], [rois], [1 / stride])
+            K2.frm_sample_levels_cuda([args[0]], [args[1]], [rois],
+                                      [1 / stride])
+    for args in ((x.float(), feat.float()), (x12, x12)):
+        before = _ext.LAUNCHES['frm_sample']
+        got = K2.frm_sample_levels([args[0]], [args[1]], [rois],
+                                   [1 / stride])
+        assert _ext.LAUNCHES['frm_sample'] == before
+        assert torch.equal(got[0], K2.frm_sample_levels_reference(
+            [args[0]], [args[1]], [rois], [1 / stride])[0])
     with pytest.raises(ValueError):                         # points=3
         K2.frm_sample_levels([x], [feat], [rois], [1 / stride], 3)
 
@@ -329,8 +342,18 @@ def test_frm_sample_levels_kernel_exact(cuda, case, points, quirk):
         assert g.shape == w.shape and torch.equal(g, w)
 
 
+def plain_forward(module, monkeypatch):
+    """Make ``module``'s forward run with the kernels switched off."""
+    forward = module.forward
+
+    def plain(*args, **kwargs):
+        with kernels(False):
+            return forward(*args, **kwargs)
+    monkeypatch.setattr(module, 'forward', plain)
+
+
 @pytest.mark.gpu
-def test_r3det_frm_points5_runs_on_card(cuda):
+def test_r3det_frm_points5_runs_on_card(cuda, monkeypatch):
     """A bf16 R3Det with frm_points=5: its FRM takes K2 (one launch for
     the five levels) and equals the same model with the FRM's kernels off
     (the plain form), every output bit for bit."""
@@ -347,7 +370,7 @@ def test_r3det_frm_points5_runs_on_card(cuda):
     with torch.no_grad():
         out = model(images)
     assert _ext.LAUNCHES['frm_sample'] == before + 1
-    model.frm_0.kernels = False
+    plain_forward(model.frm_0, monkeypatch)
     with torch.no_grad():
         plain = model(images)
     assert _ext.LAUNCHES['frm_sample'] == before + 1
@@ -621,9 +644,8 @@ def test_bottleneck_pack_cache_on_card(cuda, quantize):
 
     def run():
         with torch.no_grad():
-            m.kernels = False
-            want = m(x)
-            m.kernels = True
+            with kernels(False):
+                want = m(x)
             before = dict(_ext.LAUNCHES)
             got = m(x)
         name = 'bottleneck_q8' if quantize else 'bottleneck'
@@ -688,7 +710,7 @@ def test_int8_conv_kernel_matches_plain(cuda, shape, kernel, stride, pad, co,
     args = qconv_args(rng, shape, kernel, co, int8_in, bias, cuda) + (
         stride, pad)
     before = _ext.LAUNCHES['int8_conv']
-    got = Q.qconv(*args, torch.bfloat16)
+    got = Q.qconv_fused(*args)
     want = Q.qconv_reference(*args, torch.bfloat16)
     assert _ext.LAUNCHES['int8_conv'] == before + 1
     assert got.shape == want.shape and torch.equal(got, want)
@@ -758,15 +780,17 @@ def test_wrappers_raise_on_unsupported_cuda_inputs(cuda):
     k = torch.zeros(4, 4, 12, 64, device=cuda)
     s = torch.zeros(64, device=cuda)
     with pytest.raises(ValueError):
-        K3.stem_conv_pool(x, k, s, s, dtype=torch.float32)
+        K3.stem_conv_pool_cuda(x, K3.pack_stem(k, s, s))
     b = torch.zeros(1, 5, 8, device=cuda).transpose(1, 2)  # not contiguous
     with pytest.raises(ValueError):
         K1.rotated_iou_cuda(b, b)
     x, ws = bottleneck_args(np.random.RandomState(0), 32, cuda)
     with pytest.raises(ValueError):                        # F = 32
-        K5.fused_bottleneck(x, *ws)
+        K5.fused_bottleneck_cuda(x, *ws)
     args, kw = fused_args(np.random.RandomState(1), (1, 1), 64, 256,
                           EPILOGUES['affine_res_relu'][3], cuda)
+    x, ascale, wi, ks, bias, stride, pad = args
+    packed = Q.pack_weights(wi)
     bad = (
         dict(kw, residual=kw['residual'].float()),           # f32 residual
         dict(kw, residual=kw['residual'][:, :8].contiguous()),  # wrong shape
@@ -774,12 +798,13 @@ def test_wrappers_raise_on_unsupported_cuda_inputs(cuda):
     )
     for b in bad:
         with pytest.raises(ValueError):
-            Q.qconv_fused(*args, **b)
+            Q.qconv_cuda(x, ascale, packed, ks, bias, stride, pad, **b)
     with pytest.raises(ValueError):                        # Co = 32
-        Q.qconv_fused(args[0], *args[1:2], args[2][..., :32],
-                      args[3][:32], None, *args[5:])
+        Q.pack_weights(wi[..., :32])
     with pytest.raises(ValueError):                        # f32 input
-        Q.qconv_fused(args[0].float(), *args[1:], **kw)
+        Q.qconv_cuda(x.float(), ascale, packed, ks, bias, stride, pad, **kw)
+    with kernels(False), pytest.raises(ValueError):       # switched off
+        Q.qconv_cuda(x, ascale, packed, ks, bias, stride, pad, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -1569,7 +1594,6 @@ def test_swin_norm_pad_kernel_matches_plain(cuda, stage):
     the pad): the pad is zeros bit for bit; the two take the mean and
     variance in f32 in different orders (1e-7 relative), so a value may
     round to the neighbouring bf16: within 2^-7 relative (one bf16 ulp)."""
-    from r3det_tpu_torch.ops import swin_attn as A
     side, c, heads = SWIN_SHAPES[stage]
     block, x = swin_attn_inputs(cuda, side, c, heads, False, 1)
     n = block.norm1
@@ -1598,7 +1622,6 @@ def test_swin_window_attn_kernel_matches_plain(cuda, stage, shift):
     round to the neighbouring bf16 (2^-8 of it) and the output with it:
     |diff| <= 2^-8 max|v| + one bf16 ulp of the output."""
     from r3det_tpu_torch.models.swin import padded
-    from r3det_tpu_torch.ops import swin_attn as A
     side, c, heads = SWIN_SHAPES[stage]
     block, x = swin_attn_inputs(cuda, side, c, heads, shift, 2)
     msa = block.attn.w_msa
@@ -1633,7 +1656,8 @@ def swin_sub_block_errors(model, ref, stage, block, x):
     with torch.no_grad():
         want = rblk.attn(rblk.norm1(x.view(b, h * w, c)), (h, w)) \
             + x.view(b, h * w, c)
-        assert blk.attn_route(xb)
+        assert A.refusal(xb, blk.attn.w_msa.num_heads, blk.attn.window,
+                         blk.norm1.weight) is None
         route = xb + blk.attn.kernel_forward(xb, blk.norm1)
         eager = xb + blk.attn(blk.norm1(xb))
     want = want.view(b, h, w, c)
@@ -1670,8 +1694,8 @@ def test_swin_t_backbone_kernel_error_within_eager(cuda, size):
     with torch.no_grad():
         want = ref.backbone(x)
         route = model.backbone(x)
-        use_kernels(model, False)
-        eager = model.backbone(x)
+        with kernels(False):
+            eager = model.backbone(x)
     for a, e, r in zip(route, eager, want):
         ka, ke = check.rel_err([a], [r]), check.rel_err([e], [r])
         assert ka <= ke and ka < 0.03, (size, ka, ke)
@@ -1692,9 +1716,8 @@ def test_swin_attn_launches_per_forward(cuda):
     with torch.enable_grad():
         model.backbone(x)
     with torch.no_grad():
-        use_kernels(model, False)
-        model.backbone(x)
-        use_kernels(model, True)
+        with kernels(False):
+            model.backbone(x)
         net = seeded_resnet50(cuda, 0)
         net(r50_images(cuda, 1, 256))
     assert [_ext.LAUNCHES[n] for n in names] == [0, 0]
@@ -1714,10 +1737,10 @@ def test_swin_wide_block_takes_the_eager_route(cuda, dims, heads):
                     device=cuda).to(torch.bfloat16)
     _ext.reset_launches()
     with torch.no_grad():
-        assert not block.attn_route(x)
+        assert 'C a multiple' in A.refusal(x, heads, 7, block.norm1.weight)
         got = block(x)
-        block.kernels = False
-        want = block(x)
+        with kernels(False):
+            want = block(x)
     assert [_ext.LAUNCHES[n] for n in ('swin_norm_pad',
                                        'swin_window_attn')] == [0, 0]
     assert torch.equal(got, want)
@@ -1725,7 +1748,6 @@ def test_swin_wide_block_takes_the_eager_route(cuda, dims, heads):
 
 @pytest.mark.gpu
 def test_swin_attn_wrappers_raise(cuda):
-    from r3det_tpu_torch.ops import swin_attn as A
     qkv = torch.zeros(1, 14, 14, 288, dtype=torch.bfloat16, device=cuda)
     table = torch.zeros(169, 3, device=cuda)
     bad = [
@@ -1751,3 +1773,88 @@ def test_swin_attn_wrappers_raise(cuda):
             A.norm_pad_cuda(*args, 1e-5, 14, 14)
     with pytest.raises(ValueError):
         A.norm_pad_cuda(x, w, b, 1e-5, 7, 14)                # pad < map
+
+
+# ---------------------------------------------------------------------------
+# Where each route launches: one predict step a route
+# ---------------------------------------------------------------------------
+
+# route -> (benchmark configuration, dtype, config fields, build options)
+STEP_ROUTES = {
+    'r3det_r50_bf16': ('r3det_r50', torch.bfloat16, {}, {}),
+    'rretinanet_r50_bf16': ('rretinanet_obb_r50', torch.bfloat16, {}, {}),
+    'rretinanet_swin_t_bf16': ('rretinanet_obb_swin_t', torch.bfloat16, {},
+                               {}),
+    'r3det_r50_int8_static': ('r3det_r50', torch.bfloat16,
+                              dict(quantize='static', quantize_head='static'),
+                              dict(int8_act=True)),
+    'r3det_r50_fused_blocks': ('r3det_r50', torch.bfloat16, {},
+                               dict(fused_blocks=True)),
+    'r3det_r50_stem_pool': ('r3det_r50', torch.bfloat16, {},
+                            dict(stem_fused_kernel=False,
+                                 stem_pool_kernel=True)),
+    'r3det_r50_f32': ('r3det_r50', torch.float32, {}, {}),
+}
+
+# route -> the kernels one predict step launches (batch 2 of 256^2, seeded
+# weights), each with its count; kernels that do not launch are left out
+STEP_LAUNCHES = {
+    'r3det_r50_bf16': {'rotated_iou': 1, 'frm_sample': 1,
+                       'stem_conv_pool': 1, 'conv_epilogue': 48},
+    'rretinanet_r50_bf16': {'rotated_iou': 1, 'stem_conv_pool': 1,
+                            'conv_epilogue': 48},
+    'rretinanet_swin_t_bf16': {'rotated_iou': 1, 'swin_norm_pad': 12,
+                               'swin_window_attn': 12},
+    'r3det_r50_int8_static': {'rotated_iou': 1, 'frm_sample': 1,
+                              'stem_conv_pool_q8': 1, 'int8_conv': 155},
+    'r3det_r50_fused_blocks': {'rotated_iou': 1, 'frm_sample': 1,
+                               'stem_conv_pool': 1, 'bottleneck': 10,
+                               'conv_epilogue': 18},
+    'r3det_r50_stem_pool': {'rotated_iou': 1, 'frm_sample': 1,
+                            'stem_pool': 1, 'conv_epilogue': 48},
+    'r3det_r50_f32': {'rotated_iou': 1},
+}
+
+
+def step_launches(dev, route):
+    """The launches of one predict step on ``route``, with the detector's
+    kernels on and off: (on, off), each {kernel: count} of the kernels
+    that launched."""
+    import json
+    from pathlib import Path
+
+    from portbench.bench import common
+    from r3det_tpu_torch.models.quant import calibrate
+    name, dtype, fields, options = STEP_ROUTES[route]
+    root = Path(__file__).resolve().parent.parent / 'portbench'
+    cfg = json.loads((root / 'configs' / f'{name}.json').read_text())
+    pcfg = common.program_config(cfg)._replace(**fields)
+    model = build_detector(pcfg, dtype=dtype, device=dev,
+                           **cfg['build_options'], **options)
+    model.load_state_dict(seeded_state_dict(model, 0))
+    size = 256
+    images = torch.rand(2, size, size, 3, device=dev,
+                        generator=torch.Generator(dev).manual_seed(0)) * 4 - 2
+    if fields:
+        calibrate(model, [images])
+    sizes = tuple((-(-size // s),) * 2 for s in pcfg.strides)
+    step = make_predict_step(model, pcfg, sizes, img_shape=(size, size))
+
+    def launches():
+        _ext.reset_launches()
+        step(images)
+        torch.cuda.synchronize()
+        return {k: v for k, v in _ext.LAUNCHES.items() if v}
+    on = launches()
+    use_kernels(model, False)
+    return on, launches()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('route', list(STEP_ROUTES))
+def test_predict_step_launches_per_route(cuda, route):
+    """Each route's predict step launches each kernel as often as pinned,
+    and none with the detector's kernels off."""
+    on, off = step_launches(cuda, route)
+    assert on == STEP_LAUNCHES[route]
+    assert off == {}

@@ -24,6 +24,7 @@ from r3det_tpu_torch.models import frm as frm_module
 from r3det_tpu_torch.models.frm import FeatureRefineModule
 from r3det_tpu_torch.models.resnet import ResNet
 from r3det_tpu_torch.models.retina_head import RRetinaHead
+from r3det_tpu_torch.ops.route import kernels
 from r3det_tpu_torch.utils.convert import from_flax, seeded_state_dict
 
 torch.set_num_threads(2)
@@ -193,13 +194,11 @@ def test_frm_module_samples_all_levels_in_one_call(pyramid, points,
         calls.append(args)
         return frm_module.frm_sample_levels_reference(*args)
     monkeypatch.setattr(frm_module, 'frm_sample_levels', spy)
-    monkeypatch.setattr(FeatureRefineModule, 'sample_route',
-                        lambda self, feat: True)
+    monkeypatch.setattr(frm_module.frm_sample, 'refusal', lambda feats: None)
     with torch.no_grad():
         got = tm(feats, rois)
     monkeypatch.undo()
-    tm.kernels = False
-    with torch.no_grad():
+    with torch.no_grad(), kernels(False):
         want = tm(feats, rois)
     assert len(calls) == 1 and len(calls[0][0]) == 5
     assert calls[0][3:] == ([1 / s for s in (8, 16, 32, 64, 128)], points,

@@ -284,7 +284,9 @@ def test_frm_sample_matches_feature_refine_sample(quirk):
     rois = rois.reshape(b, h * w, 5).astype(np.float32)
     want = x + np.asarray(j_frs(jnp.asarray(feat), jnp.asarray(rois),
                                 1.0 / stride, 1, quirk))
-    got = K2.frm_sample(t(x), t(feat), t(rois), 1.0 / stride, quirk).numpy()
+    got = K2.frm_sample_levels_reference([t(x)], [t(feat)], [t(rois)],
+                                         [1.0 / stride],
+                                         transpose_quirk=quirk)[0].numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
     # points=5, the plain form only
     want5 = np.asarray(j_frs(jnp.asarray(feat), jnp.asarray(rois),
@@ -295,9 +297,10 @@ def test_frm_sample_matches_feature_refine_sample(quirk):
 
 
 def test_frm_sample_cuda_wrapper_rejects_cpu_tensors():
-    x = torch.zeros(1, 4, 4, 8)
-    with pytest.raises(ValueError):
-        K2.frm_sample_cuda(x, x, torch.zeros(1, 16, 5), 0.125)
+    x = torch.zeros(1, 4, 4, 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='CUDA'):
+        K2.frm_sample_levels_cuda([x], [x], [torch.zeros(1, 16, 5)],
+                                  [0.125])
 
 
 # five small levels: 16 x 16 .. 1 x 1 (strides 8 .. 128), 32 channels

@@ -1,9 +1,11 @@
-"""The port's kernel routes and the stem kernel's weight pack, on the CPU.
+"""The kernels' contracts (``ops/route.py``) and the stem kernel's weight
+pack, on the CPU.
 
-- Each module that routes to a kernel (the fused stem, ``QConv``, the FRM
-  sample) takes it only for a bf16 model on a card, and the plain form for
-  an f32 model, so that an f32 model runs on a card. The routes read
-  ``is_cuda`` and ``dtype`` of their input, given here as flags.
+- Each kernel's contract takes the kernel only with the switch on, for
+  inputs on a card, in the dtype the kernel computes in and, for a kernel
+  that has no backward (all but K2), with no gradient to carry: so an f32
+  model, a CPU tensor and a call under autograd take the plain form. The
+  inputs' device, dtype and gradient are given here as flags.
 - ``pack_stem``, the K3 kernel's operands: unpacked in torch they give
   back the HWIO kernel (bf16) or the int8 codes and scales, and the plain
   conv on the unpacked weights gives the plain stem exactly.
@@ -16,59 +18,106 @@ import numpy as np
 import pytest
 import torch
 
-from r3det_tpu_torch.models.frm import FeatureRefineModule
-from r3det_tpu_torch.models.quant import QConv
 from r3det_tpu_torch.models.resnet import ResNet
+from r3det_tpu_torch.ops import bottleneck_fuse as K5
+from r3det_tpu_torch.ops import conv_epilogue as E
+from r3det_tpu_torch.ops import frm_sample as K2
+from r3det_tpu_torch.ops import int8_conv as Q
+from r3det_tpu_torch.ops import rotated_iou as K1
 from r3det_tpu_torch.ops import stem_pool as K3
+from r3det_tpu_torch.ops import swin_attn as A
 from r3det_tpu_torch.ops.int8_conv import (int8_conv_nhwc, quantize_act,
                                            quantize_weights)
+from r3det_tpu_torch.ops.route import kernels, kernels_on
 
 torch.set_num_threads(2)
+BF16 = torch.bfloat16
 
 
-def flags(is_cuda, dtype):
-    return types.SimpleNamespace(is_cuda=is_cuda, dtype=dtype)
+def flags(shape, dtype, is_cuda, grad):
+    """What a contract reads of a tensor: its shape, dtype, device and
+    whether it requires a gradient."""
+    return types.SimpleNamespace(
+        shape=shape, dtype=dtype, is_cuda=is_cuda, requires_grad=grad,
+        device=torch.device('cuda' if is_cuda else 'cpu'))
 
 
-def route(module, is_cuda, dtype):
-    """The route predicate of ``module`` for an input with these flags."""
-    x = flags(is_cuda, dtype)
-    if module == 'stem':
-        return ResNet(depth=10, dtype=dtype).stem_kernel_route(x)
-    if module == 'qconv':
-        return QConv(8, 8, 1).kernel_route(x, dtype)
-    return FeatureRefineModule(in_channels=8).sample_route(x)
+# kernel -> (the dtype it computes in, whether it has a backward, a shape
+# it takes, its contract on an input of that shape)
+CONTRACTS = {
+    'K1': (torch.float32, False, (1, 8, 5), lambda x: K1.refusal(x, x)),
+    'K2': (BF16, True, (2, 8, 8, 32), lambda x: K2.refusal([x, x])),
+    'K3': (BF16, False, (2, 8, 8, 12),
+           lambda x: K3.stem_refusal(x, x.dtype)),
+    'K4': (BF16, False, (2, 8, 8, 64), K3.pool_refusal),
+    'K5': (BF16, False, (2, 8, 8, 256), lambda x: K5.refusal(x, 64)),
+    'int8_conv': (BF16, False, (2, 8, 8, 64),
+                  lambda x: Q.refusal(x, x.dtype, 64, 64)),
+    'conv_epilogue': (BF16, False, (2, 64, 8, 8), E.refusal),
+    'swin_norm_pad': (BF16, False, (2, 7, 7, 96), A.norm_pad_refusal),
+    'swin_window_attn': (BF16, False, (2, 7, 7, 288),
+                         lambda x: A.window_attn_refusal(x, 3, 7)),
+    'swin_sub_block': (BF16, False, (2, 7, 7, 96),
+                       lambda x: A.refusal(x, 3, 7)),
+}
 
 
-@pytest.mark.parametrize('module', ['stem', 'qconv', 'frm'])
-@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
-def test_route_takes_kernel_only_for_bf16_on_a_card(module, dtype):
-    assert route(module, True, dtype) == (dtype == torch.bfloat16)
-    assert not route(module, False, dtype)
+@pytest.mark.parametrize('grad', [False, True], ids=['no_grad', 'grad'])
+@pytest.mark.parametrize('dtype', [BF16, torch.float32],
+                         ids=['bf16', 'f32'])
+@pytest.mark.parametrize('cuda', [True, False], ids=['card', 'cpu'])
+@pytest.mark.parametrize('kernel', list(CONTRACTS))
+def test_contract_takes_the_kernel_only_as_specified(kernel, cuda, dtype,
+                                                     grad):
+    """Switch on: the kernel on a card in its dtype, and under autograd
+    only if it has a backward. Switch off: never, with a reason."""
+    want, backward, shape, contract = CONTRACTS[kernel]
+    x = flags(shape, dtype, cuda, grad)
+    with torch.set_grad_enabled(grad):
+        why = contract(x)
+        assert (why is None) == (cuda and dtype == want
+                                 and (backward or not grad)), why
+        assert why is None or isinstance(why, str)
+        with kernels(False):
+            assert 'switched off' in (contract(flags(shape, want, True,
+                                                     False)) or '')
 
 
-@pytest.mark.parametrize('module', ['stem', 'qconv', 'frm'])
-def test_route_off_without_kernels(module):
-    x = flags(True, torch.bfloat16)
-    if module == 'stem':
-        m = ResNet(depth=10, dtype=torch.bfloat16, kernels=False)
-        assert not m.stem_kernel_route(x)
-    elif module == 'qconv':
-        m = QConv(8, 8, 1, kernels=False)
-        assert not m.kernel_route(x, torch.bfloat16)
-    else:
-        m = FeatureRefineModule(in_channels=8, kernels=False)
-        assert not m.sample_route(x)
+def test_switch_nests_and_restores():
+    """``kernels(False)`` holds inside it, ``kernels(True)`` turns nothing
+    back on, and each block restores what it found."""
+    assert kernels_on()
+    with kernels(True):
+        assert kernels_on()
+        with kernels(False):
+            assert not kernels_on()
+            with kernels(True):
+                assert not kernels_on()
+            assert not kernels_on()
+        assert kernels_on()
+    assert kernels_on()
 
 
-@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
-def test_frm_route_covers_points_5(dtype):
-    """The five-point FRM takes the kernel on the same terms as points=1."""
-    m = FeatureRefineModule(in_channels=8, points=5)
-    assert m.sample_route(flags(True, dtype)) == (dtype == torch.bfloat16)
-    assert not m.sample_route(flags(False, dtype))
-    m.kernels = False
-    assert not m.sample_route(flags(True, torch.bfloat16))
+# kernel, an input shape it does not take, the words of the reason
+SHAPE_REFUSALS = {
+    'K2_channels': ('K2', (2, 8, 8, 12), 'C % 8'),
+    'K3_odd_side': ('K3', (2, 9, 8, 12), 'even'),
+    'K4_channels': ('K4', (2, 8, 8, 32), '64 channels'),
+    'K5_height': ('K5', (2, 12, 8, 256), 'H %'),
+    'K5_channels': ('K5', (2, 8, 8, 128), 'C = 4F'),
+    'conv_epilogue_channels': ('conv_epilogue', (2, 72, 8, 8), 'C % 64'),
+    'swin_norm_pad_width': ('swin_norm_pad', (2, 7, 7, 1024), 'up to'),
+    'swin_window_attn_head_dim': ('swin_window_attn', (2, 7, 7, 576),
+                                  'head_dim'),
+}
+
+
+@pytest.mark.parametrize('case', list(SHAPE_REFUSALS))
+def test_contract_refuses_shapes_the_kernel_cannot_do(case):
+    kernel, shape, words = SHAPE_REFUSALS[case]
+    want, _, _, contract = CONTRACTS[kernel]
+    with torch.no_grad():
+        assert words in (contract(flags(shape, want, True, False)) or '')
 
 
 def stem_inputs(seed, shape=(2, 18, 22, 12)):

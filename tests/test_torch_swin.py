@@ -61,7 +61,7 @@ def pair():
 
 def program(cfg, state):
     model = build_detector(common.program_config(cfg), dtype=torch.float32,
-                           device='cpu', kernels=False)
+                           device='cpu')
     model.load_state_dict(state)
     return model
 

@@ -13,9 +13,11 @@ CPU, where the route runs the kernels' plain forms.
 - Planted faults in that addressing miss the tolerance by far.
 - The route, forced on, through a whole small backbone equals the eager
   backbone.
-- The predicate and the wrappers refuse what the kernels do not take: a
+- The contracts and the wrappers refuse what the kernels do not take: a
   CPU tensor, float32, head_dim other than 32, window 12.
 """
+import types
+
 import pytest
 import torch
 
@@ -172,12 +174,20 @@ def test_route_forced_through_a_whole_backbone(monkeypatch):
         def counted(self, *args):
             calls.append(self.shift)
             return real(self, *args)
-        monkeypatch.setattr(swin.SwinBlock, 'attn_route', lambda s, x: True)
+        monkeypatch.setattr(A, 'refusal', lambda *args: None)
         monkeypatch.setattr(swin.ShiftWindowMSA, 'kernel_forward', counted)
         got = net(x)
     assert calls == [0, 3] * 4
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, **TOL)
+
+
+def card_map(dims, dtype=torch.bfloat16):
+    """What the sub-block's contract reads of a (1, 7, 7, dims) map on a
+    card."""
+    return types.SimpleNamespace(shape=(1, 7, 7, dims), dtype=dtype,
+                                 is_cuda=True, requires_grad=False,
+                                 device=torch.device('cuda'))
 
 
 def test_route_predicate_refuses():
@@ -188,16 +198,15 @@ def test_route_predicate_refuses():
     block = seeded_block(3, True, seed=0)
     x = block_input(1, 7, 7, 96, seed=0).bfloat16()
     with torch.no_grad():
-        assert not block.attn_route(x)
-    bf16 = torch.bfloat16
-    assert A.refusal(bf16, 3, 96, 7) is None
-    assert A.refusal(bf16, 3, 96, 8) is None
-    assert 'bfloat16' in A.refusal(torch.float32, 3, 96, 7)
-    assert 'head_dim' in A.refusal(bf16, 6, 96, 7)
-    assert 'window' in A.refusal(bf16, 3, 96, 12)
-    assert A.refusal(bf16, 24, 768, 7) is None
-    assert 'C a multiple' in A.refusal(bf16, 32, 1024, 7)
-    assert 'C a multiple' in A.refusal(bf16, 48, 1536, 7)
+        assert 'CUDA' in A.refusal(x, 3, block.attn.window)
+        assert A.refusal(card_map(96), 3, 7) is None
+        assert A.refusal(card_map(96), 3, 8) is None
+        assert 'bfloat16' in A.refusal(card_map(96, torch.float32), 3, 7)
+        assert 'head_dim' in A.refusal(card_map(96), 6, 7)
+        assert 'window' in A.refusal(card_map(96), 3, 12)
+        assert A.refusal(card_map(768), 24, 7) is None
+        assert 'C a multiple' in A.refusal(card_map(1024), 32, 7)
+        assert 'C a multiple' in A.refusal(card_map(1536), 48, 7)
 
 
 @pytest.mark.parametrize('case,reason', [

@@ -105,7 +105,7 @@ def test_get_flops_counts_jax_params_and_the_convolutions(path):
     with torch.no_grad(), counter:
         model(torch.zeros(1, 64, 96, 3))
     assert flops == counter.flops > 0
-    assert model.kernels                    # the plain route switched back
+    assert model.kernels                    # the detector's switch kept
 
 
 def test_get_flops_cli_prints_its_lines():
