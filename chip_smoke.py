@@ -37,7 +37,11 @@ Phases, one line each (any failure raises and the exit code is 1):
    run at Swin-T's four stage shapes of batch 8 of 1024^2, the window
    attention unshifted and shifted, each within the card tests' tolerance
    of its plain form, beside its plain time and bytes bound, summed by
-   ``[kernel_sum]`` over the 12 launches of a forward;
+   ``[kernel_sum]`` over the 12 launches of a forward. The NMS sweep
+   (``csrc/nms_sweep.cu``) runs on K1's IoU of SWEEP_SCENES' candidates
+   (8 x 4000 with ~3000 live, 8 x 2000 with ~300; 15 labels), keeping its
+   plain route's set, beside that route's time (its fixpoint's host syncs
+   included) and the bound of the same-label pairs' IoU read once;
 4. end to end: R3Det* tiny (stacked_convs=2, angle v1), ResNet-50, full
    width, bf16, batch 8 of 1024^2 patches, weights from a numpy seed,
    through ``build_detector`` and the port's predict step. The refine
@@ -186,13 +190,16 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from r3det_tpu_torch.utils.kernel_timing import (  # noqa: E402
     add_bound, add_bound_ms, cuda_ms, epilogue_bytes, frm_work, graph_ms,
-    iou_work, r50_epilogues, swin_attn_work)
+    iou_work, nms_sweep_work, r50_epilogues, swin_attn_work)
 
 SEED = 0
 BATCH = 8
 SIZE = 1024
 # main-path shapes of each kernel
 IOU_BUDGETS = (4000, 2000)        # NMS candidate budgets: full and small
+# the sweep kernel's scenes: (candidates, live an image), dense and sparse
+SWEEP_SCENES = ((4000, (2900, 3100)), (2000, (250, 350)))
+SWEEP_LABELS = 15
 FRM_SIZES = (128, 64, 32, 16, 8)  # P3..P7 at 1024^2
 FRM_CHANNELS = 256
 LIVE_TARGETS = {'big': 3000, 'small': 1000}   # live candidates per image
@@ -268,6 +275,8 @@ REPLACES = {
     # no TPU kernel: the JAX package has no Swin
     'swin_norm_pad': 'none',
     'swin_window_attn': 'none',
+    # no TPU kernel: XLA's blocked fixpoint sweep
+    'nms_sweep': 'r3det_tpu/ops/nms.py:68',
 }
 SOURCES = {
     'rotated_iou': 'r3det_tpu_torch/csrc/rotated_iou.cu',
@@ -282,6 +291,7 @@ SOURCES = {
     'conv_epilogue': 'r3det_tpu_torch/csrc/conv_epilogue.cu',
     'swin_norm_pad': 'r3det_tpu_torch/csrc/swin_attn.cu',
     'swin_window_attn': 'r3det_tpu_torch/csrc/swin_attn.cu',
+    'nms_sweep': 'r3det_tpu_torch/csrc/nms_sweep.cu',
 }
 # the run whose launch counts each kernel reports
 PATH_OF = {'rotated_iou': 'bf16', 'frm_sample': 'bf16',
@@ -289,15 +299,19 @@ PATH_OF = {'rotated_iou': 'bf16', 'frm_sample': 'bf16',
            'stem_pool': 'route_bf16', 'bottleneck': 'route_bf16',
            'bottleneck_q8': 'route_int8', 'int8_conv': 'int8',
            'frm_sample_bwd': 'train', 'conv_epilogue': 'bf16',
-           'swin_norm_pad': 'swin', 'swin_window_attn': 'swin'}
+           'swin_norm_pad': 'swin', 'swin_window_attn': 'swin',
+           'nms_sweep': 'bf16'}
 # the kernels each run must launch
 PATH_KERNELS = {
-    'bf16': ('rotated_iou', 'frm_sample', 'stem_conv_pool', 'conv_epilogue'),
-    'int8': ('rotated_iou', 'frm_sample', 'stem_conv_pool_q8', 'int8_conv'),
+    'bf16': ('rotated_iou', 'nms_sweep', 'frm_sample', 'stem_conv_pool',
+             'conv_epilogue'),
+    'int8': ('rotated_iou', 'nms_sweep', 'frm_sample', 'stem_conv_pool_q8',
+             'int8_conv'),
     'route_bf16': ('stem_pool', 'bottleneck'),
     'route_int8': ('bottleneck_q8', 'stem_conv_pool_q8', 'int8_conv'),
-    # an f32 model: every route takes its plain form but NMS's IoU (f32)
-    'f32': ('rotated_iou',),
+    # an f32 model: every route takes its plain form but NMS's IoU and
+    # sweep (f32)
+    'f32': ('rotated_iou', 'nms_sweep'),
     # a train step: K3 (frozen stem), K1 (refine assignment), K2 and its
     # backward, once each
     'train': ('rotated_iou', 'frm_sample', 'frm_sample_bwd',
@@ -663,6 +677,7 @@ def compare_kernels(dev):
                                       bound_by=work['bound_by'])
         del boxes, got
     torch.cuda.empty_cache()
+    compare_nms_sweep(dev, rec)
 
     # K2: every level in one launch, bf16, the plain form's operations in
     # its order (the cos/sin of the angles by PyTorch) -> bit-equal
@@ -786,6 +801,56 @@ def same_bits(got, want):
     nan = want.isnan()
     return torch.equal(got.isnan(), nan) and torch.equal(
         got[~nan].view(torch.int16), want[~nan].view(torch.int16))
+
+
+def sweep_scene(rng, dev, k, live):
+    """The NMS sweep's arguments (iou, valid, labels, vcount, iou_thr) on
+    the card for one of SWEEP_SCENES: K1's upper_only IoU of ``iou_boxes``
+    candidates, SWEEP_LABELS labels, a live prefix of ``live`` (low, high)
+    an image with v3 holes in it."""
+    import numpy as np
+    import torch
+
+    from r3det_tpu_torch.ops import rotated_iou as K1
+    vcount = rng.randint(live[0], live[1] + 1, BATCH)
+    valid = (np.arange(k)[None] < vcount[:, None]) \
+        & (rng.uniform(size=(BATCH, k)) > 0.03)
+    boxes = torch.from_numpy(iou_boxes(rng, BATCH, k)).to(dev)
+    vc = torch.from_numpy(vcount.astype(np.int32)).to(dev)
+    iou = K1.rotated_iou(boxes, boxes, upper_only=True, valid_count=vc)
+    labels = torch.from_numpy(rng.randint(0, SWEEP_LABELS, (BATCH, k)))
+    return iou, torch.from_numpy(valid).to(dev), labels.to(dev), vc, 0.1
+
+
+def compare_nms_sweep(dev, rec):
+    """The NMS sweep kernel against its plain route (the gate and the
+    blocked fixpoint, host syncs and all) on SWEEP_SCENES: the same keep
+    set, timed; the dense scene's line is the kernel's record."""
+    import numpy as np
+    import torch
+
+    from r3det_tpu_torch.ops import nms
+    rng = np.random.RandomState(SEED)
+    for k, live in SWEEP_SCENES:
+        args = sweep_scene(rng, dev, k, live)
+        got = nms.greedy_keep_gated_cuda(*args)
+        equal = torch.equal(got, nms.greedy_keep_gated_reference(*args))
+        ms = cuda_ms(lambda: nms.greedy_keep_gated_cuda(*args), 20)
+        plain_ms = cuda_ms(lambda: nms.greedy_keep_gated_reference(*args), 3)
+        work = nms_sweep_work(args[2].cpu(), args[3].cpu())
+        phase('kernel', name='nms_sweep', shape=f'({BATCH},{k})',
+              live=args[1].sum(1).tolist(), kept=got.sum(1).tolist(),
+              bit_equal=equal, ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
+              **{n: f'{v:.4f}' if isinstance(v, float) else v
+                 for n, v in work.items()})
+        check(equal, f'nms_sweep K={k} keeps another set than its plain '
+                     'route')
+        if k == SWEEP_SCENES[0][0]:
+            rec['nms_sweep'] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                    bound_ms=work['bound_ms'],
+                                    bound_by=work['bound_by'])
+        del got, args
+    torch.cuda.empty_cache()
 
 
 def compare_epilogue(dev, rng):

@@ -81,6 +81,10 @@ _SIGNATURES = {
     # qkv, table (nb, heads) f32, out, B, H, W, Hp, Wp, C, heads, window,
     # shift, scale, stream
     'swin_window_attn': (_P,) * 3 + (_I,) * 9 + (_F, _P),
+    # iou (B, K, K) f32, labels (B, K) int64, valid (B, K) bool, vcount
+    # (B,) int32, thr, mask scratch (B, K, ceil(K / 64)) u64, keep, B, K,
+    # stream
+    'nms_sweep': (_P,) * 4 + (_F, _P, _P, _I, _I, _P),
 }
 
 # entry points that launch another entry's kernel, counted under its name

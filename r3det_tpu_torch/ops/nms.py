@@ -21,11 +21,17 @@ Differences from the JAX form, none of which changes a keep set:
 - the pairwise IoU is :func:`~r3det_tpu_torch.ops.rotated_iou.rotated_iou`
   (the K1 kernel on CUDA tensors): the (B, K, K) matrix up to
   ``STREAM_THRESHOLD`` candidates, above it one (B, K, ``STREAM_BLOCK``)
-  slab per block of candidates (:func:`greedy_keep_streamed`).
+  slab per block of candidates (:func:`greedy_keep_streamed`);
+- on that matrix the label-gated sweep is :func:`greedy_keep_gated`: the
+  CUDA kernel ``csrc/nms_sweep.cu`` where :func:`refusal` holds (one pass
+  over a bitmask of the gated, thresholded upper triangle, no host sync),
+  the blocked fixpoint of :func:`greedy_keep_blocked` otherwise.
 """
 import torch
 
+from .. import _ext
 from ..utils.tracing import span
+from . import route
 from .rotated_iou import negate_theta, quad_iou_pairwise, rotated_iou
 
 NEG_INF = -1e30
@@ -34,6 +40,8 @@ BLOCK_S = 256
 # of building the (K, K) matrix (8 x 8000^2 f32 is 2 GB)
 STREAM_THRESHOLD = 4096
 STREAM_BLOCK = 512
+# the sweep kernel keeps an image's suppressed columns in 64 words of 64 bits
+SWEEP_MAX_K = 4096
 
 
 def _resolve_block(cols, keep, vblk, start, block):
@@ -84,16 +92,77 @@ def greedy_keep_blocked(iou, valid, iou_thr, block=BLOCK_S):
     return keep[:, :k]
 
 
-def greedy_keep_dense(boxes, valid, labels, iou_thr, vcount):
-    """Label-gated greedy keep of score-sorted candidates (B, K) from the
-    whole (B, K, K) IoU: one IoU call (K1 on a card, ``upper_only``,
-    tiles past ``vcount`` (B,) skipped), then :func:`greedy_keep_blocked`.
-    """
-    iou = rotated_iou(boxes.contiguous(), boxes.contiguous(),
-                      upper_only=True, valid_count=vcount.to(torch.int32))
+def greedy_keep_gated_reference(iou, valid, labels, vcount, iou_thr):
+    """The plain form of :func:`greedy_keep_gated`: the IoU gated to zero
+    across labels, then :func:`greedy_keep_blocked` (``vcount`` bounds only
+    the kernel's work)."""
     iou = torch.where(labels[:, :, None] == labels[:, None, :], iou,
                       torch.zeros_like(iou))
     return greedy_keep_blocked(iou, valid, iou_thr)
+
+
+def refusal(iou, labels, iou_thr):
+    """The sweep kernel's contract (``ops/route.py``): a float32 IoU of at
+    most ``SWEEP_MAX_K`` candidates, integer labels and ``iou_thr`` >= 0
+    (below 0 the plain gate's zeros would suppress across labels)."""
+    if iou.shape[-1] > SWEEP_MAX_K:
+        return f'the kernel takes K <= {SWEEP_MAX_K}, not {iou.shape[-1]}'
+    if labels.is_floating_point() or labels.is_complex():
+        return f'the kernel compares integer labels, not {labels.dtype}'
+    if iou_thr < 0:
+        return f'the kernel takes iou_thr >= 0, not {iou_thr}'
+    return route.refusal(iou, iou.dtype, want=torch.float32)
+
+
+def greedy_keep_gated_cuda(iou, valid, labels, vcount, iou_thr):
+    """Launch the sweep kernel (``csrc/nms_sweep.cu``) on CUDA tensors:
+    iou (B, K, K) f32, valid (B, K) bool, labels (B, K) integer, vcount
+    (B,) with every valid candidate below it -> keep (B, K) bool."""
+    route.check(refusal(iou, labels, iou_thr), 'nms_sweep')
+    b, k = iou.shape[0], iou.shape[-1]
+    for name, t, shape in (('iou', iou, (b, k, k)), ('valid', valid, (b, k)),
+                           ('labels', labels, (b, k)),
+                           ('vcount', vcount, (b,))):
+        if tuple(t.shape) != shape or t.device != iou.device:
+            raise ValueError(f'{name} must have shape {shape} on {iou.device}'
+                             f', got {tuple(t.shape)} on {t.device}')
+    if valid.dtype != torch.bool:
+        raise ValueError(f'valid must be bool, not {valid.dtype}')
+    keep = torch.empty((b, k), dtype=torch.bool, device=iou.device)
+    if b == 0 or k == 0:
+        return keep
+    iou = iou.contiguous()
+    labels = labels.to(torch.int64).contiguous()
+    valid = valid.contiguous()
+    vcount = vcount.to(torch.int32).contiguous()
+    mask = torch.empty((b, k, -(-k // 64)), dtype=torch.int64,
+                       device=iou.device)
+    _ext.launch('nms_sweep', iou.data_ptr(), labels.data_ptr(),
+                valid.data_ptr(), vcount.data_ptr(), float(iou_thr),
+                mask.data_ptr(), keep.data_ptr(), b, k,
+                _ext.current_stream(iou.device))
+    return keep
+
+
+def greedy_keep_gated(iou, valid, labels, vcount, iou_thr):
+    """Label-gated greedy keep (B, K) of score-sorted candidates from
+    their (B, K, K) IoU (only j < i pairs are read; tiles past ``vcount``
+    may be zero): the kernel where :func:`refusal` holds, the plain form
+    otherwise. The same set either way."""
+    if refusal(iou, labels, iou_thr) is None:
+        return greedy_keep_gated_cuda(iou, valid, labels, vcount, iou_thr)
+    return greedy_keep_gated_reference(iou, valid, labels, vcount, iou_thr)
+
+
+def greedy_keep_dense(boxes, valid, labels, iou_thr, vcount):
+    """Label-gated greedy keep of score-sorted candidates (B, K) from the
+    whole (B, K, K) IoU: one IoU call (K1 on a card, ``upper_only``,
+    tiles past ``vcount`` (B,) skipped), then :func:`greedy_keep_gated`.
+    """
+    vcount = vcount.to(torch.int32)
+    iou = rotated_iou(boxes.contiguous(), boxes.contiguous(),
+                      upper_only=True, valid_count=vcount)
+    return greedy_keep_gated(iou, valid, labels, vcount, iou_thr)
 
 
 def greedy_keep_streamed(boxes, valid, labels, iou_thr, vcount,

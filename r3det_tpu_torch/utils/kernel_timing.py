@@ -10,6 +10,7 @@ and ``tools/kernel_bench.py``.
   the peak rate of their type;
 - ``iou_work`` and ``frm_work``: those bytes and operations for K1
   (``ops/rotated_iou.py``) and K2 (``ops/frm_sample.py``) on given inputs;
+- ``nms_sweep_work``: the bound of the NMS sweep kernel (``ops/nms.py``);
 - ``r50_epilogues`` and ``epilogue_bytes``: the conv epilogues of a
   ResNet-50 forward (``ops/conv_epilogue.py``) and the bytes of one;
 - ``swin_attn_work``: the bounds of Swin's two attention kernels
@@ -107,6 +108,20 @@ def iou_work(boxes, vc, out, boxes2=None):
     return dict(live_pairs=live, tested_pairs=tested, near_pairs=near,
                 near_share=near / max(tested, 1), bound_ms=b_ms,
                 bound_by=by, bound_all_pairs_ms=all_ms)
+
+
+def nms_sweep_work(labels, vcount):
+    """The NMS sweep kernel's bound on one call: the f32 IoU of each
+    same-label pair j < i below an image's live count ``vcount`` (the only
+    pairs its keep set depends on), one compare each; the labels (int64)
+    and valid flags read and the keep flags written once."""
+    b, k = labels.shape
+    pairs = 0
+    for lab, v in zip(labels, vcount.tolist()):
+        counts = lab[:v].unique(return_counts=True)[1]
+        pairs += int((counts * (counts - 1) // 2).sum())
+    b_ms, by = bound(pairs * 4 + b * k * 10, pairs, 'f32')
+    return dict(gated_pairs=pairs, bound_ms=b_ms, bound_by=by)
 
 
 def frm_work(xs, rois, points):

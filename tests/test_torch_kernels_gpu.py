@@ -22,6 +22,7 @@ from r3det_tpu_torch.ops import bottleneck_fuse as K5
 from r3det_tpu_torch.ops import conv_epilogue as E
 from r3det_tpu_torch.ops import frm_sample as K2
 from r3det_tpu_torch.ops import int8_conv as Q
+from r3det_tpu_torch.ops import nms
 from r3det_tpu_torch.ops import rotated_iou as K1
 from r3det_tpu_torch.ops import stem_pool as K3
 from r3det_tpu_torch.ops import swin_attn as A
@@ -29,7 +30,8 @@ from r3det_tpu_torch.ops.route import kernels
 from r3det_tpu_torch.parallel.predict import make_predict_step
 from r3det_tpu_torch.utils.convert import seeded_state_dict
 
-from program_spans import traced
+from program_spans import sweep_branch, traced
+from test_torch_nms_sweep import sequential_keep, tie_scene
 
 
 @pytest.fixture
@@ -126,7 +128,6 @@ def test_streamed_sweep_kernel_matches_plain(cuda):
     """The streamed sweep with K1 keeps what its plain route and the dense
     sweep keep (a dead tail, a hole, labels), one K1 launch a block; the
     batched multiclass NMS above STREAM_THRESHOLD the same both ways."""
-    from r3det_tpu_torch.ops import nms
     rng = np.random.RandomState(12)
     k = 2600
     b = boxes(rng, 2, k).to(cuda)
@@ -154,6 +155,96 @@ def test_streamed_sweep_kernel_matches_plain(cuda):
     with kernels(False):
         want = nms.multiclass_nms_rotated_batched(mboxes, mscores, **args)
     assert all(torch.equal(u, v) for u, v in zip(got, want))
+
+
+def clustered_boxes(rng, b, n, scale=1024.0):
+    """(B, N, 5) f32 numpy: objects of 5 jittered candidates each, in
+    shuffled order, so that greedy NMS has chains to resolve."""
+    objs = rng.uniform(0, scale, (b, -(-n // 5), 2)).repeat(5, 1)[:, :n]
+    out = np.concatenate([objs + rng.uniform(-4, 4, (b, n, 2)),
+                          rng.uniform(12, 60, (b, n, 2)),
+                          rng.uniform(-math.pi / 2, math.pi / 2, (b, n, 1))],
+                         -1)
+    perm = np.argsort(rng.uniform(size=(b, n)), 1)
+    return np.take_along_axis(out, perm[..., None], 1).astype(np.float32)
+
+
+def sweep_case(case, rng, cuda):
+    """(iou, valid, labels, vcount) on the card for one case of
+    test_nms_sweep_kernel_matches_plain: K1's upper_only IoU of clustered
+    candidates, a live prefix with v3 holes in it, or the tie scene."""
+    if case == 'ties':
+        iou, valid, labels, vcount = (torch.from_numpy(a).to(cuda) for a in
+                                      tie_scene(rng, 4, 700))
+        return iou, valid, labels, vcount
+    b, k, live = {'dense': (8, 4000, (2900, 3100)),
+                  'sparse': (8, 2000, (250, 350)),
+                  'ragged': (3, 1337, (600, 1337)),
+                  'vcount_0': (4, 600, (0, 600))}[case]
+    vcount = rng.randint(live[0], live[1] + 1, b)
+    if case == 'vcount_0':
+        vcount[1::2] = 0
+    if case == 'ragged':
+        vcount[0] = k
+    valid = (np.arange(k)[None] < vcount[:, None]) \
+        & (rng.uniform(size=(b, k)) > 0.03)
+    boxes = torch.from_numpy(clustered_boxes(rng, b, k)).to(cuda)
+    vc = torch.from_numpy(vcount.astype(np.int32)).to(cuda)
+    iou = K1.rotated_iou(boxes, boxes, upper_only=True, valid_count=vc)
+    labels = torch.from_numpy(rng.randint(0, 15, (b, k))).to(cuda)
+    return iou, torch.from_numpy(valid).to(cuda), labels, vc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('case', ['dense', 'sparse', 'ragged', 'vcount_0',
+                                  'ties'])
+def test_nms_sweep_kernel_matches_plain(cuda, case):
+    """The sweep kernel keeps what its plain route keeps, bit for bit, one
+    launch a call: (8, 4000) with ~3000 live and 15 labels, (8, 2000) with
+    ~300 live, K no multiple of 64, images with nothing live, v3 holes,
+    IoU at the threshold's f32 rounding and one ulp either side (there also
+    what the sequential loop keeps)."""
+    iou, valid, labels, vcount = sweep_case(case, np.random.RandomState(3),
+                                            cuda)
+    before = _ext.LAUNCHES['nms_sweep']
+    keep = nms.greedy_keep_gated(iou, valid, labels, vcount, 0.1)
+    assert _ext.LAUNCHES['nms_sweep'] == before + 1
+    want = nms.greedy_keep_gated_reference(iou, valid, labels, vcount, 0.1)
+    assert torch.equal(keep, want)
+    if case == 'ties':
+        assert torch.equal(keep.cpu(), torch.from_numpy(sequential_keep(
+            iou.cpu().numpy(), valid.cpu().numpy(), labels.cpu().numpy(),
+            0.1)))
+    kept = keep.sum(1).cpu()
+    live = valid.sum(1).cpu()
+    assert ((kept > 0) == (live > 0)).all() and (kept < live).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('branch', ['small', 'big'])
+def test_batched_nms_sweep_kernel_on_and_off(cuda, branch):
+    """multiclass_nms_rotated_batched gives the same dets, labels and
+    counts with the kernels on (the sweep kernel once a call) and off, on
+    both branches of the budget."""
+    rng = np.random.RandomState(4)
+    b, n, c = 8, 2000, 15
+    mboxes = torch.from_numpy(clustered_boxes(rng, b, n)).to(cuda)
+    mscores = torch.from_numpy(np.concatenate(
+        [rng.uniform(0, 1, (b, n, c)), np.zeros((b, n, 1))], -1)
+        .astype(np.float32)).to(cuda)
+    args = dict(score_thr={'small': 0.99, 'big': 0.05}[branch], iou_thr=0.1,
+                max_num=2000, pre_topk=4000, small_k=2000)
+    before = _ext.LAUNCHES['nms_sweep']
+    got, spans = traced(lambda: nms.multiclass_nms_rotated_batched(
+        mboxes, mscores, **args))
+    assert _ext.LAUNCHES['nms_sweep'] == before + 1
+    assert sweep_branch(spans) == [branch]
+    assert not [s for s in spans if s[0] == 'r3det.sync.fixpoint']
+    with kernels(False):
+        want = nms.multiclass_nms_rotated_batched(mboxes, mscores, **args)
+    assert _ext.LAUNCHES['nms_sweep'] == before + 1
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+    assert (got[2] > 0).all()
 
 
 def iou_case(case, rng):
@@ -1185,9 +1276,10 @@ def test_evaluate_dataset_kernel_route_matches_plain(cuda, tmp_path):
     got = evaluate_dataset(model, cfg, ds, img_size=256, batch_size=2)
     torch.cuda.synchronize()
     steps = -(-len(ds) // 2)
-    assert {k: _ext.LAUNCHES[k] for k in ('rotated_iou', 'frm_sample',
-                                          'stem_conv_pool')} == dict(
-        rotated_iou=steps, frm_sample=steps, stem_conv_pool=steps)
+    assert {k: _ext.LAUNCHES[k] for k in ('rotated_iou', 'nms_sweep',
+                                          'frm_sample', 'stem_conv_pool')} \
+        == dict(rotated_iou=steps, nms_sweep=steps, frm_sample=steps,
+                stem_conv_pool=steps)
     use_kernels(model, False)
     try:
         plain = evaluate_dataset(model, cfg, ds, img_size=256, batch_size=2)
@@ -1799,20 +1891,22 @@ STEP_ROUTES = {
 # route -> the kernels one predict step launches (batch 2 of 256^2, seeded
 # weights), each with its count; kernels that do not launch are left out
 STEP_LAUNCHES = {
-    'r3det_r50_bf16': {'rotated_iou': 1, 'frm_sample': 1,
+    'r3det_r50_bf16': {'rotated_iou': 1, 'nms_sweep': 1, 'frm_sample': 1,
                        'stem_conv_pool': 1, 'conv_epilogue': 48},
-    'rretinanet_r50_bf16': {'rotated_iou': 1, 'stem_conv_pool': 1,
+    'rretinanet_r50_bf16': {'rotated_iou': 1, 'nms_sweep': 1,
+                            'stem_conv_pool': 1, 'conv_epilogue': 48},
+    'rretinanet_swin_t_bf16': {'rotated_iou': 1, 'nms_sweep': 1,
+                               'swin_norm_pad': 12, 'swin_window_attn': 12},
+    'r3det_r50_int8_static': {'rotated_iou': 1, 'nms_sweep': 1,
+                              'frm_sample': 1, 'stem_conv_pool_q8': 1,
+                              'int8_conv': 155},
+    'r3det_r50_fused_blocks': {'rotated_iou': 1, 'nms_sweep': 1,
+                               'frm_sample': 1, 'stem_conv_pool': 1,
+                               'bottleneck': 10, 'conv_epilogue': 18},
+    'r3det_r50_stem_pool': {'rotated_iou': 1, 'nms_sweep': 1,
+                            'frm_sample': 1, 'stem_pool': 1,
                             'conv_epilogue': 48},
-    'rretinanet_swin_t_bf16': {'rotated_iou': 1, 'swin_norm_pad': 12,
-                               'swin_window_attn': 12},
-    'r3det_r50_int8_static': {'rotated_iou': 1, 'frm_sample': 1,
-                              'stem_conv_pool_q8': 1, 'int8_conv': 155},
-    'r3det_r50_fused_blocks': {'rotated_iou': 1, 'frm_sample': 1,
-                               'stem_conv_pool': 1, 'bottleneck': 10,
-                               'conv_epilogue': 18},
-    'r3det_r50_stem_pool': {'rotated_iou': 1, 'frm_sample': 1,
-                            'stem_pool': 1, 'conv_epilogue': 48},
-    'r3det_r50_f32': {'rotated_iou': 1},
+    'r3det_r50_f32': {'rotated_iou': 1, 'nms_sweep': 1},
 }
 
 
