@@ -10,7 +10,9 @@ Port of ``__graft_entry__.py``:
   zero batch; ``fn`` returns the sum of every ``s0``, ``sr`` and ``rois``
   tensor, so that every head output is computed. ``entry(device,
   'swin')`` builds rotated RetinaNet on Swin-T instead, through the
-  config builder from mmdet's model dict (``SWIN_T_RRETINANET``).
+  config builder from mmdet's model dict (``SWIN_T_RRETINANET``), and
+  ``entry(device, 'lsknet')`` on LSKNet-S from mmrotate's
+  (``LSKNET_S_RRETINANET``).
 - ``dryrun_multichip(n)`` runs one SGD step of JAX's tiny R3Det (depth 10,
   width 32, one stacked conv, one refine stage, 3 classes, 64^2 images,
   the same ``RandomState(0)`` batch of ``n`` images) on ``n`` gloo ranks
@@ -65,18 +67,34 @@ SWIN_T_RRETINANET = dict(
                    loss_bbox=dict(type='L1Loss', loss_weight=1.0)))
 
 
+# LSKNet-S as github.com/zcablii/LSKNet's
+# configs/lsknet/lsk_s_fpn_1x_dota_le90.py builds it (mlp_ratios the
+# class's default) under the same rotated RetinaNet, the FPN on its last
+# three stages
+LSKNET_S_RRETINANET = dict(
+    SWIN_T_RRETINANET,
+    backbone=dict(type='LSKNet', embed_dims=[64, 128, 320, 512],
+                  depths=[2, 2, 4, 2], mlp_ratios=[8, 8, 4, 4],
+                  drop_rate=0.1, drop_path_rate=0.1,
+                  norm_cfg=dict(type='SyncBN', requires_grad=True)),
+    neck=dict(type='FPN', in_channels=[64, 128, 320, 512], out_channels=256,
+              start_level=1, add_extra_convs='on_input', num_outs=5))
+
+MODEL_DICTS = {'swin': SWIN_T_RRETINANET, 'lsknet': LSKNET_S_RRETINANET}
+
+
 def entry(device='cuda', backbone='resnet'):
     """The flagship model's forward on one device: ``(fn, (images,))``.
     On the card unless ``device='cpu'``; ``backbone='swin'`` builds
-    ``SWIN_T_RRETINANET``."""
+    ``SWIN_T_RRETINANET``, ``'lsknet'`` ``LSKNET_S_RRETINANET``."""
     import torch
 
     from .models.detectors import R3DET_R50_V1, build_detector
     from .utils.builder import build_from_config
     from .utils.convert import seeded_state_dict
 
-    if backbone == 'swin':
-        model, _ = build_from_config({'model': SWIN_T_RRETINANET},
+    if backbone in MODEL_DICTS:
+        model, _ = build_from_config({'model': MODEL_DICTS[backbone]},
                                      dtype=torch.bfloat16, device=device)
     else:
         model = build_detector(R3DET_R50_V1, dtype=torch.bfloat16,

@@ -21,11 +21,13 @@ num (B,)).
 ``frm_points``, ``frm_transpose_quirk``, ``frm_fuse_convs`` and
 ``frm_sample_kernel`` (see ``models/frm.py``).
 The config's ``backbone`` names the trunk: ``'resnet'`` (the default,
-``backbone_depth``) or ``'swin'`` (``models/swin.py``, sized by the
-``swin_*`` fields; Swin-T by default). The ResNet-only options
-(``quantize``, ``quantize_head``, ``int8_act``, ``stem_fused_kernel``,
-``stem_pool_kernel``, ``fused_blocks``) raise with a Swin backbone unless
-they are at their defaults.
+``backbone_depth``), ``'swin'`` (``models/swin.py``, sized by the
+``swin_*`` fields; Swin-T by default) or ``'lsknet'``
+(``models/lsknet.py``, sized by the ``lsk_*`` fields; LSKNet-S by
+default). The ResNet-only options (``quantize``, ``quantize_head``,
+``int8_act``, ``stem_fused_kernel``, ``stem_pool_kernel``,
+``fused_blocks``) raise with another backbone unless they are at their
+defaults.
 ``kernels`` (default on): the detector's forward runs under
 ``ops/route.py``'s ``kernels(self.kernels)``; off, the plain PyTorch
 versions run everywhere.
@@ -47,6 +49,7 @@ from ..parallel import dist
 from ..utils.tracing import span
 from .fpn import FPN
 from .frm import FeatureRefineModule
+from .lsknet import LSKNet
 from .losses import (l1_loss, sigmoid_bce_loss, sigmoid_focal_loss,
                      smooth_l1_loss)
 from .resnet import ResNet
@@ -107,8 +110,9 @@ class DetectorConfig(NamedTuple):
     hbb_anchors: bool = False
     quantize: Any = False
     quantize_head: Any = False
-    # the trunk: 'resnet' (backbone_depth) or 'swin' (the swin_* fields,
-    # mmdet's SwinTransformer arguments; Swin-T's by default)
+    # the trunk: 'resnet' (backbone_depth), 'swin' (the swin_* fields,
+    # mmdet's SwinTransformer arguments; Swin-T's by default) or 'lsknet'
+    # (the lsk_* fields, mmrotate's LSKNet arguments; LSKNet-S's by default)
     backbone: str = 'resnet'
     swin_embed_dims: int = 96
     swin_depths: Tuple[int, ...] = (2, 2, 6, 2)
@@ -117,6 +121,9 @@ class DetectorConfig(NamedTuple):
     swin_mlp_ratio: int = 4
     swin_patch_size: int = 4
     swin_out_indices: Tuple[int, ...] = (1, 2, 3)
+    lsk_embed_dims: Tuple[int, ...] = (64, 128, 320, 512)
+    lsk_depths: Tuple[int, ...] = (2, 2, 4, 2)
+    lsk_mlp_ratios: Tuple[int, ...] = (8, 8, 4, 4)
 
     @property
     def num_anchors(self) -> int:
@@ -154,7 +161,7 @@ class _Base(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.kernels = kernels
-        if cfg.backbone == 'swin':
+        if cfg.backbone != 'resnet':
             given = dict(quantize=cfg.quantize,
                          quantize_head=cfg.quantize_head,
                          int8_act=int8_act,
@@ -163,8 +170,10 @@ class _Base(nn.Module):
                          fused_blocks=fused_blocks)
             bad = sorted(k for k, v in given.items() if v)
             if bad:
-                raise ValueError(f'{bad}: ResNet-only options; a Swin '
-                                 'backbone takes them at their defaults')
+                raise ValueError(f'{bad}: ResNet-only options; a '
+                                 f'{cfg.backbone!r} backbone takes them at '
+                                 'their defaults')
+        if cfg.backbone == 'swin':
             self.backbone = SwinTransformer(
                 embed_dims=cfg.swin_embed_dims, depths=cfg.swin_depths,
                 num_heads=cfg.swin_num_heads,
@@ -172,6 +181,10 @@ class _Base(nn.Module):
                 mlp_ratio=cfg.swin_mlp_ratio,
                 patch_size=cfg.swin_patch_size,
                 out_indices=cfg.swin_out_indices, dtype=dtype)
+        elif cfg.backbone == 'lsknet':
+            self.backbone = LSKNet(
+                embed_dims=cfg.lsk_embed_dims, depths=cfg.lsk_depths,
+                mlp_ratios=cfg.lsk_mlp_ratios, dtype=dtype)
         elif cfg.backbone == 'resnet':
             self.backbone = ResNet(
                 depth=cfg.backbone_depth, dtype=dtype,
@@ -181,7 +194,7 @@ class _Base(nn.Module):
                 fused_blocks=fused_blocks, int8_act=int8_act)
         else:
             raise ValueError(f'backbone {cfg.backbone!r}: not provided '
-                             "('resnet' or 'swin')")
+                             "('resnet', 'swin' or 'lsknet')")
         self.neck = FPN(in_channels=self.backbone.out_channels,
                         out_channels=cfg.feat_channels,
                         quantize=cfg.quantize)

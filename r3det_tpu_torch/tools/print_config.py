@@ -18,17 +18,22 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+# the fields that size each backbone
+_OWN = {'resnet': ('backbone_depth', 'frozen_stages'), 'swin': ('swin_',),
+        'lsknet': ('lsk_',)}
+
+
 def derived_fields(det_cfg):
-    """``det_cfg``'s fields as a dict, less those of the backbone it does
+    """``det_cfg``'s fields as a dict, less those of the backbones it does
     not build: a ResNet's config leaves out ``backbone`` and the ``swin_*``
-    sizes (so its text is the JAX tool's), a Swin's ``backbone_depth``
-    and ``frozen_stages``."""
+    and ``lsk_*`` sizes (so its text is the JAX tool's), a Swin's
+    ``backbone_depth``, ``frozen_stages`` and the ``lsk_*`` sizes, an
+    LSKNet's those and the ``swin_*`` sizes."""
+    others = tuple(p for kind, own in _OWN.items()
+                   if kind != det_cfg.backbone for p in own)
     d = det_cfg._asdict()
-    if det_cfg.backbone == 'resnet':
-        drop = ['backbone'] + [k for k in d if k.startswith('swin_')]
-    else:
-        drop = ['backbone_depth', 'frozen_stages']
-    return {k: v for k, v in d.items() if k not in drop}
+    return {k: v for k, v in d.items() if not k.startswith(others)
+            and not (k == 'backbone' and v == 'resnet')}
 
 
 def main(argv=None):

@@ -14,13 +14,17 @@ Every build option of the JAX package's builder reaches the port's
 selects candidates exactly.
 
 The backbone dict's ``type`` picks the trunk: ``ResNet`` (``depth``,
-``frozen_stages``) or mmdet's ``SwinTransformer`` (``embed_dims``,
+``frozen_stages``), mmdet's ``SwinTransformer`` (``embed_dims``,
 ``depths``, ``num_heads``, ``window_size``, ``mlp_ratio``,
-``patch_size``, ``out_indices`` onto the ``swin_*`` fields). A Swin
-backbone's neck must lay its laterals on the backbone's outputs
-(``in_channels[start_level:]`` the Swin widths at ``out_indices``); the
-Swin variants the port does not build (no qkv bias, a ``qk_scale``, no
-patch norm, an absolute position embedding, other strides) raise.
+``patch_size``, ``out_indices`` onto the ``swin_*`` fields) or mmrotate's
+``LSKNet`` (``embed_dims``, ``depths``, ``mlp_ratios`` onto the ``lsk_*``
+fields; the drop rates, ``norm_cfg``, ``img_size``, ``pretrained`` and
+``init_cfg`` are accepted and ignored). Such a backbone's neck must lay
+its laterals on the backbone's last three outputs
+(``in_channels[start_level:]``); the Swin variants the port does not
+build (no qkv bias, a ``qk_scale``, no patch norm, an absolute position
+embedding, other strides) and an LSKNet of other input channels or
+another stage count raise.
 """
 import warnings
 
@@ -165,6 +169,7 @@ def detector_config_from_dict(model: dict, train_cfg: dict = None,
         frozen_stages=model.get('backbone', {}).get('frozen_stages', 1),
         backbone_depth=model.get('backbone', {}).get('depth', 50),
         **_swin_fields(model),
+        **_lsk_fields(model),
         # framework extension: int8 PTQ serving (models/quant.py)
         quantize=_quant_flag(model, test_cfg, 'quantize_int8'),
         quantize_head=_quant_flag(model, test_cfg, 'quantize_head_int8'),
@@ -198,13 +203,44 @@ def _swin_fields(model):
                                   f"{bb['strides']!r}: the port builds "
                                   f"({patch}, 2, 2, 2) only")
     widths = [d.swin_embed_dims * 2 ** i for i in d.swin_out_indices]
+    _check_neck(model, widths, 'Swin')
+    return dict(fields, backbone='swin')
+
+
+def _check_neck(model, widths, kind):
+    """Raise unless the neck's laterals lie on the last three of the
+    backbone's output ``widths``."""
     neck = dict(model.get('neck', {}))
     used = list(neck.get('in_channels', widths))[neck.get('start_level', 0):]
-    if used != widths[-3:]:
+    if used != list(widths[-3:]):
         raise ValueError(f'neck in_channels[start_level:] {used} do not '
-                         f'fit the Swin outputs {widths}: the FPN lays its '
-                         'laterals on the last three')
-    return dict(fields, backbone='swin')
+                         f'fit the {kind} outputs {list(widths)}: the FPN '
+                         'lays its laterals on the last three')
+
+
+_LSK_KEYS = ('embed_dims', 'depths', 'mlp_ratios')
+
+
+def _lsk_fields(model):
+    """The ``backbone`` and ``lsk_*`` fields of an mmrotate model dict ({}
+    for another backbone)."""
+    bb = dict(model.get('backbone', {}))
+    if bb.get('type') != 'LSKNet':
+        return {}
+    d = DetectorConfig(**{f'lsk_{k}': tuple(bb[k]) for k in _LSK_KEYS
+                          if k in bb})
+    if bb.get('in_chans', 3) != 3:
+        raise NotImplementedError(f"LSKNet in_chans={bb['in_chans']!r}: "
+                                  'the port takes RGB images only')
+    stages = bb.get('num_stages', len(d.lsk_depths))
+    if not stages == len(d.lsk_depths) == len(d.lsk_embed_dims) \
+            == len(d.lsk_mlp_ratios):
+        raise ValueError(f'LSKNet num_stages={stages}, embed_dims '
+                         f'{d.lsk_embed_dims}, depths {d.lsk_depths}, '
+                         f'mlp_ratios {d.lsk_mlp_ratios}: one a stage')
+    _check_neck(model, d.lsk_embed_dims, 'LSKNet')
+    return dict(lsk_embed_dims=d.lsk_embed_dims, lsk_depths=d.lsk_depths,
+                lsk_mlp_ratios=d.lsk_mlp_ratios, backbone='lsknet')
 
 
 def _quant_flag(model, test_cfg, key):

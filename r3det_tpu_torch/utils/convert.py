@@ -21,13 +21,23 @@ weights but have no checkpoint. A Swin backbone's linears are
 lecun-normal too, its LayerNorm gains 1 and its relative-position bias
 tables normal(0, 1) (mmdet draws them at 0.02, which leaves each block's
 branch a few percent of the residual stream); integer buffers (the bias
-index) keep the module's values. Its int8 activation ranges are 0, the
+index) keep the module's values. An LSKNet backbone's layer scales are 1
+(the source starts them at 1e-2) and each of its BNs (a module with a
+``running_var``) is drawn far from the identity: gain and running mean
+normal(0, 1), bias normal(0, 0.5), running variance 2 (``_BN_RULE``); at
+1e-2, or with identity BNs, a comparison with a reference could not see
+a branch or a BN left out. Its int8 activation ranges are 0, the
 uncalibrated state: :func:`..models.quant.calibrate` fills them.
 """
 import numpy as np
 import torch
 
 from ..models.retina_head import focal_bias
+
+# an inference BN's leaves: ('normal', std) or ('fill', value)
+_BN_RULE = {'weight': ('normal', 1.0), 'bias': ('normal', 0.5),
+            'running_mean': ('normal', 1.0), 'running_var': ('fill', 2.0)}
+
 
 def _is_stem_kernel(path):
     """The ResNet's own ``conv1/kernel`` (not a bottleneck's conv1)."""
@@ -64,14 +74,22 @@ def seeded_state_dict(model, seed):
     ``seed``: the same seed gives the same weights on every machine."""
     rng = np.random.RandomState(seed)
     sd = {}
-    for name, t in model.state_dict().items():
+    state = model.state_dict()
+    bns = {n.rpartition('.')[0] for n in state if n.endswith('.running_var')}
+    for name, t in state.items():
         shape = tuple(t.shape)
         head = name.startswith(('bbox_head.', 'refine_head_', 'frm_'))
-        leaf = name.rsplit('.', 1)[-1]
+        module, _, leaf = name.rpartition('.')
         if not t.is_floating_point():
             sd[name] = t.detach().clone()
             continue
-        if leaf == 'kernel':                    # stem, HWIO
+        if module in bns and leaf in _BN_RULE:
+            kind, value = _BN_RULE[leaf]
+            v = rng.normal(0.0, value, shape) if kind == 'normal' \
+                else np.full(shape, value)
+        elif leaf.startswith('layer_scale_'):
+            v = np.ones(shape)
+        elif leaf == 'kernel':                  # stem, HWIO
             fan_in = shape[0] * shape[1] * shape[2]
             v = rng.normal(0.0, fan_in ** -0.5, shape)
         elif leaf == 'weight' and len(shape) == 1:      # LayerNorm gain

@@ -1660,6 +1660,91 @@ def test_swin_t_spans_and_no_host_round_trip(cuda):
     assert copies == []
 
 
+
+# The LSKNet-S backbone (models/lsknet.py) in bf16 on the card against its
+# own float32 plain route and the benchmark's float32 reference
+# (portbench/reference/backbones/lsknet.py)
+
+def lsknet_models(dev, seed=7):
+    """The port's rotated RetinaNet LSKNet-S in bf16 and in float32, and
+    the float32 reference detector, on one seeded state, from the
+    benchmark's configuration."""
+    import json
+    from pathlib import Path
+
+    from portbench.bench import common
+    from portbench.reference.model import Detector
+    root = Path(__file__).resolve().parent.parent / 'portbench'
+    cfg = json.loads((root / 'configs' / 'rretinanet_obb_lsknet_s.json')
+                     .read_text())
+    ref = Detector(cfg).to(dev)
+    state = common.seeded_state(ref, seed, dev)
+    ref.load_state_dict(state)
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        model = build_detector(common.program_config(cfg), dtype=dtype,
+                               device=dev)
+        model.load_state_dict(state)
+        out.append(model)
+    return out[0], out[1], ref
+
+
+@pytest.mark.gpu
+def test_lsknet_s_bf16_matches_the_float32_plain_route(cuda):
+    """Published widths, one 512^2 image: each stage's output within 3%
+    (relative norm) of the same port in float32 (TF32 off). bf16 stores
+    each activation to 2^-9, and the residual stream of a stage carries
+    it through up to four blocks whose gate multiplies two rounded
+    branches (the CPU reads 0.6-1.5% a stage at 256^2, stage 3 the
+    largest); the reference computed in fp8 reads 5.6-17% and misses the
+    bound."""
+    from portbench.bench import check
+    model, plain, ref = lsknet_models(cuda)
+    g = torch.Generator(cuda).manual_seed(1)
+    x = torch.rand(1, 512, 512, 3, generator=g, device=cuda) * 4 - 2
+    with torch.no_grad():
+        got = model.backbone(x)
+        want = plain.backbone(x)
+        low = check.quantized(ref.backbone, 'fp8', x)
+    assert [tuple(t.shape) for t in got] == [
+        (1, 64, 128, 128), (1, 128, 64, 64), (1, 320, 32, 32),
+        (1, 512, 16, 16)]
+    assert all(t.dtype == torch.bfloat16 and
+               t.is_contiguous(memory_format=torch.channels_last)
+               for t in got)
+    for a, b, c in zip(got, want, low):
+        assert b.dtype == torch.float32
+        assert check.rel_err([a], [b]) < 0.03
+        assert check.rel_err([c], [b]) > 0.03
+
+
+@pytest.mark.gpu
+def test_lsknet_s_spans_and_no_host_round_trip(cuda):
+    """With the spans on, a forward records 4 embed, 10 attn, 10 mlp and 4
+    norm ranges and no copy or sync range; once the BN affines are folded,
+    it makes no host-to-device copy and no synchronising call."""
+    from torch.profiler import ProfilerActivity, profile
+    model, _, _ = lsknet_models(cuda)
+    x = torch.rand(2, 256, 256, 3, device=cuda)
+    with torch.no_grad():
+        model.backbone(x)                        # the BN affines, once
+        _, spans = traced(lambda: model.backbone(x))
+        names = [n for n, _, _ in spans]
+        assert {n: names.count(n) for n in set(names)} == {
+            'r3det.backbone.lsk.embed': 4, 'r3det.backbone.lsk.attn': 10,
+            'r3det.backbone.lsk.mlp': 10, 'r3det.backbone.lsk.norm': 4}
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.set_sync_debug_mode('error')
+            try:
+                model.backbone(x)
+            finally:
+                torch.cuda.set_sync_debug_mode('default')
+            torch.cuda.synchronize()
+    copies = [e.name for e in prof.events() if 'HtoD' in e.name]
+    assert copies == []
+
+
 # ---------------------------------------------------------------------------
 # Swin's window-attention kernels (csrc/swin_attn.cu, ops/swin_attn.py)
 # ---------------------------------------------------------------------------
@@ -1877,6 +1962,8 @@ STEP_ROUTES = {
     'rretinanet_r50_bf16': ('rretinanet_obb_r50', torch.bfloat16, {}, {}),
     'rretinanet_swin_t_bf16': ('rretinanet_obb_swin_t', torch.bfloat16, {},
                                {}),
+    'rretinanet_lsknet_s_bf16': ('rretinanet_obb_lsknet_s', torch.bfloat16,
+                                 {}, {}),
     'r3det_r50_int8_static': ('r3det_r50', torch.bfloat16,
                               dict(quantize='static', quantize_head='static'),
                               dict(int8_act=True)),
@@ -1897,6 +1984,7 @@ STEP_LAUNCHES = {
                             'stem_conv_pool': 1, 'conv_epilogue': 48},
     'rretinanet_swin_t_bf16': {'rotated_iou': 1, 'nms_sweep': 1,
                                'swin_norm_pad': 12, 'swin_window_attn': 12},
+    'rretinanet_lsknet_s_bf16': {'rotated_iou': 1, 'nms_sweep': 1},
     'r3det_r50_int8_static': {'rotated_iou': 1, 'nms_sweep': 1,
                               'frm_sample': 1, 'stem_conv_pool_q8': 1,
                               'int8_conv': 155},
