@@ -37,7 +37,14 @@ Phases, one line each (any failure raises and the exit code is 1):
    run at Swin-T's four stage shapes of batch 8 of 1024^2, the window
    attention unshifted and shifted, each within the card tests' tolerance
    of its plain form, beside its plain time and bytes bound, summed by
-   ``[kernel_sum]`` over the 12 launches of a forward. The NMS sweep
+   ``[kernel_sum]`` over the 12 launches of a forward. LSKNet's attention
+   kernels (``csrc/lsk_attn.cu``: the taps, the selection, the three
+   epilogues) run at LSKNet-S's four stage shapes of batch 8 of 1024^2 on
+   the route's own products, each within the card tests' tolerance of its
+   plain form, beside its plain time and its bound (``lsk_attn_work``),
+   with the whole sub-block on the route against the eager one
+   (``name=lsk_attention``), summed by ``[kernel_sum]`` over the 10
+   launches of a forward. The NMS sweep
    (``csrc/nms_sweep.cu``) runs on K1's IoU of SWEEP_SCENES' candidates
    (8 x 4000 with ~3000 live, 8 x 2000 with ~300; 15 labels), keeping its
    plain route's set, beside that route's time (its fixpoint's host syncs
@@ -54,7 +61,11 @@ Phases, one line each (any failure raises and the exit code is 1):
    no Swin kernel runs there. ``[swin]``: a bf16 Swin-T backbone (seeded,
    batch 8 of 1024^2) with its counts reset launches each attention
    kernel 12 times and no other kernel, and its outputs err no more
-   against its float32 run than the eager bf16 route's.
+   against its float32 run than the eager bf16 route's. ``[lsk]``: a bf16
+   LSKNet-S backbone (seeded, batch 8 of 1024^2) launches each attention
+   kernel 10 times and no other kernel, its outputs err within 1.25 times
+   the eager bf16 route's against its float32 run, and its ms a forward
+   beside the eager route's.
    Then ``[nms_stream]``: the same model and batch with
    ``nms_candidates=STREAM_CANDIDATES`` (8000) and the refine cls bias set
    for about STREAM_LIVE (6000) live candidates an image: the big
@@ -190,7 +201,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from r3det_tpu_torch.utils.kernel_timing import (  # noqa: E402
     add_bound, add_bound_ms, cuda_ms, epilogue_bytes, frm_work, graph_ms,
-    iou_work, nms_sweep_work, r50_epilogues, swin_attn_work)
+    iou_work, lsk_attn_work, nms_sweep_work, r50_epilogues, swin_attn_work)
 
 SEED = 0
 BATCH = 8
@@ -217,6 +228,9 @@ SWIN_STAGES = ((256, 96, 3, 2), (128, 192, 6, 2), (64, 384, 12, 6),
                (32, 768, 24, 2))
 SWIN_WINDOW = 7
 SWIN_BLOCKS = 12                  # attention sub-blocks of a Swin-T forward
+# LSKNet-S's stages at 1024^2: (map side, C, blocks)
+LSK_STAGES = ((256, 64, 2), (128, 128, 2), (64, 320, 4), (32, 512, 2))
+LSK_BLOCKS = 10                   # attention sub-blocks of an LSKNet-S forward
 ROUTE_BATCH = 2                   # batch of the opt-in routes
 EVAL_CONFIG = 'configs/debug/r3det_tiny_fake_dota.py'
 EVAL_IMAGES = 8                   # fake-DOTA scenes (700^2): 4 patches each
@@ -277,6 +291,12 @@ REPLACES = {
     'swin_window_attn': 'none',
     # no TPU kernel: XLA's blocked fixpoint sweep
     'nms_sweep': 'r3det_tpu/ops/nms.py:68',
+    # no TPU kernel: the JAX package has no LSKNet
+    'lsk_taps': 'none',
+    'lsk_select': 'none',
+    'lsk_bias_gelu': 'none',
+    'lsk_bias_gate': 'none',
+    'lsk_bias_residual': 'none',
 }
 SOURCES = {
     'rotated_iou': 'r3det_tpu_torch/csrc/rotated_iou.cu',
@@ -292,6 +312,11 @@ SOURCES = {
     'swin_norm_pad': 'r3det_tpu_torch/csrc/swin_attn.cu',
     'swin_window_attn': 'r3det_tpu_torch/csrc/swin_attn.cu',
     'nms_sweep': 'r3det_tpu_torch/csrc/nms_sweep.cu',
+    'lsk_taps': 'r3det_tpu_torch/csrc/lsk_attn.cu',
+    'lsk_select': 'r3det_tpu_torch/csrc/lsk_attn.cu',
+    'lsk_bias_gelu': 'r3det_tpu_torch/csrc/lsk_attn.cu',
+    'lsk_bias_gate': 'r3det_tpu_torch/csrc/lsk_attn.cu',
+    'lsk_bias_residual': 'r3det_tpu_torch/csrc/lsk_attn.cu',
 }
 # the run whose launch counts each kernel reports
 PATH_OF = {'rotated_iou': 'bf16', 'frm_sample': 'bf16',
@@ -300,7 +325,9 @@ PATH_OF = {'rotated_iou': 'bf16', 'frm_sample': 'bf16',
            'bottleneck_q8': 'route_int8', 'int8_conv': 'int8',
            'frm_sample_bwd': 'train', 'conv_epilogue': 'bf16',
            'swin_norm_pad': 'swin', 'swin_window_attn': 'swin',
-           'nms_sweep': 'bf16'}
+           'nms_sweep': 'bf16', 'lsk_taps': 'lsk', 'lsk_select': 'lsk',
+           'lsk_bias_gelu': 'lsk', 'lsk_bias_gate': 'lsk',
+           'lsk_bias_residual': 'lsk'}
 # the kernels each run must launch
 PATH_KERNELS = {
     'bf16': ('rotated_iou', 'nms_sweep', 'frm_sample', 'stem_conv_pool',
@@ -325,6 +352,9 @@ PATH_KERNELS = {
     'hbb_train': ('rotated_iou', 'stem_conv_pool'),
     # a bf16 Swin-T backbone forward: the attention kernels, once a block
     'swin': ('swin_norm_pad', 'swin_window_attn'),
+    # a bf16 LSKNet-S backbone forward: the attention kernels, once a block
+    'lsk': ('lsk_taps', 'lsk_select', 'lsk_bias_gelu', 'lsk_bias_gate',
+            'lsk_bias_residual'),
 }
 
 
@@ -790,6 +820,7 @@ def compare_kernels(dev):
     rec.update(compare_bottlenecks(dev, rng))
     rec['conv_epilogue'] = compare_epilogue(dev, rng)
     rec.update(compare_swin(dev, rng))
+    rec.update(compare_lsk(dev, rng))
     rec['int8_conv'] = int8_conv_route(dev, rng)
     rec['frm_sample_bwd'] = frm_bwd_kernel(dev, rng)
     return rec
@@ -1039,6 +1070,229 @@ def compare_swin(dev, rng):
               bound_ms=f'{rec["bound_ms"]:.4f}',
               bound_share=f'{rec["bound_ms"] / rec["ms"]:.3f}')
     return recs
+
+
+def compare_lsk(dev, rng):
+    """LSKNet's five attention kernels at LSKNet-S's four stage shapes of a
+    batch of 8 1024^2 images, on a block seeded from ``rng`` (every bias
+    and BN drawn wide) and inputs that are the real products of the
+    route, each against its plain form on the card at the card tests'
+    tolerances: ``lsk_taps``' a1 within one bf16 ulp plus 2^-16 of its
+    taps' summed magnitude, a2 the same against the plain dilated taps of
+    the kernel's a1; ``lsk_select`` within one bf16 ulp plus 2^-8 (|b1| +
+    |b2|); the gate and the residual bit for bit, GELU within one bf16
+    ulp. ``ms`` is a launch's device time in a CUDA graph (a map of 8 MB
+    or less stays in L2 between launches: stage 4 is warm), beside its
+    plain form's and its bound (``lsk_attn_work``, from the least work of
+    ``portbench/work/lsknet.py``: 74 taps a channel on the CUDA cores, the
+    bytes at 3.35 TB/s). ``[kernel] name=lsk_attention`` times the whole
+    sub-block on the route (the four products included) against the eager
+    bf16 sub-block; the records and ``[kernel_sum]`` sum each shape's over
+    its launches a forward (10 each)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from portbench.work import lsknet as W
+    from r3det_tpu_torch.models.lsknet import Block
+    from r3det_tpu_torch.ops import lsk_attn as L
+    from r3det_tpu_torch.ops.route import kernels
+
+    bf16 = torch.bfloat16
+    recs = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+            for k in PATH_KERNELS['lsk']}
+    whole = dict(ms=0.0, eager_ms=0.0, bound_ms=0.0)
+
+    def normal(shape, std, mean=0.0):
+        return torch.from_numpy(rng.normal(mean, std, shape).astype(
+            np.float32)).to(dev)
+
+    def within(got, want, atol):
+        diff = (got.float() - want.float()).abs()
+        return float(diff.max()), bool(
+            (diff <= 2 ** -7 * want.float().abs() + atol).all())
+
+    def record(name, n, err, ok, ms, plain_ms, bound, shape, tol):
+        b_ms, by = bound
+        phase('kernel', name=name, shape=str(shape), launches_per_forward=n,
+              max_abs_err=err, tol=tol, ms=f'{ms:.4f}',
+              plain_ms=f'{plain_ms:.4f}', bound_ms=f'{b_ms:.4f}',
+              bound_by=by, bound_share=f'{b_ms / ms:.3f}')
+        check(ok, f'{name} at {shape} disagrees with its plain form')
+        rec = recs[name]
+        rec['max_abs_err'] = max(rec['max_abs_err'], err)
+        rec['ms'] += n * ms
+        rec['plain_ms'] += n * plain_ms
+        add_bound_ms(rec, n * b_ms, by)
+
+    for side, c, depth in LSK_STAGES:
+        block = Block(c, 4).to(dev).to(memory_format=torch.channels_last)
+        with torch.no_grad():
+            for name, prm in block.named_parameters():
+                prm.copy_(normal(prm.shape, prm[0].numel() ** -0.5)
+                          if prm.dim() > 1 else
+                          normal(prm.shape, 0.5, 1.0 if 'norm1.weight' in name
+                                 or 'layer_scale' in name else 0.0))
+            block.norm1.running_mean.copy_(normal((c,), 1.0))
+            block.norm1.running_var.copy_(normal((c,), 0.2, 1.0).abs())
+            p = block.attn_pack(bf16)
+        work = lsk_attn_work(BATCH, side, side, c)
+        x = normal((BATCH, c, side, side), 1.0).to(bf16).contiguous(
+            memory_format=torch.channels_last)
+        xh = x.permute(0, 2, 3, 1)
+        with torch.no_grad():
+            v = F.linear(xh, p.w1)
+            want = L.bias_gelu_reference(v, p.b1)
+            got = L.bias_gelu_cuda(v.clone(), p.b1)
+            err, ok = within(got, want, 0.0)
+            record('lsk_bias_gelu', depth, err, ok,
+                   graph_ms([lambda: L.bias_gelu_cuda(v, p.b1)], 20),
+                   cuda_ms(lambda: L.bias_gelu_reference(v, p.b1), 3),
+                   work['lsk_bias_gelu'], tuple(v.shape), '2^-7*|ref|')
+            v = got
+            got = L.taps_cuda(v, p.taps, p.b0, p.bs)
+            want = L.taps_reference(v, p.taps, p.b0, p.bs)
+            w0 = p.taps[:25].t().reshape(c, 1, 5, 5)
+            ws = p.taps[25:].t().reshape(c, 1, 7, 7)
+            a1 = got[..., :c].permute(0, 3, 1, 2).float().contiguous()
+            mag0 = F.conv2d(v.permute(0, 3, 1, 2).float().abs(), w0.abs(),
+                            p.b0.abs(), padding=2, groups=c)
+            err1, ok1 = within(got[..., :c], want[..., :c],
+                               2 ** -16 * mag0.permute(0, 2, 3, 1))
+            del mag0
+            want2 = F.conv2d(a1, ws, p.bs, padding=9, dilation=3, groups=c)
+            mag1 = F.conv2d(a1.abs(), ws.abs(), p.bs.abs(), padding=9,
+                            dilation=3, groups=c)
+            err2, ok2 = within(got[..., c:], want2.permute(0, 2, 3, 1),
+                               2 ** -16 * mag1.permute(0, 2, 3, 1))
+            del a1, want2, mag1, want
+            record('lsk_taps', depth, max(err1, err2), ok1 and ok2,
+                   graph_ms([lambda: L.taps_cuda(v, p.taps, p.b0, p.bs)],
+                            10),
+                   cuda_ms(lambda: L.taps_reference(v, p.taps, p.b0, p.bs),
+                           3),
+                   work['lsk_taps'], tuple(v.shape),
+                   '2^-7*|ref| + 2^-16*sum|w*v|')
+            b = F.linear(got, p.w12)
+            del got
+            want = L.select_reference(b, p.b12, p.wq, p.bq)
+            got = L.select_cuda(b, p.b12, p.wq, p.bq)
+            bb = (b + p.b12.to(bf16)).float().abs()
+            err, ok = within(got, want, 2 ** -8 * (bb[..., :c // 2]
+                                                   + bb[..., c // 2:]))
+            del bb, want
+            record('lsk_select', depth, err, ok,
+                   graph_ms([lambda: L.select_cuda(b, p.b12, p.wq, p.bq)],
+                            20),
+                   cuda_ms(lambda: L.select_reference(b, p.b12, p.wq, p.bq),
+                           3),
+                   work['lsk_select'], tuple(b.shape),
+                   '2^-7*|ref| + 2^-8*(|b1| + |b2|)')
+            a = F.linear(got, p.w3)
+            want = L.bias_gate_reference(a, p.b3, v)
+            got = L.bias_gate_cuda(a.clone(), p.b3, v)
+            record('lsk_bias_gate', depth,
+                   float((got.float() - want.float()).abs().max()),
+                   same_bits(got, want),
+                   graph_ms([lambda: L.bias_gate_cuda(a, p.b3, v)], 20),
+                   cuda_ms(lambda: L.bias_gate_reference(a, p.b3, v), 3),
+                   work['lsk_bias_gate'], tuple(a.shape), 0.0)
+            a = F.linear(got, p.w2)
+            args = (p.b2, xh, p.inv, p.shift, p.ls)
+            want = L.bias_residual_reference(a, *args)
+            got = L.bias_residual_cuda(a.clone(), *args)
+            record('lsk_bias_residual', depth,
+                   float((got.float() - want.float()).abs().max()),
+                   same_bits(got, want),
+                   graph_ms([lambda: L.bias_residual_cuda(a, *args)], 20),
+                   cuda_ms(lambda: L.bias_residual_reference(a, *args), 3),
+                   work['lsk_bias_residual'], tuple(a.shape), 0.0)
+            del a, got, want, v, b
+
+            def eager():
+                return torch.addcmul(x, block.layer_scale_1.to(bf16).view(
+                    1, -1, 1, 1), block.attn(block.norm1(x)))
+            ms = cuda_ms(lambda: L.attention(x, p), 10)
+            with kernels(False):
+                eager_ms = cuda_ms(eager, 3)
+        act, weights, tensor, f32 = W.attn_work(c)
+        n = BATCH * side * side
+        least = max(W.times((n * act + weights, n * tensor, n * f32))) * 1e3
+        phase('kernel', name='lsk_attention', shape=str(tuple(x.shape)),
+              launches_per_forward=depth, ms=f'{ms:.4f}',
+              eager_ms=f'{eager_ms:.4f}', bound_ms=f'{least:.4f}',
+              bound_share=f'{least / ms:.3f}')
+        whole['ms'] += depth * ms
+        whole['eager_ms'] += depth * eager_ms
+        whole['bound_ms'] += depth * least
+        del x, xh, block, p
+        torch.cuda.empty_cache()
+    for name, rec in recs.items():
+        phase('kernel_sum', name=name, launches=LSK_BLOCKS,
+              ms=f'{rec["ms"]:.4f}', plain_ms=f'{rec["plain_ms"]:.4f}',
+              bound_ms=f'{rec["bound_ms"]:.4f}',
+              bound_share=f'{rec["bound_ms"] / rec["ms"]:.3f}')
+    phase('kernel_sum', name='lsk_attention', launches=LSK_BLOCKS,
+          ms=f'{whole["ms"]:.4f}', eager_ms=f'{whole["eager_ms"]:.4f}',
+          bound_ms=f'{whole["bound_ms"]:.4f}',
+          bound_share=f'{whole["bound_ms"] / whole["ms"]:.3f}')
+    return recs
+
+
+def lsk_forward(dev, card):
+    """[lsk]: a bf16 LSKNet-S backbone (published widths, weights from a
+    numpy seed) on a batch of 8 1024^2 images, the launch counts set to 0
+    just before it: each attention kernel launches once a block (10) and
+    no other kernel of the port runs. Its four outputs against the same
+    module run in float32 (the plain route): the kernels' route errs
+    within 1.25 times the eager bf16 route at each. The backbone's ms on
+    both routes (CUDA events). Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from r3det_tpu_torch import _ext
+    from r3det_tpu_torch.models.lsknet import LSKNet
+    from r3det_tpu_torch.ops.route import kernels
+    from r3det_tpu_torch.utils.convert import seeded_state_dict
+
+    net = LSKNet(dtype=torch.bfloat16)
+    net.load_state_dict(seeded_state_dict(net, SEED))
+    net = net.to(dev, memory_format=torch.channels_last)
+    rng = np.random.RandomState(SEED)
+    images = torch.from_numpy(rng.uniform(-2, 2, (BATCH, SIZE, SIZE, 3))
+                              .astype(np.float32)).to(dev)
+    with torch.no_grad():
+        net(images)                                   # warm-up
+        torch.cuda.synchronize()
+        _ext.reset_launches()
+        route = net(images)
+        torch.cuda.synchronize()
+        launches = dict(_ext.LAUNCHES)
+        route_ms = cuda_ms(lambda: net(images), 5)
+        with kernels(False):
+            eager = net(images)
+            eager_ms = cuda_ms(lambda: net(images), 5)
+            net.dtype = torch.float32
+            want = net(images)
+    phase('launches', path='lsk', **launches)
+    for name in PATH_KERNELS['lsk']:
+        check(launches[name] == LSK_BLOCKS,
+              f'{name} launched {launches[name]} times an LSKNet-S forward, '
+              f'not {LSK_BLOCKS}')
+    check(all(n == 0 for k, n in launches.items()
+              if k not in PATH_KERNELS['lsk']),
+          'a kernel other than the attention kernels ran in LSKNet-S')
+    errs = [(_rel_l2(r, w), _rel_l2(e, w))
+            for r, e, w in zip(route, eager, want)]
+    phase('lsk', batch=BATCH, size=SIZE, backbone_ms=f'{route_ms:.3f}',
+          eager_backbone_ms=f'{eager_ms:.3f}',
+          kernel_err=[f'{k:.5f}' for k, _ in errs],
+          eager_err=[f'{e:.5f}' for _, e in errs], card=card)
+    check(all(k <= 1.25 * e for k, e in errs),
+          'the kernels\' route errs more than 1.25 times the eager route')
+    del net, images, route, eager, want
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _rel_l2(a, b):
@@ -3404,7 +3658,8 @@ def main():
 
     rec = compare_kernels(dev)
     base = end_to_end(dev, smi)
-    launches = {'bf16': base['launches'], 'swin': swin_forward(dev, smi)}
+    launches = {'bf16': base['launches'], 'swin': swin_forward(dev, smi),
+                'lsk': lsk_forward(dev, smi)}
     launches['stream'] = nms_stream(dev, smi, base)
     launches['nms_family'] = nms_family(dev, smi)
     launches['int8'], model_q = int8_serving(dev, smi, base)

@@ -85,6 +85,17 @@ _SIGNATURES = {
     # (B,) int32, thr, mask scratch (B, K, ceil(K / 64)) u64, keep, B, K,
     # stream
     'nms_sweep': (_P,) * 4 + (_F, _P, _P, _I, _I, _P),
+    # LSKNet's attention sub-block (csrc/lsk_attn.cu). v, taps (74, C) f32,
+    # b0, bs (C,) f32, out (B, H, W, 2C), B, H, W, C, stream
+    'lsk_taps': (_P,) * 5 + (_I,) * 4 + (_P,),
+    # b, cb (C,) f32, wq (2, 2, 7, 7) f32, bq (2,) f32, out, B, H, W, C,
+    # tile, stream
+    'lsk_select': (_P,) * 5 + (_I,) * 5 + (_P,),
+    # a (written in place), bias (C,) bf16, [v | x, inv, shift, ls],
+    # pixels, C, SMs, stream
+    'lsk_bias_gelu': (_P, _P, _LL, _I, _I, _P),
+    'lsk_bias_gate': (_P,) * 3 + (_LL, _I, _I, _P),
+    'lsk_bias_residual': (_P,) * 6 + (_LL, _I, _I, _P),
 }
 
 # entry points that launch another entry's kernel, counted under its name

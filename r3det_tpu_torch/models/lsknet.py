@@ -45,6 +45,16 @@ in float32, and its 2-channel map, ``conv_squeeze`` and the sigmoid stay
 in float32; the weights go back to ``dtype`` for the products. The
 forward makes no host-to-device copy and reads nothing back.
 
+Where its contract holds (``ops/lsk_attn.py::refusal``: bf16
+channels_last on a card, C % 16 == 0, the kernels switched on, no
+gradient to carry), a block's attention sub-block runs on the route of
+``ops/lsk_attn.py::attention`` instead of the modules above: four
+products on the NHWC view around five CUDA passes (``csrc/lsk_attn.cu``),
+from a pack of its weights (``Block.attn_pack``: norm1 folded into
+proj_1, conv1 and conv2 as one block-diagonal product), kept until a
+parameter or buffer changes. Everything else, and the attention in
+float32, on the CPU or under autograd, is the eager code above.
+
 Spans (``utils/tracing.py``): ``backbone.lsk.embed`` (each stage's patch
 embedding), ``backbone.lsk.attn`` (each block, from ``norm1`` through the
 residual add), ``backbone.lsk.mlp`` (each block, ``norm2`` through its
@@ -54,6 +64,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import lsk_attn
 from ..utils.tracing import span
 from .conv import Conv2d
 from .swin import LayerNorm
@@ -189,11 +200,39 @@ class Block(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         self.layer_scale_1 = nn.Parameter(torch.ones(dim))
         self.layer_scale_2 = nn.Parameter(torch.ones(dim))
+        self._pack_cache = (None, None)
+
+    def attn_params(self):
+        """The attention sub-block's parameters and norm1's buffers."""
+        return (*self.norm1.parameters(), *self.norm1.buffers(),
+                *self.attn.parameters(), self.layer_scale_1)
+
+    def attn_pack(self, dtype):
+        """``ops/lsk_attn.py::pack`` of this block's attention in ``dtype``;
+        without autograd kept until a parameter or buffer changes."""
+        if torch.is_grad_enabled():
+            return self._attn_pack(dtype)
+        key = (dtype, *((t.data_ptr(), t._version)
+                        for t in self.attn_params()))
+        if self._pack_cache[0] != key:
+            self._pack_cache = (key, self._attn_pack(dtype))
+        return self._pack_cache[1]
+
+    def _attn_pack(self, dtype):
+        sgu = self.attn.spatial_gating_unit
+        convs = (self.attn.proj_1, sgu.conv0, sgu.conv_spatial, sgu.conv1,
+                 sgu.conv2, sgu.conv_squeeze, sgu.conv, self.attn.proj_2)
+        return lsk_attn.pack(dtype, self.norm1.affine(torch.float32),
+                             *((m.weight, m.bias) for m in convs),
+                             self.layer_scale_1)
 
     def forward(self, x):
         with span('backbone.lsk.attn'):
-            x = torch.addcmul(x, _channel(self.layer_scale_1.to(x.dtype)),
-                              self.attn(self.norm1(x)))
+            if lsk_attn.refusal(x, *self.attn_params()) is None:
+                x = lsk_attn.attention(x, self.attn_pack(x.dtype))
+            else:
+                x = torch.addcmul(x, _channel(self.layer_scale_1.to(x.dtype)),
+                                  self.attn(self.norm1(x)))
         with span('backbone.lsk.mlp'):
             return torch.addcmul(x, _channel(self.layer_scale_2.to(x.dtype)),
                                  self.mlp(self.norm2(x)))

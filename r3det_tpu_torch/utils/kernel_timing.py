@@ -14,7 +14,9 @@ and ``tools/kernel_bench.py``.
 - ``r50_epilogues`` and ``epilogue_bytes``: the conv epilogues of a
   ResNet-50 forward (``ops/conv_epilogue.py``) and the bytes of one;
 - ``swin_attn_work``: the bounds of Swin's two attention kernels
-  (``ops/swin_attn.py``) on one block's map.
+  (``ops/swin_attn.py``) on one block's map;
+- ``lsk_attn_work``: the bounds of LSKNet's attention kernels
+  (``ops/lsk_attn.py``) on one block's map.
 
 The rates are the H100 SXM's published figures.
 """
@@ -179,3 +181,33 @@ def swin_attn_work(batch, h, w, c, heads, window):
     tc = bound(nbytes, 2 * 2 * scores * (c // heads), 'bf16')
     f32 = bound(0, SOFTMAX_OPS * scores, 'f32')
     return {'swin_norm_pad': norm, 'swin_window_attn': max(tc, f32)}
+
+
+GELU_OPS = 8        # f32 operations an exact GELU (fewer than any erf takes)
+SIGMOID_OPS = 4     # f32 operations a sigmoid
+TAPS_A, TAPS_B = 25, 49   # conv0's and conv_spatial's taps a channel
+
+
+def lsk_attn_work(batch, h, w, c):
+    """The bounds of LSKNet's five attention kernels on a (batch, h, w, c)
+    block map: {name: (bound_ms, bound_by)}. Each reads its maps and
+    parameters once and writes its output once (bf16 maps, float32 taps
+    and selection parameters, bf16 vectors); float32 operations on the
+    CUDA cores, a multiply-add two: the taps (25 + 49 a channel) and their
+    biases; the selection's bias adds, sums, maxes, ``conv_squeeze``
+    (2 x 2 x 49), sigmoids and weighted sum; the epilogues' bias add and
+    GELU, gate, or shortcut (BN's multiply-add) and layer-scaled residual
+    (two adds, a multiply-add)."""
+    n = batch * h * w
+    half = c // 2
+    return {
+        'lsk_taps': bound(2 * n * 3 * c + 4 * (76 * c),
+                          n * c * (2 * (TAPS_A + TAPS_B) + 2), 'f32'),
+        'lsk_select': bound(2 * n * (c + half) + 4 * (c + 198),
+                            n * (3 * c + 2 * 2 * 2 * 49 + 2
+                                 + 2 * SIGMOID_OPS + 3 * half), 'f32'),
+        'lsk_bias_gelu': bound(2 * n * 2 * c + 2 * c,
+                               n * c * (1 + GELU_OPS), 'f32'),
+        'lsk_bias_gate': bound(2 * n * 3 * c + 2 * c, n * c * 2, 'f32'),
+        'lsk_bias_residual': bound(2 * n * 3 * c + 8 * c, n * c * 7, 'f32'),
+    }

@@ -22,6 +22,7 @@ from r3det_tpu_torch.ops import bottleneck_fuse as K5
 from r3det_tpu_torch.ops import conv_epilogue as E
 from r3det_tpu_torch.ops import frm_sample as K2
 from r3det_tpu_torch.ops import int8_conv as Q
+from r3det_tpu_torch.ops import lsk_attn as L
 from r3det_tpu_torch.ops import nms
 from r3det_tpu_torch.ops import rotated_iou as K1
 from r3det_tpu_torch.ops import stem_pool as K3
@@ -1746,6 +1747,264 @@ def test_lsknet_s_spans_and_no_host_round_trip(cuda):
 
 
 # ---------------------------------------------------------------------------
+# LSKNet's attention kernels (csrc/lsk_attn.cu, ops/lsk_attn.py)
+# ---------------------------------------------------------------------------
+
+# (H, W, C) at each stage's width, on sides that are no multiple of the
+# taps' 32 x 32 tile, and stage 4's 32 x 32 at batch 8 of 1024^2
+LSK_SHAPES = {'s1': (37, 45, 64), 's2': (33, 20, 128), 's3': (17, 31, 320),
+              's4': (32, 32, 512)}
+
+
+def lsk_inputs(dev, c, seed):
+    """A seeded block of ``c`` channels on the card (every bias and BN drawn
+    wide, ``test_torch_lsk_attn.seeded_block``) and its bf16 pack."""
+    from test_torch_lsk_attn import seeded_block
+    block = seeded_block(c, seed).to(dev)
+    with torch.no_grad():
+        return block, block.attn_pack(torch.bfloat16)
+
+
+def lsk_randn(dev, shape, seed, std=1.0):
+    g = torch.Generator(dev).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=dev) * std).to(
+        torch.bfloat16)
+
+
+def within_ulp(got, want, atol):
+    """|got - want| <= one bf16 ulp of ``want`` (2^-7 |want|) + ``atol``,
+    elementwise; ``atol`` a tensor or a number."""
+    diff = (got.float() - want.float()).abs()
+    return bool((diff <= 2 ** -7 * want.float().abs() + atol).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('stage', list(LSK_SHAPES))
+def test_lsk_taps_kernel_matches_plain(cuda, stage):
+    """bf16 against the plain form on the card (cuDNN in float32, TF32
+    off). Both sum the taps and the bias in float32, in other orders
+    (~2^-24 of the summed magnitudes apart), and round once, so a value
+    may land on the neighbouring bf16: a1 within one bf16 ulp of the plain
+    a1 plus 2^-16 of its taps' summed magnitude; a2 the same against the
+    plain dilated taps of the kernel's own a1."""
+    h, w, c = LSK_SHAPES[stage]
+    _, p = lsk_inputs(cuda, c, 1)
+    v = lsk_randn(cuda, (2, h, w, c), 2)
+    _ext.reset_launches()
+    with torch.no_grad():
+        got = L.taps_cuda(v, p.taps, p.b0, p.bs)
+        want = L.taps_reference(v, p.taps, p.b0, p.bs)
+        a1 = got[..., :c].permute(0, 3, 1, 2).float().contiguous()
+        ws = p.taps[25:].t().reshape(c, 1, 7, 7)
+        want2 = torch.nn.functional.conv2d(a1, ws, p.bs, padding=9,
+                                           dilation=3, groups=c)
+        mag0 = torch.nn.functional.conv2d(
+            v.permute(0, 3, 1, 2).float().abs(),
+            p.taps[:25].t().reshape(c, 1, 5, 5).abs(), p.b0.abs(), padding=2,
+            groups=c).permute(0, 2, 3, 1)
+        mag1 = torch.nn.functional.conv2d(a1.abs(), ws.abs(), p.bs.abs(),
+                                          padding=9, dilation=3, groups=c)
+    assert _ext.LAUNCHES['lsk_taps'] == 1
+    assert got.shape == want.shape == (2, h, w, 2 * c)
+    assert within_ulp(got[..., :c], want[..., :c], 2 ** -16 * mag0)
+    assert within_ulp(got[..., c:], want2.permute(0, 2, 3, 1),
+                      2 ** -16 * mag1.permute(0, 2, 3, 1))
+
+
+@pytest.mark.gpu
+def test_lsk_taps_a1_is_zero_outside_the_map(cuda):
+    """On a 6 x 9 map with conv0's bias at 4, every a2 reads a1's padding.
+    The kernel matches the plain form (a1 zero there, as conv_spatial pads
+    it), while a1 taken as conv0 of the padding (the bias and the edge
+    taps) moves a2 by far more than the tolerance."""
+    F = torch.nn.functional
+    c = 64
+    _, p = lsk_inputs(cuda, c, 3)
+    b0 = torch.full_like(p.b0, 4.0)
+    v = lsk_randn(cuda, (2, 6, 9, c), 4)
+    w0 = p.taps[:25].t().reshape(c, 1, 5, 5)
+    ws = p.taps[25:].t().reshape(c, 1, 7, 7)
+    with torch.no_grad():
+        got = L.taps_cuda(v, p.taps, b0, p.bs)[..., c:].float()
+        want = L.taps_reference(v, p.taps, b0, p.bs)[..., c:].float()
+        # conv0 evaluated over a canvas 9 wider, then the dilated taps
+        # with no padding of their own: a1 outside the map is b0 + taps
+        vn = F.pad(v.permute(0, 3, 1, 2).float(), (9, 9, 9, 9))
+        a1 = F.conv2d(vn, w0, b0, padding=2, groups=c).bfloat16().float()
+        wrong = F.conv2d(a1, ws, p.bs, dilation=3, groups=c).permute(
+            0, 2, 3, 1)
+    tol = 2 ** -7 * want.abs() + 2 ** -12 * float(want.abs().max())
+    assert bool(((got - want).abs() <= tol).all())
+    assert float((wrong - want).abs().max()) > 100 * float(tol.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('stage', list(LSK_SHAPES))
+def test_lsk_select_kernel_matches_plain(cuda, stage):
+    """bf16 against the plain form on the card. The biases add and round
+    alike; the channel sums and conv_squeeze run in float32 in other
+    orders (~1e-7 apart), so an s may round to the neighbouring bf16
+    (2^-8 of it, s <= 1) and m moves with it: |diff| <= one bf16 ulp of m
+    + 2^-8 (|b1| + |b2|) at each position and channel."""
+    h, w, c = LSK_SHAPES[stage]
+    _, p = lsk_inputs(cuda, c, 5)
+    with torch.no_grad():
+        p.wq.mul_(4.0)                     # selection weights spread wide
+    b = lsk_randn(cuda, (2, h, w, c), 6)
+    _ext.reset_launches()
+    with torch.no_grad():
+        got = L.select_cuda(b, p.b12, p.wq, p.bq)
+        want = L.select_reference(b, p.b12, p.wq, p.bq)
+        bb = (b + p.b12.bfloat16()).float().abs()
+    assert _ext.LAUNCHES['lsk_select'] == 1
+    assert got.shape == want.shape == (2, h, w, c // 2)
+    assert within_ulp(got, want, 2 ** -8 * (bb[..., :c // 2]
+                                            + bb[..., c // 2:]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('mode', ['gelu', 'gate', 'residual'])
+@pytest.mark.parametrize('stage', list(LSK_SHAPES))
+def test_lsk_epilogue_kernel_matches_plain(cuda, stage, mode):
+    """bf16 against the plain form on the card, in place. Each op computes
+    in float32 on bf16 operands and rounds as PyTorch's bf16 kernels (a
+    product of two bf16 is exact in float32): the gate and the residual
+    bit for bit; GELU's erff within one bf16 ulp (the build keeps each
+    multiply and add apart)."""
+    h, w, c = LSK_SHAPES[stage]
+    _, p = lsk_inputs(cuda, c, 7)
+    a = lsk_randn(cuda, (2, h, w, c), 8, std=2.0)
+    x = lsk_randn(cuda, (2, h, w, c), 9)
+    args = {'gelu': (p.b1,), 'gate': (p.b3, x),
+            'residual': (p.b2, x, p.inv, p.shift, p.ls)}[mode]
+    name = f'bias_{mode}'
+    _ext.reset_launches()
+    with torch.no_grad():
+        want = getattr(L, f'{name}_reference')(a, *args)
+        got = getattr(L, f'{name}_cuda')(a, *args)
+    assert got.data_ptr() == a.data_ptr()
+    assert _ext.LAUNCHES[f'lsk_{name}'] == 1
+    if mode == 'gelu':
+        assert within_ulp(got, want, 0.0)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('stage', list(LSK_SHAPES))
+def test_lsk_sub_block_kernel_route_near_the_plain_route(cuda, stage):
+    """A seeded block at each stage's width, on the kernels' route and on
+    the eager bf16 route (kernels off), each against the same block in
+    float32 (eager, TF32 off): the route folds norm1 into proj_1 and
+    rounds a1 and a2 once with their biases, so it rounds elsewhere than
+    the eager route; its error stays within 1.25 times the eager route's
+    and under 1% of the sub-block's contribution."""
+    h, w, c = LSK_SHAPES[stage]
+    block, _ = lsk_inputs(cuda, c, 10)
+    g = torch.Generator(cuda).manual_seed(11)
+    x = torch.randn(2, c, h, w, generator=g, device=cuda).contiguous(
+        memory_format=torch.channels_last)
+    xb = x.bfloat16()
+
+    def sub_block(t):
+        return torch.addcmul(t, block.layer_scale_1.to(t.dtype).view(
+            1, -1, 1, 1), block.attn(block.norm1(t)))
+    with torch.no_grad():
+        want = sub_block(x)
+        assert L.refusal(xb) is None
+        _ext.reset_launches()
+        route = L.attention(xb, block.attn_pack(torch.bfloat16))
+        launched = dict(_ext.LAUNCHES)
+        with kernels(False):
+            eager = sub_block(xb)
+    assert [launched[f'lsk_{k}'] for k in (
+        'taps', 'select', 'bias_gelu', 'bias_gate', 'bias_residual')] == \
+        [1] * 5
+    ref = (want - x).norm()
+    kern = float((route.float() - want).norm() / ref)
+    eag = float((eager.float() - want).norm() / ref)
+    assert kern <= 1.25 * eag and kern < 0.01, (kern, eag)
+
+
+@pytest.mark.gpu
+def test_lsknet_s_backbone_kernel_route_near_the_plain_route(cuda):
+    """The bf16 LSKNet-S backbone (the cell's seeded weights) on one 512^2
+    image: the kernels' route and the eager route (kernels off), each
+    against the float32 port: at each stage the route errs within 1.25
+    times the eager route and under the 3% of the bf16 test above."""
+    from portbench.bench import check
+    model, plain, _ = lsknet_models(cuda)
+    g = torch.Generator(cuda).manual_seed(12)
+    x = torch.rand(1, 512, 512, 3, generator=g, device=cuda) * 4 - 2
+    with torch.no_grad():
+        want = plain.backbone(x)
+        route = model.backbone(x)
+        with kernels(False):
+            eager = model.backbone(x)
+    for a, e, r in zip(route, eager, want):
+        ka, ke = check.rel_err([a], [r]), check.rel_err([e], [r])
+        assert ka <= 1.25 * ke and ka < 0.03, (ka, ke)
+
+
+LSK_KERNELS = ('lsk_taps', 'lsk_select', 'lsk_bias_gelu', 'lsk_bias_gate',
+               'lsk_bias_residual')
+
+
+@pytest.mark.gpu
+def test_lsk_attn_launches_per_forward(cuda):
+    """Each kernel launches 10 times a bf16 LSKNet-S forward at batch 8
+    (once a block), none with kernels off, none under autograd, none in a
+    Swin-T or a ResNet-50."""
+    model, _, _ = lsknet_models(cuda)
+    x = torch.rand(8, 128, 128, 3, device=cuda)
+    _ext.reset_launches()
+    with torch.no_grad():
+        model.backbone(x)
+    assert [_ext.LAUNCHES[n] for n in LSK_KERNELS] == [10] * 5
+    _ext.reset_launches()
+    with torch.enable_grad():
+        model.backbone(x)
+    with torch.no_grad():
+        with kernels(False):
+            model.backbone(x)
+        swin, _ = swin_pair(cuda)
+        swin.backbone(x[:2])
+        net = seeded_resnet50(cuda, 0)
+        net(r50_images(cuda, 1, 256))
+    assert [_ext.LAUNCHES[n] for n in LSK_KERNELS] == [0] * 5
+
+
+@pytest.mark.gpu
+def test_lsk_attn_wrappers_raise(cuda):
+    _, p = lsk_inputs(cuda, 64, 13)
+    v = torch.zeros(1, 8, 8, 64, dtype=torch.bfloat16, device=cuda)
+    bad_taps = [(v.float(), p.taps, p.b0, p.bs),
+                (v.transpose(1, 2), p.taps, p.b0, p.bs),
+                (v, p.taps[:70], p.b0, p.bs),
+                (v, p.taps, p.b0.bfloat16(), p.bs),
+                (v[..., :36].contiguous(), p.taps[:, :36], p.b0[:36],
+                 p.bs[:36])]
+    for args in bad_taps:
+        with pytest.raises(ValueError), torch.no_grad():
+            L.taps_cuda(*args)
+    bad_select = [(v.float(), p.b12, p.wq, p.bq),
+                  (v[..., :40].contiguous(), p.b12[:40], p.wq, p.bq),
+                  (v, p.b12.bfloat16(), p.wq, p.bq),
+                  (v, p.b12, p.wq[:1], p.bq)]
+    for args in bad_select:
+        with pytest.raises(ValueError), torch.no_grad():
+            L.select_cuda(*args)
+    for args in [(v, p.b1.float()), (v.float(), p.b1),
+                 (v.transpose(1, 2), p.b1), (v, p.b1[:32])]:
+        with pytest.raises(ValueError), torch.no_grad():
+            L.bias_gelu_cuda(*args)
+    with pytest.raises(ValueError), torch.no_grad():
+        L.bias_gate_cuda(v, p.b3, v[:, :4])
+    with pytest.raises(ValueError), torch.no_grad():
+        L.bias_residual_cuda(v, p.b2, v, p.inv.float(), p.shift, p.ls)
+
+
+# ---------------------------------------------------------------------------
 # Swin's window-attention kernels (csrc/swin_attn.cu, ops/swin_attn.py)
 # ---------------------------------------------------------------------------
 
@@ -1984,7 +2243,10 @@ STEP_LAUNCHES = {
                             'stem_conv_pool': 1, 'conv_epilogue': 48},
     'rretinanet_swin_t_bf16': {'rotated_iou': 1, 'nms_sweep': 1,
                                'swin_norm_pad': 12, 'swin_window_attn': 12},
-    'rretinanet_lsknet_s_bf16': {'rotated_iou': 1, 'nms_sweep': 1},
+    'rretinanet_lsknet_s_bf16': {'rotated_iou': 1, 'nms_sweep': 1,
+                                 'lsk_taps': 10, 'lsk_select': 10,
+                                 'lsk_bias_gelu': 10, 'lsk_bias_gate': 10,
+                                 'lsk_bias_residual': 10},
     'r3det_r50_int8_static': {'rotated_iou': 1, 'nms_sweep': 1,
                               'frm_sample': 1, 'stem_conv_pool_q8': 1,
                               'int8_conv': 155},

@@ -25,6 +25,7 @@ from r3det_tpu_torch.ops import frm_sample as K2
 from r3det_tpu_torch.ops import int8_conv as Q
 from r3det_tpu_torch.ops import rotated_iou as K1
 from r3det_tpu_torch.ops import stem_pool as K3
+from r3det_tpu_torch.ops import lsk_attn as L
 from r3det_tpu_torch.ops import swin_attn as A
 from r3det_tpu_torch.ops.int8_conv import (int8_conv_nhwc, quantize_act,
                                            quantize_weights)
@@ -40,6 +41,12 @@ def flags(shape, dtype, is_cuda, grad):
     return types.SimpleNamespace(
         shape=shape, dtype=dtype, is_cuda=is_cuda, requires_grad=grad,
         device=torch.device('cuda' if is_cuda else 'cpu'))
+
+
+def channels_last(x):
+    """``flags`` of a map held channels_last."""
+    x.is_contiguous = lambda memory_format=None: True
+    return x
 
 
 # kernel -> (the dtype it computes in, whether it has a backward, a shape
@@ -59,6 +66,11 @@ CONTRACTS = {
                          lambda x: A.window_attn_refusal(x, 3, 7)),
     'swin_sub_block': (BF16, False, (2, 7, 7, 96),
                        lambda x: A.refusal(x, 3, 7)),
+    'lsk_taps': (BF16, False, (2, 8, 8, 64), L.taps_refusal),
+    'lsk_select': (BF16, False, (2, 8, 8, 64), L.select_refusal),
+    'lsk_epilogue': (BF16, False, (2, 8, 8, 64), L.epilogue_refusal),
+    'lsk_sub_block': (BF16, False, (2, 64, 8, 8),
+                      lambda x: L.refusal(channels_last(x))),
 }
 
 
