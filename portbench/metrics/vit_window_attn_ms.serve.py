@@ -1,0 +1,11 @@
+"""Device ms a predict step in the ViT backbone's window-attention
+sub-blocks (``norm1``, the pad and the windows through the residual add,
+eight a ViT-B forward): the device ops inside the GPU copies of the
+program's ``r3det.backbone.vit.window_attn`` ranges, in the
+program-traced sub-window. Nothing to read from a program without those
+spans."""
+from portbench.bench import span_device
+
+
+def read(run):
+    return span_device.inside_ms(run, 'r3det.backbone.vit.window_attn')

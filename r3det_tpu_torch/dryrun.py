@@ -12,7 +12,8 @@ Port of ``__graft_entry__.py``:
   'swin')`` builds rotated RetinaNet on Swin-T instead, through the
   config builder from mmdet's model dict (``SWIN_T_RRETINANET``), and
   ``entry(device, 'lsknet')`` on LSKNet-S from mmrotate's
-  (``LSKNET_S_RRETINANET``).
+  (``LSKNET_S_RRETINANET``), ``entry(device, 'vitdet')`` on ViTDet's ViT-B
+  from its ``ViT`` dict (``VITDET_B_RRETINANET``).
 - ``dryrun_multichip(n)`` runs one SGD step of JAX's tiny R3Det (depth 10,
   width 32, one stacked conv, one refine stage, 3 classes, 64^2 images,
   the same ``RandomState(0)`` batch of ``n`` images) on ``n`` gloo ranks
@@ -80,13 +81,30 @@ LSKNET_S_RRETINANET = dict(
     neck=dict(type='FPN', in_channels=[64, 128, 320, 512], out_channels=256,
               start_level=1, add_extra_convs='on_input', num_outs=5))
 
-MODEL_DICTS = {'swin': SWIN_T_RRETINANET, 'lsknet': LSKNET_S_RRETINANET}
+# ViTDet's ViT-B as detectron2's
+# projects/ViTDet/configs/COCO/mask_rcnn_vitdet_b_100ep.py builds it under
+# the same rotated RetinaNet, the FPN on its three pyramid levels (the
+# stride-16 map upsampled by simfp_3, itself, max-pooled)
+VITDET_B_RRETINANET = dict(
+    SWIN_T_RRETINANET,
+    backbone=dict(type='ViT', img_size=1024, patch_size=16, embed_dim=768,
+                  depth=12, num_heads=12, drop_path_rate=0.1, window_size=14,
+                  mlp_ratio=4, qkv_bias=True,
+                  norm_cfg=dict(type='LN', eps=1e-6),
+                  window_block_indexes=[0, 1, 3, 4, 6, 7, 9, 10],
+                  use_rel_pos=True, pretrain_img_size=224),
+    neck=dict(type='FPN', in_channels=[384, 768, 768], out_channels=256,
+              start_level=0, add_extra_convs='on_input', num_outs=5))
+
+MODEL_DICTS = {'swin': SWIN_T_RRETINANET, 'lsknet': LSKNET_S_RRETINANET,
+               'vitdet': VITDET_B_RRETINANET}
 
 
 def entry(device='cuda', backbone='resnet'):
     """The flagship model's forward on one device: ``(fn, (images,))``.
     On the card unless ``device='cpu'``; ``backbone='swin'`` builds
-    ``SWIN_T_RRETINANET``, ``'lsknet'`` ``LSKNET_S_RRETINANET``."""
+    ``SWIN_T_RRETINANET``, ``'lsknet'`` ``LSKNET_S_RRETINANET``,
+    ``'vitdet'`` ``VITDET_B_RRETINANET``."""
     import torch
 
     from .models.detectors import R3DET_R50_V1, build_detector

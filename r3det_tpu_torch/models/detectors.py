@@ -22,9 +22,10 @@ num (B,)).
 ``frm_sample_kernel`` (see ``models/frm.py``).
 The config's ``backbone`` names the trunk: ``'resnet'`` (the default,
 ``backbone_depth``), ``'swin'`` (``models/swin.py``, sized by the
-``swin_*`` fields; Swin-T by default) or ``'lsknet'``
+``swin_*`` fields; Swin-T by default), ``'lsknet'``
 (``models/lsknet.py``, sized by the ``lsk_*`` fields; LSKNet-S by
-default). The ResNet-only options (``quantize``, ``quantize_head``,
+default) or ``'vitdet'`` (``models/vitdet.py``, sized by the ``vit_*``
+fields; ViTDet's ViT-B by default). The ResNet-only options (``quantize``, ``quantize_head``,
 ``int8_act``, ``stem_fused_kernel``, ``stem_pool_kernel``,
 ``fused_blocks``) raise with another backbone unless they are at their
 defaults.
@@ -55,6 +56,7 @@ from .losses import (l1_loss, sigmoid_bce_loss, sigmoid_focal_loss,
 from .resnet import ResNet
 from .retina_head import RRetinaHead
 from .swin import SwinTransformer
+from .vitdet import ViT
 
 
 # ---------------------------------------------------------------------------
@@ -111,8 +113,11 @@ class DetectorConfig(NamedTuple):
     quantize: Any = False
     quantize_head: Any = False
     # the trunk: 'resnet' (backbone_depth), 'swin' (the swin_* fields,
-    # mmdet's SwinTransformer arguments; Swin-T's by default) or 'lsknet'
+    # mmdet's SwinTransformer arguments; Swin-T's by default), 'lsknet'
     # (the lsk_* fields, mmrotate's LSKNet arguments; LSKNet-S's by default)
+    # or 'vitdet' (the vit_* fields, detectron2's ViT arguments, the global
+    # blocks those not in window_block_indexes, the pretrain grid
+    # pretrain_img_size // patch_size; ViTDet's ViT-B by default)
     backbone: str = 'resnet'
     swin_embed_dims: int = 96
     swin_depths: Tuple[int, ...] = (2, 2, 6, 2)
@@ -124,6 +129,15 @@ class DetectorConfig(NamedTuple):
     lsk_embed_dims: Tuple[int, ...] = (64, 128, 320, 512)
     lsk_depths: Tuple[int, ...] = (2, 2, 4, 2)
     lsk_mlp_ratios: Tuple[int, ...] = (8, 8, 4, 4)
+    vit_img_size: int = 1024
+    vit_patch_size: int = 16
+    vit_embed_dim: int = 768
+    vit_depth: int = 12
+    vit_num_heads: int = 12
+    vit_mlp_ratio: int = 4
+    vit_window_size: int = 14
+    vit_global_blocks: Tuple[int, ...] = (2, 5, 8, 11)
+    vit_pretrain_grid: int = 14
 
     @property
     def num_anchors(self) -> int:
@@ -185,6 +199,14 @@ class _Base(nn.Module):
             self.backbone = LSKNet(
                 embed_dims=cfg.lsk_embed_dims, depths=cfg.lsk_depths,
                 mlp_ratios=cfg.lsk_mlp_ratios, dtype=dtype)
+        elif cfg.backbone == 'vitdet':
+            self.backbone = ViT(
+                img_size=cfg.vit_img_size, patch_size=cfg.vit_patch_size,
+                embed_dim=cfg.vit_embed_dim, depth=cfg.vit_depth,
+                num_heads=cfg.vit_num_heads, mlp_ratio=cfg.vit_mlp_ratio,
+                window_size=cfg.vit_window_size,
+                global_blocks=cfg.vit_global_blocks,
+                pretrain_grid=cfg.vit_pretrain_grid, dtype=dtype)
         elif cfg.backbone == 'resnet':
             self.backbone = ResNet(
                 depth=cfg.backbone_depth, dtype=dtype,
@@ -194,7 +216,7 @@ class _Base(nn.Module):
                 fused_blocks=fused_blocks, int8_act=int8_act)
         else:
             raise ValueError(f'backbone {cfg.backbone!r}: not provided '
-                             "('resnet', 'swin' or 'lsknet')")
+                             "('resnet', 'swin', 'lsknet' or 'vitdet')")
         self.neck = FPN(in_channels=self.backbone.out_channels,
                         out_channels=cfg.feat_channels,
                         quantize=cfg.quantize)

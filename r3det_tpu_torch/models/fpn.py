@@ -4,7 +4,8 @@ Port of ``r3det_tpu/models/fpn.py`` (mmdet's FPN as the reference
 configures it: out 256, add_extra_convs 'on_input', num_outs 5) on the
 backbone's last three outputs: ResNet's C3-C5 of (256, 512, 1024, 2048)
 (start_level 1), Swin-T's three of (192, 384, 768) (start_level 0),
-LSKNet-S's last three of (64, 128, 320, 512) (start_level 1).
+LSKNet-S's last three of (64, 128, 320, 512) (start_level 1), ViTDet's
+three pyramid levels of (384, 768, 768) (start_level 0).
 Nearest 2x top-down upsampling cropped to the lateral's size; the extra
 levels P6, P7 are strided 3x3 convs on the last input, with ReLU before
 the second. ``quantize`` makes every conv (laterals, outputs, extras) a

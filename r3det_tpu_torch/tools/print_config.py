@@ -20,15 +20,15 @@ def parse_args(argv=None):
 
 # the fields that size each backbone
 _OWN = {'resnet': ('backbone_depth', 'frozen_stages'), 'swin': ('swin_',),
-        'lsknet': ('lsk_',)}
+        'lsknet': ('lsk_',), 'vitdet': ('vit_',)}
 
 
 def derived_fields(det_cfg):
     """``det_cfg``'s fields as a dict, less those of the backbones it does
-    not build: a ResNet's config leaves out ``backbone`` and the ``swin_*``
-    and ``lsk_*`` sizes (so its text is the JAX tool's), a Swin's
-    ``backbone_depth``, ``frozen_stages`` and the ``lsk_*`` sizes, an
-    LSKNet's those and the ``swin_*`` sizes."""
+    not build: a ResNet's config leaves out ``backbone`` and the ``swin_*``,
+    ``lsk_*`` and ``vit_*`` sizes (so its text is the JAX tool's); any
+    other backbone's leaves out ``backbone_depth``, ``frozen_stages`` and
+    the sizes of the other two."""
     others = tuple(p for kind, own in _OWN.items()
                    if kind != det_cfg.backbone for p in own)
     d = det_cfg._asdict()

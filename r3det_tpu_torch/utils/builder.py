@@ -16,15 +16,24 @@ selects candidates exactly.
 The backbone dict's ``type`` picks the trunk: ``ResNet`` (``depth``,
 ``frozen_stages``), mmdet's ``SwinTransformer`` (``embed_dims``,
 ``depths``, ``num_heads``, ``window_size``, ``mlp_ratio``,
-``patch_size``, ``out_indices`` onto the ``swin_*`` fields) or mmrotate's
+``patch_size``, ``out_indices`` onto the ``swin_*`` fields), mmrotate's
 ``LSKNet`` (``embed_dims``, ``depths``, ``mlp_ratios`` onto the ``lsk_*``
 fields; the drop rates, ``norm_cfg``, ``img_size``, ``pretrained`` and
-``init_cfg`` are accepted and ignored). Such a backbone's neck must lay
-its laterals on the backbone's last three outputs
+``init_cfg`` are accepted and ignored) or ViTDet's ``ViT`` (detectron2's
+and mmdet's ``projects/ViTDet`` arguments: ``img_size``, ``patch_size``,
+``embed_dim``, ``depth``, ``num_heads``, ``mlp_ratio``, ``window_size``
+onto the ``vit_*`` fields, the blocks not in ``window_block_indexes`` onto
+``vit_global_blocks``, ``pretrain_img_size // patch_size`` onto
+``vit_pretrain_grid``; the drop-path rate, ``init_cfg`` and the
+checkpointing flag are accepted and ignored; the port's three pyramid
+levels stand in for the ``SimpleFeaturePyramid``). Such a backbone's neck
+must lay its laterals on the backbone's last three outputs
 (``in_channels[start_level:]``); the Swin variants the port does not
 build (no qkv bias, a ``qk_scale``, no patch norm, an absolute position
-embedding, other strides) and an LSKNet of other input channels or
-another stage count raise.
+embedding, other strides), an LSKNet of other input channels or another
+stage count, and a ViT without qkv bias, the absolute or the relative
+positions, the cls row, with residual conv blocks, another norm or
+activation, or other input channels raise.
 """
 import warnings
 
@@ -170,6 +179,7 @@ def detector_config_from_dict(model: dict, train_cfg: dict = None,
         backbone_depth=model.get('backbone', {}).get('depth', 50),
         **_swin_fields(model),
         **_lsk_fields(model),
+        **_vit_fields(model),
         # framework extension: int8 PTQ serving (models/quant.py)
         quantize=_quant_flag(model, test_cfg, 'quantize_int8'),
         quantize_head=_quant_flag(model, test_cfg, 'quantize_head_int8'),
@@ -241,6 +251,47 @@ def _lsk_fields(model):
     _check_neck(model, d.lsk_embed_dims, 'LSKNet')
     return dict(lsk_embed_dims=d.lsk_embed_dims, lsk_depths=d.lsk_depths,
                 lsk_mlp_ratios=d.lsk_mlp_ratios, backbone='lsknet')
+
+
+_VIT_KEYS = ('img_size', 'patch_size', 'embed_dim', 'depth', 'num_heads',
+             'mlp_ratio', 'window_size')
+# ViT arguments (detectron2's and mmdet's names) the port builds only at
+# these values; an empty residual_block_indexes in either form
+_VIT_FIXED = dict(in_chans=3, qkv_bias=True, use_abs_pos=True,
+                  use_rel_pos=True, pretrain_use_cls_token=True,
+                  residual_block_indexes=())
+
+
+def _vit_fields(model):
+    """The ``backbone`` and ``vit_*`` fields of a ViTDet model dict ({} for
+    another backbone)."""
+    bb = dict(model.get('backbone', {}))
+    if bb.get('type') != 'ViT':
+        return {}
+    for key, want in _VIT_FIXED.items():
+        got = bb.get(key, want)
+        if (tuple(got) if key == 'residual_block_indexes' else got) != want:
+            raise NotImplementedError(f'ViT {key}={got!r}: the port builds '
+                                      f'{key}={want!r} only')
+    norm, act = bb.get('norm_cfg', {}), bb.get('act_cfg', {})
+    if norm.get('type', 'LN') not in ('LN', 'LN2d') \
+            or norm.get('eps', 1e-6) != 1e-6 or act.get('type', 'GELU') \
+            != 'GELU':
+        raise NotImplementedError(f'ViT norm_cfg={norm!r}, act_cfg={act!r}: '
+                                  'the port builds LayerNorm (eps 1e-6) and '
+                                  'exact GELU only')
+    d = DetectorConfig(**{f'vit_{k}': bb[k] for k in _VIT_KEYS if k in bb})
+    windowed = set(bb.get('window_block_indexes', ())) \
+        if d.vit_window_size else set()
+    fields = dict(
+        {f'vit_{k}': getattr(d, f'vit_{k}') for k in _VIT_KEYS},
+        vit_global_blocks=tuple(i for i in range(d.vit_depth)
+                                if i not in windowed),
+        vit_pretrain_grid=bb.get('pretrain_img_size', 224)
+        // d.vit_patch_size)
+    c = d.vit_embed_dim
+    _check_neck(model, (c // 2, c, c), 'ViT')
+    return dict(fields, backbone='vitdet')
 
 
 def _quant_flag(model, test_cfg, key):

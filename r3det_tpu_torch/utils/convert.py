@@ -26,7 +26,12 @@ index) keep the module's values. An LSKNet backbone's layer scales are 1
 ``running_var``) is drawn far from the identity: gain and running mean
 normal(0, 1), bias normal(0, 0.5), running variance 2 (``_BN_RULE``); at
 1e-2, or with identity BNs, a comparison with a reference could not see
-a branch or a BN left out. Its int8 activation ranges are 0, the
+a branch or a BN left out. A ViT backbone's (one with a ``pos_embed``)
+linears and convs draw their biases as their weights, normal(0,
+fan_in^-1/2), the transposed conv's fan-in its input channels; its
+``pos_embed`` is normal(0, 0.02) and its relative tables normal(0, 0.1)
+(``_VIT_RULE``), where the source starts them at zero: a zero table would
+hide a relative term left out. Its int8 activation ranges are 0, the
 uncalibrated state: :func:`..models.quant.calibrate` fills them.
 """
 import numpy as np
@@ -37,6 +42,17 @@ from ..models.retina_head import focal_bias
 # an inference BN's leaves: ('normal', std) or ('fill', value)
 _BN_RULE = {'weight': ('normal', 1.0), 'bias': ('normal', 0.5),
             'running_mean': ('normal', 1.0), 'running_var': ('fill', 2.0)}
+# a ViT's position tables: leaf -> std
+_VIT_RULE = {'pos_embed': 0.02, 'rel_pos_h': 0.1, 'rel_pos_w': 0.1}
+
+
+def _fan_in(module, weight):
+    """A linear's or conv's fan-in from its weight; a ViT pyramid's
+    transposed conv (kernel = stride) takes one tap of each input
+    channel."""
+    if any(p.startswith('simfp_') for p in module.split('.')):
+        return weight[0]
+    return int(np.prod(weight[1:]))
 
 
 def _is_stem_kernel(path):
@@ -76,6 +92,9 @@ def seeded_state_dict(model, seed):
     sd = {}
     state = model.state_dict()
     bns = {n.rpartition('.')[0] for n in state if n.endswith('.running_var')}
+    # a ViT's prefix ('backbone.' in a detector), or None
+    vit = next((n[:-len('pos_embed')] for n in state
+                if n.rpartition('.')[2] == 'pos_embed'), None)
     for name, t in state.items():
         shape = tuple(t.shape)
         head = name.startswith(('bbox_head.', 'refine_head_', 'frm_'))
@@ -89,13 +108,19 @@ def seeded_state_dict(model, seed):
                 else np.full(shape, value)
         elif leaf.startswith('layer_scale_'):
             v = np.ones(shape)
+        elif vit is not None and leaf in _VIT_RULE:
+            v = rng.normal(0.0, _VIT_RULE[leaf], shape)
+        elif vit is not None and name.startswith(vit) and leaf == 'bias' \
+                and state[f'{module}.weight'].dim() > 1:
+            fan_in = _fan_in(module, tuple(state[f'{module}.weight'].shape))
+            v = rng.normal(0.0, fan_in ** -0.5, shape)
         elif leaf == 'kernel':                  # stem, HWIO
             fan_in = shape[0] * shape[1] * shape[2]
             v = rng.normal(0.0, fan_in ** -0.5, shape)
         elif leaf == 'weight' and len(shape) == 1:      # LayerNorm gain
             v = np.ones(shape)
         elif leaf == 'weight':                  # conv OIHW, linear (O, I)
-            fan_in = int(np.prod(shape[1:]))
+            fan_in = _fan_in(module, shape)
             v = rng.normal(0.0, 0.01 if head else fan_in ** -0.5, shape)
         elif leaf == 'relative_position_bias_table':
             v = rng.normal(0.0, 1.0, shape)
