@@ -44,7 +44,9 @@ Phases, one line each (any failure raises and the exit code is 1):
    plain form, beside its plain time and its bound (``lsk_attn_work``),
    with the whole sub-block on the route against the eager one
    (``name=lsk_attention``), summed by ``[kernel_sum]`` over the 10
-   launches of a forward. The NMS sweep
+   launches of a forward; its MLP kernels (the same file: ``lsk_dw_gelu``,
+   ``lsk_bias_scale``) the same way beside ``lsk_mlp_work``, the whole
+   sub-block as ``name=lsk_mlp``. The NMS sweep
    (``csrc/nms_sweep.cu``) runs on K1's IoU of SWEEP_SCENES' candidates
    (8 x 4000 with ~3000 live, 8 x 2000 with ~300; 15 labels), keeping its
    plain route's set, beside that route's time (its fixpoint's host syncs
@@ -63,7 +65,8 @@ Phases, one line each (any failure raises and the exit code is 1):
    kernel 12 times and no other kernel, and its outputs err no more
    against its float32 run than the eager bf16 route's. ``[lsk]``: a bf16
    LSKNet-S backbone (seeded, batch 8 of 1024^2) launches each attention
-   kernel 10 times and no other kernel, its outputs err within 1.25 times
+   and MLP kernel 10 times and no other kernel, its outputs err within 1.25
+   times
    the eager bf16 route's against its float32 run, and its ms a forward
    beside the eager route's.
    Then ``[nms_stream]``: the same model and batch with
@@ -201,7 +204,8 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from r3det_tpu_torch.utils.kernel_timing import (  # noqa: E402
     add_bound, add_bound_ms, cuda_ms, epilogue_bytes, frm_work, graph_ms,
-    iou_work, lsk_attn_work, nms_sweep_work, r50_epilogues, swin_attn_work)
+    iou_work, lsk_attn_work, lsk_mlp_work, nms_sweep_work, r50_epilogues,
+    swin_attn_work)
 
 SEED = 0
 BATCH = 8
@@ -230,7 +234,11 @@ SWIN_WINDOW = 7
 SWIN_BLOCKS = 12                  # attention sub-blocks of a Swin-T forward
 # LSKNet-S's stages at 1024^2: (map side, C, blocks)
 LSK_STAGES = ((256, 64, 2), (128, 128, 2), (64, 320, 4), (32, 512, 2))
-LSK_BLOCKS = 10                   # attention sub-blocks of an LSKNet-S forward
+LSK_RATIOS = (8, 8, 4, 4)         # its MLP ratios
+LSK_BLOCKS = 10                   # blocks (each sub-block) of a forward
+LSK_ATTN_KERNELS = ('lsk_taps', 'lsk_select', 'lsk_bias_gelu',
+                    'lsk_bias_gate', 'lsk_bias_residual')
+LSK_MLP_KERNELS = ('lsk_dw_gelu', 'lsk_bias_scale')
 ROUTE_BATCH = 2                   # batch of the opt-in routes
 EVAL_CONFIG = 'configs/debug/r3det_tiny_fake_dota.py'
 EVAL_IMAGES = 8                   # fake-DOTA scenes (700^2): 4 patches each
@@ -297,6 +305,8 @@ REPLACES = {
     'lsk_bias_gelu': 'none',
     'lsk_bias_gate': 'none',
     'lsk_bias_residual': 'none',
+    'lsk_dw_gelu': 'none',
+    'lsk_bias_scale': 'none',
 }
 SOURCES = {
     'rotated_iou': 'r3det_tpu_torch/csrc/rotated_iou.cu',
@@ -317,6 +327,8 @@ SOURCES = {
     'lsk_bias_gelu': 'r3det_tpu_torch/csrc/lsk_attn.cu',
     'lsk_bias_gate': 'r3det_tpu_torch/csrc/lsk_attn.cu',
     'lsk_bias_residual': 'r3det_tpu_torch/csrc/lsk_attn.cu',
+    'lsk_dw_gelu': 'r3det_tpu_torch/csrc/lsk_attn.cu',
+    'lsk_bias_scale': 'r3det_tpu_torch/csrc/lsk_attn.cu',
 }
 # the run whose launch counts each kernel reports
 PATH_OF = {'rotated_iou': 'bf16', 'frm_sample': 'bf16',
@@ -327,7 +339,8 @@ PATH_OF = {'rotated_iou': 'bf16', 'frm_sample': 'bf16',
            'swin_norm_pad': 'swin', 'swin_window_attn': 'swin',
            'nms_sweep': 'bf16', 'lsk_taps': 'lsk', 'lsk_select': 'lsk',
            'lsk_bias_gelu': 'lsk', 'lsk_bias_gate': 'lsk',
-           'lsk_bias_residual': 'lsk'}
+           'lsk_bias_residual': 'lsk', 'lsk_dw_gelu': 'lsk',
+           'lsk_bias_scale': 'lsk'}
 # the kernels each run must launch
 PATH_KERNELS = {
     'bf16': ('rotated_iou', 'nms_sweep', 'frm_sample', 'stem_conv_pool',
@@ -352,9 +365,9 @@ PATH_KERNELS = {
     'hbb_train': ('rotated_iou', 'stem_conv_pool'),
     # a bf16 Swin-T backbone forward: the attention kernels, once a block
     'swin': ('swin_norm_pad', 'swin_window_attn'),
-    # a bf16 LSKNet-S backbone forward: the attention kernels, once a block
-    'lsk': ('lsk_taps', 'lsk_select', 'lsk_bias_gelu', 'lsk_bias_gate',
-            'lsk_bias_residual'),
+    # a bf16 LSKNet-S backbone forward: the attention's and the MLP's
+    # kernels, once a block
+    'lsk': LSK_ATTN_KERNELS + LSK_MLP_KERNELS,
 }
 
 
@@ -821,6 +834,7 @@ def compare_kernels(dev):
     rec['conv_epilogue'] = compare_epilogue(dev, rng)
     rec.update(compare_swin(dev, rng))
     rec.update(compare_lsk(dev, rng))
+    rec.update(compare_lsk_mlp(dev, rng))
     rec['int8_conv'] = int8_conv_route(dev, rng)
     rec['frm_sample_bwd'] = frm_bwd_kernel(dev, rng)
     return rec
@@ -1100,7 +1114,7 @@ def compare_lsk(dev, rng):
 
     bf16 = torch.bfloat16
     recs = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
-            for k in PATH_KERNELS['lsk']}
+            for k in LSK_ATTN_KERNELS}
     whole = dict(ms=0.0, eager_ms=0.0, bound_ms=0.0)
 
     def normal(shape, std, mean=0.0):
@@ -1239,12 +1253,151 @@ def compare_lsk(dev, rng):
     return recs
 
 
+
+def compare_lsk_mlp(dev, rng):
+    """LSKNet's two MLP kernels at LSKNet-S's four stage shapes of a batch
+    of 8 1024^2 images (hidden 512, 1024, 1280, 2048), on a block seeded
+    from ``rng`` (every bias and BN drawn wide) and inputs that are the
+    route's own products, each against its plain form on the card:
+    ``lsk_dw_gelu`` within one bf16 ulp plus 2^-16 of what it sums, in
+    magnitude (its taps sum in another order, fc1's bias split off);
+    ``lsk_bias_scale`` bit for bit. ``ms`` as ``compare_lsk``'s, beside
+    the plain form's and the bound (``lsk_mlp_work``: bytes at 3.35 TB/s).
+    ``[kernel] name=lsk_mlp`` times the whole sub-block on the route
+    against the eager bf16 sub-block, beside its two products' ms (cuBLAS,
+    a CUDA graph), its least time (``portbench/work/lsknet.py``) and each
+    route's error against the block in float32 (relative to the
+    sub-block's contribution); the records and ``[kernel_sum]`` sum each
+    shape's over its launches a forward (10 each)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from portbench.work import lsknet as W
+    from r3det_tpu_torch.models.lsknet import Block
+    from r3det_tpu_torch.ops import lsk_mlp as M
+    from r3det_tpu_torch.ops.route import kernels
+
+    bf16 = torch.bfloat16
+    recs = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+            for k in LSK_MLP_KERNELS}
+    whole = dict(ms=0.0, eager_ms=0.0, fc1_ms=0.0, fc2_ms=0.0, bound_ms=0.0)
+
+    def normal(shape, std, mean=0.0):
+        return torch.from_numpy(rng.normal(mean, std, shape).astype(
+            np.float32)).to(dev)
+
+    for (side, c, depth), ratio in zip(LSK_STAGES, LSK_RATIOS):
+        hidden = c * ratio
+        block = Block(c, ratio).to(dev).to(memory_format=torch.channels_last)
+        with torch.no_grad():
+            for name, prm in block.named_parameters():
+                prm.copy_(normal(prm.shape, prm[0].numel() ** -0.5)
+                          if prm.dim() > 1 else
+                          normal(prm.shape, 0.5, 1.0 if 'norm2.weight' in name
+                                 or 'layer_scale' in name else 0.0))
+            block.norm2.running_mean.copy_(normal((c,), 1.0))
+            block.norm2.running_var.copy_(normal((c,), 0.2, 1.0).abs())
+            p = block.mlp_pack(bf16)
+        work = lsk_mlp_work(BATCH, side, side, c, hidden)
+        x = normal((BATCH, c, side, side), 1.0).to(bf16).contiguous(
+            memory_format=torch.channels_last)
+        xh = x.permute(0, 2, 3, 1)
+        with torch.no_grad():
+            h = F.linear(xh, p.w1)
+            got = M.dw_gelu_cuda(h, p.b1, p.taps, p.bd)
+            want = M.dw_gelu_reference(h, p.b1, p.taps, p.bd)
+            wa = p.taps.abs()
+            b1 = p.b1.float().abs()
+            mag = F.conv2d((h.float().abs() + b1).permute(0, 3, 1, 2),
+                           wa.t().reshape(hidden, 1, 3, 3),
+                           b1 * wa.sum(0) + p.bd.abs(), padding=1,
+                           groups=hidden).permute(0, 2, 3, 1)
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            ok = bool((diff <= 2 ** -7 * want.float().abs()
+                       + 2 ** -16 * mag).all())
+            del mag, diff, want
+            ms = graph_ms([lambda: M.dw_gelu_cuda(h, p.b1, p.taps, p.bd)],
+                          20)
+            plain_ms = cuda_ms(
+                lambda: M.dw_gelu_reference(h, p.b1, p.taps, p.bd), 3)
+            records = [('lsk_dw_gelu', err, ok, ms, plain_ms, tuple(h.shape),
+                        '2^-7*|ref| + 2^-16*sum|w*(h+b1)|')]
+            fc1_ms = graph_ms([lambda: F.linear(xh, p.w1)], 20)
+            fc2_ms = graph_ms([lambda: F.linear(got, p.w2)], 20)
+            a = F.linear(got, p.w2)
+            want = M.bias_scale_reference(a, p.b2, xh, p.ls)
+            res = M.bias_scale_cuda(a.clone(), p.b2, xh, p.ls)
+            records.append((
+                'lsk_bias_scale', float((res.float() - want.float()).abs()
+                                        .max()),
+                same_bits(res, want),
+                graph_ms([lambda: M.bias_scale_cuda(a, p.b2, xh, p.ls)], 20),
+                cuda_ms(lambda: M.bias_scale_reference(a, p.b2, xh, p.ls),
+                        3), tuple(a.shape), 0.0))
+            del h, got, a, want, res
+
+            def eager(t):
+                return torch.addcmul(t, block.layer_scale_2.to(t.dtype).view(
+                    1, -1, 1, 1), block.mlp(block.norm2(t)))
+            want = eager(x.float())
+            spread = (want - x.float()).norm()
+            errs = [float((M.mlp(x, p).float() - want).norm() / spread)]
+            route_ms = cuda_ms(lambda: M.mlp(x, p), 10)
+            with kernels(False):
+                errs.append(float((eager(x).float() - want).norm() / spread))
+                eager_ms = cuda_ms(lambda: eager(x), 3)
+            del want
+        for name, err, ok, ms, plain_ms, shape, tol in records:
+            b_ms, by = work[name]
+            phase('kernel', name=name, shape=str(shape),
+                  launches_per_forward=depth, max_abs_err=err, tol=tol,
+                  ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
+                  bound_ms=f'{b_ms:.4f}', bound_by=by,
+                  bound_share=f'{b_ms / ms:.3f}')
+            check(ok, f'{name} at {shape} disagrees with its plain form')
+            rec = recs[name]
+            rec['max_abs_err'] = max(rec['max_abs_err'], err)
+            rec['ms'] += depth * ms
+            rec['plain_ms'] += depth * plain_ms
+            add_bound_ms(rec, depth * b_ms, by)
+        act, weights, tensor, f32 = W.mlp_work(c, hidden)
+        n = BATCH * side * side
+        least = max(W.times((n * act + weights, n * tensor, n * f32))) * 1e3
+        phase('kernel', name='lsk_mlp', shape=str(tuple(x.shape)),
+              hidden=hidden, launches_per_forward=depth,
+              ms=f'{route_ms:.4f}', eager_ms=f'{eager_ms:.4f}',
+              fc1_ms=f'{fc1_ms:.4f}', fc2_ms=f'{fc2_ms:.4f}',
+              bound_ms=f'{least:.4f}', bound_share=f'{least / route_ms:.3f}',
+              kernel_err=f'{errs[0]:.5f}', eager_err=f'{errs[1]:.5f}')
+        check(errs[0] <= 1.25 * errs[1],
+              'the MLP route errs more than 1.25 times the eager route')
+        whole['ms'] += depth * route_ms
+        whole['eager_ms'] += depth * eager_ms
+        whole['fc1_ms'] += depth * fc1_ms
+        whole['fc2_ms'] += depth * fc2_ms
+        whole['bound_ms'] += depth * least
+        del x, xh, block, p
+        torch.cuda.empty_cache()
+    for name, rec in recs.items():
+        phase('kernel_sum', name=name, launches=LSK_BLOCKS,
+              ms=f'{rec["ms"]:.4f}', plain_ms=f'{rec["plain_ms"]:.4f}',
+              bound_ms=f'{rec["bound_ms"]:.4f}',
+              bound_share=f'{rec["bound_ms"] / rec["ms"]:.3f}')
+    phase('kernel_sum', name='lsk_mlp', launches=LSK_BLOCKS,
+          ms=f'{whole["ms"]:.4f}', eager_ms=f'{whole["eager_ms"]:.4f}',
+          fc1_ms=f'{whole["fc1_ms"]:.4f}', fc2_ms=f'{whole["fc2_ms"]:.4f}',
+          bound_ms=f'{whole["bound_ms"]:.4f}',
+          bound_share=f'{whole["bound_ms"] / whole["ms"]:.3f}')
+    return recs
+
 def lsk_forward(dev, card):
     """[lsk]: a bf16 LSKNet-S backbone (published widths, weights from a
     numpy seed) on a batch of 8 1024^2 images, the launch counts set to 0
-    just before it: each attention kernel launches once a block (10) and
-    no other kernel of the port runs. Its four outputs against the same
-    module run in float32 (the plain route): the kernels' route errs
+    just before it: each attention and MLP kernel launches once a block
+    (10) and no other kernel of the port runs. Its four outputs against
+    the same module run in float32 (the plain route): the kernels' route errs
     within 1.25 times the eager bf16 route at each. The backbone's ms on
     both routes (CUDA events). Returns the launch counts."""
     import numpy as np
@@ -1281,7 +1434,8 @@ def lsk_forward(dev, card):
               f'not {LSK_BLOCKS}')
     check(all(n == 0 for k, n in launches.items()
               if k not in PATH_KERNELS['lsk']),
-          'a kernel other than the attention kernels ran in LSKNet-S')
+          'a kernel other than the attention and MLP kernels ran in '
+          'LSKNet-S')
     errs = [(_rel_l2(r, w), _rel_l2(e, w))
             for r, e, w in zip(route, eager, want)]
     phase('lsk', batch=BATCH, size=SIZE, backbone_ms=f'{route_ms:.3f}',

@@ -96,6 +96,11 @@ _SIGNATURES = {
     'lsk_bias_gelu': (_P, _P, _LL, _I, _I, _P),
     'lsk_bias_gate': (_P,) * 3 + (_LL, _I, _I, _P),
     'lsk_bias_residual': (_P,) * 6 + (_LL, _I, _I, _P),
+    # LSKNet's MLP sub-block (csrc/lsk_attn.cu). h, b1 (C,) bf16, taps
+    # (9, C), bd (C,) f32, out, B, H, W, C, tile rows, SMs, stream
+    'lsk_dw_gelu': (_P,) * 5 + (_I,) * 6 + (_P,),
+    # a (written in place), bias, x, ls, pixels, C, SMs, stream
+    'lsk_bias_scale': (_P,) * 4 + (_LL, _I, _I, _P),
 }
 
 # entry points that launch another entry's kernel, counted under its name

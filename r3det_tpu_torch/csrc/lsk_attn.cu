@@ -1,7 +1,8 @@
-// LSKNet's attention sub-block on the bf16 serving path (models/lsknet.py,
-// Block.forward; ops/lsk_attn.py::attention), as five kernels
-// around four products (cuBLAS on the NHWC view, no bias, outside any
-// kernel). Every map is (B, H, W, channels) bf16, contiguous:
+// LSKNet's attention and MLP sub-blocks on the bf16 serving path
+// (models/lsknet.py, Block.forward; ops/lsk_attn.py::attention,
+// ops/lsk_mlp.py::mlp), as seven kernels around six products (cuBLAS on
+// the NHWC view, no bias, outside any kernel). Every map is (B, H, W,
+// channels) bf16, contiguous. The attention:
 //
 // lsk_bias_gelu: P, proj_1's product of x (norm1 folded into its weight),
 //   -> v = GELU(P + b1), in place in P.
@@ -18,11 +19,20 @@
 //   u), in place, with the shortcut u = norm1(x) = x * inv + shift
 //   recomputed from x.
 //
-// Numerics (ops/lsk_attn.py has each plain form): the eager route's
-// roundings, each op computed in float32 on bf16 operands and rounded to
-// bf16 as PyTorch's bf16 kernels round: a bias add rounds, GELU is erf's,
-// the gate's and the layer scale's products are exact in float32 (bf16
-// times bf16) and round once with their sums (addcmul), u is BN's addcmul.
+// The MLP:
+//
+// lsk_dw_gelu: h, fc1's product of x (norm2 folded into its weight; hidden
+//   channels) -> GELU(dwconv(h + b1) + bd), a new map: h + b1 zero outside
+//   the map (dwconv pads fc1's output), the 3x3 depthwise taps, their bias
+//   and exact GELU in float32, rounded once.
+// lsk_bias_scale: fc2's product of that -> x + ls * (it + b2), in place.
+//
+// Numerics (ops/lsk_attn.py and ops/lsk_mlp.py have each plain form): the
+// eager route's roundings, each op computed in float32 on bf16 operands
+// and rounded to bf16 as PyTorch's bf16 kernels round: a bias add rounds,
+// GELU is erf's, the gate's and the layer scale's products are exact in
+// float32 (bf16 times bf16) and round once with their sums (addcmul), u is
+// BN's addcmul.
 // The taps sum in float32 and round a1 and a2 once each, bias included
 // (the eager route rounds the conv, then the bias add); a1 is rounded to
 // bf16 before the dilated taps read it, as the eager route stores it, and
@@ -33,6 +43,12 @@
 // so a value may land on the neighbouring bf16. The build's --fmad=false
 // keeps each product and sum apart, so the taps and conv_squeeze spell
 // their multiply-adds fmaf, or they would run at half rate.
+//
+// lsk_dw_gelu rounds only its result: fc1's bias, the taps, their bias
+// and GELU stay in float32 between, where the eager route rounds fc1's
+// output, the conv, its bias add and GELU. Its taps sum in another order
+// than the plain form's conv, with fc1's bias split off (b1 times the
+// taps' sum), so a value may land on the neighbouring bf16.
 //
 // No TPU kernel stands behind them: the JAX package has no LSKNet.
 //
@@ -67,7 +83,30 @@
 // - the epilogues (as csrc/conv_epilogue.cu): a thread owns one 8-channel
 //   slice for the launch, its per-channel vectors in registers, and
 //   strides over the map two 16-byte vectors at a time, as many blocks as
-//   the SMs hold.
+//   the SMs hold. lsk_bias_scale is the residual's template without the
+//   shortcut (a template parameter: the residual's code is unchanged).
+// - lsk_dw_gelu: bound by its bytes at every stage. At stage 1 (256^2
+//   positions of 512 hidden channels, batch 8) it reads and writes 537 MB
+//   each (0.320 ms) and does 28 float32 operations an element, 7.5 GFLOP
+//   (0.112 ms); but the erf takes some 27 instructions an element on this
+//   card, the taps 9 and their operands' unpacking 3, so the SMs'
+//   instruction rate is what it meets first: 0.59 ms at stage 1 (H100
+//   80GB HBM3, 700 W), 0.45 with the erf left out. Tiles of 16 columns
+//   and 16, 8 or 4 rows (the most that gives each resident block two
+//   tiles or more) and a slice of 64 channels, so that a position's slice
+//   is one 128-byte line and every 32-byte sector moved is used whole
+//   (lsk_taps' 8-channel vectors use half of each). A persistent block keeps one slice, its taps in
+//   registers, and walks tiles with two buffers in shared memory: the
+//   next tile and its halo of 1 go in by cp.async, 16 bytes a copy, while
+//   it computes the current one. fc1's bias is not added to the map:
+//   outside the map the buffer holds -b1 (exact, b1 being bf16), and each
+//   output adds b1 times the sum of its channel's taps, which reads fc1's
+//   output h + b1 inside the map and zero outside, as dwconv pads it. A
+//   thread owns four channels (8-byte words: a warp reads two positions'
+//   256 contiguous bytes, conflict-free) and a column of the tile;
+//   walking down the column, each word it reads feeds up to three rows of
+//   outputs, each written (8 bytes, a warp's two whole lines) as soon as
+//   its last row has arrived.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -458,7 +497,7 @@ lsk_select_kernel(const bf16* __restrict__ b, const float* __restrict__ cb,
 constexpr int kEpiThreads = 256;
 constexpr int kUnroll = 2;                 // vectors a thread has in flight
 
-enum Epilogue { kGelu = 0, kGate = 1, kResidual = 2 };
+enum Epilogue { kGelu = 0, kGate = 1, kResidual = 2, kScale = 3 };
 
 template <int kMode>
 __global__ void __launch_bounds__(kEpiThreads)
@@ -477,8 +516,8 @@ lsk_epilogue_kernel(bf16* a, const bf16* __restrict__ bias,
   if (kMode == kResidual) {
     iv = load16(inv + c);
     sv = load16(shift + c);
-    lv = load16(ls + c);
   }
+  if (kMode == kResidual || kMode == kScale) lv = load16(ls + c);
   constexpr float kAlpha = 0.70710678118654752440f;  // M_SQRT1_2
   for (long long base = t; base < n_vec; base += kUnroll * stride) {
     uint4 va[kUnroll], vr[kUnroll];
@@ -504,6 +543,8 @@ lsk_epilogue_kernel(bf16* a, const bf16* __restrict__ bias,
           z = y * 0.5f * (1.0f + erff(y * kAlpha));
         } else if (kMode == kGate) {
           z = lane(vr[u], k) * y;
+        } else if (kMode == kScale) {
+          z = lane(vr[u], k) + lane(lv, k) * y;
         } else {
           const float x = lane(vr[u], k);
           const float sc = round_bf16(x * lane(iv, k) + lane(sv, k));
@@ -549,6 +590,231 @@ int launch_epilogue(void* a, const void* bias, const void* r,
 
 bool bad_epilogue(long long n_pix, int C, int sms) {
   return C <= 0 || C % 8 || sms <= 0 || n_pix < 0;
+}
+
+// ---------------------------------------------------------------------------
+// lsk_dw_gelu (the MLP sub-block)
+// ---------------------------------------------------------------------------
+
+constexpr int kDwThreads = 256;
+constexpr int kDwCols = 16;                // tile columns: one a thread
+constexpr int kDwSlice = 64;               // channels a block: 128 bytes a position
+constexpr int kDwVecs = kDwSlice / 8;      // its 16-byte vectors
+constexpr int kDwQuads = kDwSlice / 4;     // its 4-channel quads: threads a column
+constexpr int kDwTaps = 9;
+constexpr int kDwSide = kDwCols + 2;       // staged columns
+static_assert(kDwQuads * kDwCols == kDwThreads, "a thread a quad and column");
+static_assert(kDwSide * kDwVecs <= kDwThreads, "a thread stages a column");
+
+template <int kRows>
+__host__ __device__ constexpr int dw_buffer_vecs() {
+  return (kRows + 2) * kDwSide * kDwVecs;
+}
+
+// h over one tile of one image and a halo of 1 into a buffer: cp.async
+// inside the map; outside it, -b1 (exact: b1 is bf16), so that the sum of
+// the taps plus b1 times the sum of the taps' weights reads fc1's output
+// as zero there, as dwconv pads it. A thread stages one vector slot down
+// one staged column (the block's first kDwSide * kDwVecs threads), so its
+// source and destination only step by a row.
+template <int kRows>
+__device__ __forceinline__ void dw_stage(uint4* buf, const bf16* himg,
+                                         uint4 pad, int ty0, int tx0, int vc,
+                                         bool c_in, int H, int W, int C) {
+  const int s = threadIdx.x / kDwVecs;
+  if (s < kDwSide) {
+    const int x = tx0 - 1 + s;
+    const bool col_in = c_in && x >= 0 && x < W;
+    const long long row = static_cast<long long>(W) * C;
+    long long off = (ty0 - 1) * row + static_cast<long long>(x) * C + vc;
+    uint4* dst = buf + s * kDwVecs + threadIdx.x % kDwVecs;
+#pragma unroll
+    for (int r = 0; r < kRows + 2; ++r, off += row, dst += kDwSide * kDwVecs) {
+      const int y = ty0 - 1 + r;
+      if (col_in && y >= 0 && y < H)
+        cp_async16(smem_addr(dst), himg + off, 16);
+      else
+        *dst = pad;
+    }
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// A persistent block takes one 64-channel slice and walks tiles of it
+// (tile t of every image, then t + per, ...), the next tile's copies in
+// flight while it computes the current one from the other buffer.
+template <int kRows>
+__global__ void __launch_bounds__(kDwThreads, 2)
+lsk_dw_gelu_kernel(const bf16* __restrict__ h, const bf16* __restrict__ b1,
+                   const float* __restrict__ w, const float* __restrict__ bd,
+                   bf16* __restrict__ out, int B, int H, int W, int C,
+                   int tiles_x, int tiles) {
+  // two buffers, addressed from dw_smem itself so that the compiler keeps
+  // the shared window (an array of the two pointers made generic loads)
+  extern __shared__ __align__(16) uint4 dw_smem[];
+  constexpr int kBuffer = dw_buffer_vecs<kRows>();
+
+  const int tid = threadIdx.x;
+  const int slices = (C + kDwSlice - 1) / kDwSlice;
+  const int slice = blockIdx.x % slices;     // the grid is slices x per
+  const int per = gridDim.x / slices;
+  const int items = B * tiles;              // the launcher keeps it < 2^30
+  int item = blockIdx.x / slices;
+  if (item >= items) return;
+  const int c0 = slice * kDwSlice;
+
+  // the vector slot this thread stages, and -b1 over it
+  const int vc = c0 + (tid % kDwVecs) * 8;
+  const bool c_in = vc < C;
+  uint4 pad = make_uint4(0u, 0u, 0u, 0u);
+  if (c_in) {
+    pad = load16(b1 + vc);
+    pad.x ^= 0x80008000u;
+    pad.y ^= 0x80008000u;
+    pad.z ^= 0x80008000u;
+    pad.w ^= 0x80008000u;
+  }
+
+  // the quad and column this thread computes, its taps, and the constant
+  // b1 * sum(taps) + bd that undoes the -b1 read inside the map
+  const int q = tid % kDwQuads, col = tid / kDwQuads;
+  const int c = c0 + 4 * q;
+  const bool computes = c < C;
+  float k[kDwTaps][4];
+  float cb[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (computes) {
+#pragma unroll
+    for (int t = 0; t < kDwTaps; ++t) {
+      const float4 v = *reinterpret_cast<const float4*>(w + t * C + c);
+      k[t][0] = v.x;
+      k[t][1] = v.y;
+      k[t][2] = v.z;
+      k[t][3] = v.w;
+    }
+    const uint2 bb = *reinterpret_cast<const uint2*>(b1 + c);
+    const float bias1[4] = {lo_of(bb.x), hi_of(bb.x), lo_of(bb.y),
+                            hi_of(bb.y)};
+    const float4 bv = *reinterpret_cast<const float4*>(bd + c);
+    const float bias2[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int t = 0; t < kDwTaps; ++t) sum = sum + k[t][e];
+      cb[e] = bias1[e] * sum + bias2[e];
+    }
+  }
+  constexpr float kAlpha = 0.70710678118654752440f;  // M_SQRT1_2
+
+  auto origin = [&](int it, int& ty0, int& tx0) {
+    const int img = it / tiles, tile = it - img * tiles;
+    ty0 = (tile / tiles_x) * kRows;
+    tx0 = (tile % tiles_x) * kDwCols;
+    return h + static_cast<long long>(img) * H * W * C;
+  };
+  {
+    int ty0, tx0;
+    const bf16* himg = origin(item, ty0, tx0);
+    dw_stage<kRows>(dw_smem, himg, pad, ty0, tx0, vc, c_in, H, W, C);
+  }
+  for (int round = 0; item < items; ++round, item += per) {
+    const int next = item + per;
+    if (next < items) {
+      int ny0, nx0;
+      const bf16* nimg = origin(next, ny0, nx0);
+      dw_stage<kRows>(dw_smem + ((round + 1) & 1) * kBuffer, nimg, pad, ny0,
+                      nx0, vc, c_in, H, W, C);
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    }
+    __syncthreads();
+
+    int ty0, tx0;
+    const bf16* himg = origin(item, ty0, tx0);
+    const int x = tx0 + col;
+    if (computes) {
+      // down the column: each staged word feeds up to three rows of
+      // outputs, each written as soon as its last row has arrived
+      const uint2* s2 =
+          reinterpret_cast<const uint2*>(dw_smem + (round & 1) * kBuffer);
+      bf16* orow = out + (himg - h) + static_cast<long long>(x) * C + c;
+      float acc[kRows][4];
+#pragma unroll
+      for (int o = 0; o < kRows; ++o)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[o][e] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kRows + 2; ++j) {
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const uint2 u = s2[(j * kDwSide + col + dx) * kDwQuads + q];
+          const float f[4] = {lo_of(u.x), hi_of(u.x), lo_of(u.y),
+                              hi_of(u.y)};
+#pragma unroll
+          for (int o = 0; o < kRows; ++o) {
+            const int ky = j - o;
+            if (ky < 0 || ky > 2) continue;
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[o][e] = fmaf(k[ky * 3 + dx][e], f[e], acc[o][e]);
+          }
+        }
+        const int o = j - 2;                 // its last row arrived
+        if (o < 0) continue;
+        const int y = ty0 + o;
+        if (y >= H || x >= W) continue;
+        float g[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float z = acc[o][e] + cb[e];
+          g[e] = z * 0.5f * (1.0f + erff(z * kAlpha));
+        }
+        *reinterpret_cast<uint2*>(orow + static_cast<long long>(y) * W * C) =
+            make_uint2(pack_bf16(g[0], g[1]), pack_bf16(g[2], g[3]));
+      }
+    }
+    __syncthreads();                         // the buffer is staged again
+  }
+}
+
+template <int kRows>
+int launch_dw_gelu(const void* h, const void* b1, const void* w,
+                   const void* bd, void* out, int B, int H, int W, int C,
+                   int sms, cudaStream_t stream) {
+  static int occupancy[64] = {};
+  int dev = 0;
+  int err = device_index(&dev);
+  if (err) return err;
+  constexpr size_t smem = 2 * dw_buffer_vecs<kRows>() * sizeof(uint4);
+  int& per_sm = occupancy[dev];
+  if (per_sm == 0) {
+    cudaError_t e = cudaFuncSetAttribute(
+        lsk_dw_gelu_kernel<kRows>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, lsk_dw_gelu_kernel<kRows>, kDwThreads, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const int tiles_x = (W + kDwCols - 1) / kDwCols;
+  const int tiles = ((H + kRows - 1) / kRows) * tiles_x;
+  const long long items = static_cast<long long>(B) * tiles;
+  if (items > 0x3fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int slices = (C + kDwSlice - 1) / kDwSlice;
+  // blocks a slice: as many as the SMs hold in all, at most one an item
+  long long per = static_cast<long long>(per_sm) * sms / slices;
+  if (per < 1) per = 1;
+  if (per > items) per = items;
+  const long long blocks = per * slices;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  lsk_dw_gelu_kernel<kRows><<<static_cast<unsigned>(blocks), kDwThreads,
+                              smem, stream>>>(
+      static_cast<const bf16*>(h), static_cast<const bf16*>(b1),
+      static_cast<const float*>(w), static_cast<const float*>(bd),
+      static_cast<bf16*>(out), B, H, W, C, tiles_x, tiles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -630,4 +896,30 @@ extern "C" int r3det_lsk_bias_residual(void* a, const void* bias,
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_epilogue<kResidual>(a, bias, x, inv, shift, ls, n_pix, C, sms,
                                     static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int r3det_lsk_bias_scale(void* a, const void* bias, const void* x,
+                                    const void* ls, long long n_pix, int C,
+                                    int sms, void* stream) {
+  if (n_pix == 0) return 0;
+  if (bad_epilogue(n_pix, C, sms) || x == nullptr || ls == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_epilogue<kScale>(a, bias, x, nullptr, nullptr, ls, n_pix, C,
+                                 sms, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int r3det_lsk_dw_gelu(const void* h, const void* b1, const void* w,
+                                 const void* bd, void* out, int B, int H,
+                                 int W, int C, int rows, int sms,
+                                 void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0) return 0;
+  if (C <= 0 || C % 8 || sms <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (rows) {
+    case 16: return launch_dw_gelu<16>(h, b1, w, bd, out, B, H, W, C, sms, s);
+    case 8: return launch_dw_gelu<8>(h, b1, w, bd, out, B, H, W, C, sms, s);
+    case 4: return launch_dw_gelu<4>(h, b1, w, bd, out, B, H, W, C, sms, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -52,8 +52,15 @@ gradient to carry), a block's attention sub-block runs on the route of
 products on the NHWC view around five CUDA passes (``csrc/lsk_attn.cu``),
 from a pack of its weights (``Block.attn_pack``: norm1 folded into
 proj_1, conv1 and conv2 as one block-diagonal product), kept until a
-parameter or buffer changes. Everything else, and the attention in
-float32, on the CPU or under autograd, is the eager code above.
+parameter or buffer changes. Where its contract holds
+(``ops/lsk_mlp.py::refusal``: the same, with C and the hidden width in
+16-byte vectors), the MLP sub-block runs ``ops/lsk_mlp.py::mlp``: fc1's
+and fc2's products on the NHWC view (norm2 folded into fc1) around two
+CUDA passes, fc1's bias, ``dwconv``, its bias and GELU in one
+(``lsk_dw_gelu``), fc2's bias and the layer-scaled residual in the other
+(``lsk_bias_scale``), from ``Block.mlp_pack``, kept alike. Everything
+else, and both sub-blocks in float32, on the CPU or under autograd, is the
+eager code above.
 
 Spans (``utils/tracing.py``): ``backbone.lsk.embed`` (each stage's patch
 embedding), ``backbone.lsk.attn`` (each block, from ``norm1`` through the
@@ -64,7 +71,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import lsk_attn
+from ..ops import lsk_attn, lsk_mlp
 from ..utils.tracing import span
 from .conv import Conv2d
 from .swin import LayerNorm
@@ -200,23 +207,38 @@ class Block(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         self.layer_scale_1 = nn.Parameter(torch.ones(dim))
         self.layer_scale_2 = nn.Parameter(torch.ones(dim))
-        self._pack_cache = (None, None)
+        self._packs = {}
 
     def attn_params(self):
         """The attention sub-block's parameters and norm1's buffers."""
         return (*self.norm1.parameters(), *self.norm1.buffers(),
                 *self.attn.parameters(), self.layer_scale_1)
 
+    def mlp_params(self):
+        """The MLP sub-block's parameters and norm2's buffers."""
+        return (*self.norm2.parameters(), *self.norm2.buffers(),
+                *self.mlp.parameters(), self.layer_scale_2)
+
+    def _kept(self, name, dtype, params, build):
+        """``build(dtype)``; without autograd kept under ``name`` until a
+        tensor of ``params`` changes."""
+        if torch.is_grad_enabled():
+            return build(dtype)
+        key = (dtype, *((t.data_ptr(), t._version) for t in params))
+        kept = self._packs.get(name)
+        if kept is None or kept[0] != key:
+            kept = self._packs[name] = (key, build(dtype))
+        return kept[1]
+
     def attn_pack(self, dtype):
         """``ops/lsk_attn.py::pack`` of this block's attention in ``dtype``;
         without autograd kept until a parameter or buffer changes."""
-        if torch.is_grad_enabled():
-            return self._attn_pack(dtype)
-        key = (dtype, *((t.data_ptr(), t._version)
-                        for t in self.attn_params()))
-        if self._pack_cache[0] != key:
-            self._pack_cache = (key, self._attn_pack(dtype))
-        return self._pack_cache[1]
+        return self._kept('attn', dtype, self.attn_params(), self._attn_pack)
+
+    def mlp_pack(self, dtype):
+        """``ops/lsk_mlp.py::pack`` of this block's MLP in ``dtype``;
+        without autograd kept until a parameter or buffer changes."""
+        return self._kept('mlp', dtype, self.mlp_params(), self._mlp_pack)
 
     def _attn_pack(self, dtype):
         sgu = self.attn.spatial_gating_unit
@@ -226,6 +248,12 @@ class Block(nn.Module):
                              *((m.weight, m.bias) for m in convs),
                              self.layer_scale_1)
 
+    def _mlp_pack(self, dtype):
+        convs = (self.mlp.fc1, self.mlp.dwconv.dwconv, self.mlp.fc2)
+        return lsk_mlp.pack(dtype, self.norm2.affine(torch.float32),
+                            *((m.weight, m.bias) for m in convs),
+                            self.layer_scale_2)
+
     def forward(self, x):
         with span('backbone.lsk.attn'):
             if lsk_attn.refusal(x, *self.attn_params()) is None:
@@ -234,6 +262,9 @@ class Block(nn.Module):
                 x = torch.addcmul(x, _channel(self.layer_scale_1.to(x.dtype)),
                                   self.attn(self.norm1(x)))
         with span('backbone.lsk.mlp'):
+            if lsk_mlp.refusal(x, self.mlp.fc1.out_channels,
+                               *self.mlp_params()) is None:
+                return lsk_mlp.mlp(x, self.mlp_pack(x.dtype))
             return torch.addcmul(x, _channel(self.layer_scale_2.to(x.dtype)),
                                  self.mlp(self.norm2(x)))
 

@@ -29,6 +29,11 @@ is held to; in float32 on the CPU it is the eager module's ops), a
 public entry that takes the kernel where it holds and the plain form
 otherwise. Maps are (B, H, W, channels). The JAX package has no LSKNet,
 so no TPU kernel stands behind any of them.
+
+The block's MLP sub-block has its own route, ``ops/lsk_mlp.py``: its two
+passes live in the same CUDA file, and its last one, fc2's bias and the
+layer-scaled residual, is the epilogue template here without the
+shortcut (``_epilogue_cuda``, ``lsk_bias_scale``).
 """
 import math
 from typing import NamedTuple
@@ -263,7 +268,8 @@ def select(b, cb, wq, bq):
 # ---------------------------------------------------------------------------
 
 def epilogue_refusal(a, *needs):
-    """The epilogues' contract: bf16 ``a``, C % 8 == 0."""
+    """The epilogues' contract (``lsk_mlp.bias_scale``'s too): bf16 ``a``,
+    C % 8 == 0."""
     return _channels(a, 8) or route.refusal(a, a.dtype, a, *needs)
 
 

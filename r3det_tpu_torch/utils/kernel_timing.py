@@ -15,8 +15,9 @@ and ``tools/kernel_bench.py``.
   ResNet-50 forward (``ops/conv_epilogue.py``) and the bytes of one;
 - ``swin_attn_work``: the bounds of Swin's two attention kernels
   (``ops/swin_attn.py``) on one block's map;
-- ``lsk_attn_work``: the bounds of LSKNet's attention kernels
-  (``ops/lsk_attn.py``) on one block's map.
+- ``lsk_attn_work`` and ``lsk_mlp_work``: the bounds of LSKNet's
+  attention kernels (``ops/lsk_attn.py``) and MLP kernels
+  (``ops/lsk_mlp.py``) on one block's map.
 
 The rates are the H100 SXM's published figures.
 """
@@ -210,4 +211,26 @@ def lsk_attn_work(batch, h, w, c):
                                n * c * (1 + GELU_OPS), 'f32'),
         'lsk_bias_gate': bound(2 * n * 3 * c + 2 * c, n * c * 2, 'f32'),
         'lsk_bias_residual': bound(2 * n * 3 * c + 8 * c, n * c * 7, 'f32'),
+    }
+
+
+DW_TAPS = 9         # dwconv's taps a hidden channel (3x3)
+
+
+def lsk_mlp_work(batch, h, w, c, hidden):
+    """The bounds of LSKNet's two MLP kernels on a (batch, h, w, c) block
+    map of ``hidden`` hidden channels: {name: (bound_ms, bound_by)}, as
+    :func:`lsk_attn_work` counts them. ``lsk_dw_gelu`` reads the hidden
+    map, its float32 taps and bias and fc1's bf16 bias, and writes the
+    hidden map; fc1's bias add, the taps and their bias, and GELU on the
+    CUDA cores.
+    ``lsk_bias_scale`` reads fc2's product and x and writes the output;
+    the bias add and the layer-scaled residual (a multiply-add)."""
+    n = batch * h * w
+    return {
+        'lsk_dw_gelu': bound(2 * n * 2 * hidden + 4 * (DW_TAPS + 1) * hidden
+                             + 2 * hidden,
+                             n * hidden * (1 + 2 * DW_TAPS + 1 + GELU_OPS),
+                             'f32'),
+        'lsk_bias_scale': bound(2 * n * 3 * c + 4 * c, n * c * 3, 'f32'),
     }

@@ -7,6 +7,7 @@ Every test skips without a CUDA card (decided in the fixture). f32
 comparisons run with TF32 off.
 """
 import math
+import types
 
 import numpy as np
 import pytest
@@ -23,6 +24,7 @@ from r3det_tpu_torch.ops import conv_epilogue as E
 from r3det_tpu_torch.ops import frm_sample as K2
 from r3det_tpu_torch.ops import int8_conv as Q
 from r3det_tpu_torch.ops import lsk_attn as L
+from r3det_tpu_torch.ops import lsk_mlp as M
 from r3det_tpu_torch.ops import nms
 from r3det_tpu_torch.ops import rotated_iou as K1
 from r3det_tpu_torch.ops import stem_pool as K3
@@ -1952,25 +1954,28 @@ def test_lsk_select_kernel_matches_plain(cuda, stage):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('mode', ['gelu', 'gate', 'residual'])
+@pytest.mark.parametrize('mode', ['gelu', 'gate', 'residual', 'scale'])
 @pytest.mark.parametrize('stage', list(LSK_SHAPES))
 def test_lsk_epilogue_kernel_matches_plain(cuda, stage, mode):
     """bf16 against the plain form on the card, in place. Each op computes
     in float32 on bf16 operands and rounds as PyTorch's bf16 kernels (a
-    product of two bf16 is exact in float32): the gate and the residual
-    bit for bit; GELU's erff within one bf16 ulp (the build keeps each
-    multiply and add apart)."""
+    product of two bf16 is exact in float32): the gate, the residual and
+    the MLP's layer-scaled residual (``lsk_mlp.bias_scale``, the residual's
+    template without the shortcut) bit for bit; GELU's erff within one
+    bf16 ulp (the build keeps each multiply and add apart)."""
     h, w, c = LSK_SHAPES[stage]
     _, p = lsk_inputs(cuda, c, 7)
     a = lsk_randn(cuda, (2, h, w, c), 8, std=2.0)
     x = lsk_randn(cuda, (2, h, w, c), 9)
     args = {'gelu': (p.b1,), 'gate': (p.b3, x),
-            'residual': (p.b2, x, p.inv, p.shift, p.ls)}[mode]
+            'residual': (p.b2, x, p.inv, p.shift, p.ls),
+            'scale': (p.b2, x, p.ls)}[mode]
+    ops = M if mode == 'scale' else L
     name = f'bias_{mode}'
     _ext.reset_launches()
     with torch.no_grad():
-        want = getattr(L, f'{name}_reference')(a, *args)
-        got = getattr(L, f'{name}_cuda')(a, *args)
+        want = getattr(ops, f'{name}_reference')(a, *args)
+        got = getattr(ops, f'{name}_cuda')(a, *args)
     assert got.data_ptr() == a.data_ptr()
     assert _ext.LAUNCHES[f'lsk_{name}'] == 1
     if mode == 'gelu':
@@ -2036,20 +2041,20 @@ def test_lsknet_s_backbone_kernel_route_near_the_plain_route(cuda):
 
 
 LSK_KERNELS = ('lsk_taps', 'lsk_select', 'lsk_bias_gelu', 'lsk_bias_gate',
-               'lsk_bias_residual')
+               'lsk_bias_residual', 'lsk_dw_gelu', 'lsk_bias_scale')
 
 
 @pytest.mark.gpu
 def test_lsk_attn_launches_per_forward(cuda):
-    """Each kernel launches 10 times a bf16 LSKNet-S forward at batch 8
-    (once a block), none with kernels off, none under autograd, none in a
-    Swin-T or a ResNet-50."""
+    """Each kernel of the attention and of the MLP launches 10 times a
+    bf16 LSKNet-S forward at batch 8 (once a block), none with kernels
+    off, none under autograd, none in a Swin-T or a ResNet-50."""
     model, _, _ = lsknet_models(cuda)
     x = torch.rand(8, 128, 128, 3, device=cuda)
     _ext.reset_launches()
     with torch.no_grad():
         model.backbone(x)
-    assert [_ext.LAUNCHES[n] for n in LSK_KERNELS] == [10] * 5
+    assert [_ext.LAUNCHES[n] for n in LSK_KERNELS] == [10] * 7
     _ext.reset_launches()
     with torch.enable_grad():
         model.backbone(x)
@@ -2060,7 +2065,7 @@ def test_lsk_attn_launches_per_forward(cuda):
         swin.backbone(x[:2])
         net = seeded_resnet50(cuda, 0)
         net(r50_images(cuda, 1, 256))
-    assert [_ext.LAUNCHES[n] for n in LSK_KERNELS] == [0] * 5
+    assert [_ext.LAUNCHES[n] for n in LSK_KERNELS] == [0] * 7
 
 
 @pytest.mark.gpu
@@ -2301,6 +2306,145 @@ def test_swin_attn_wrappers_raise(cuda):
 
 
 # ---------------------------------------------------------------------------
+# LSKNet's MLP kernels (csrc/lsk_attn.cu, ops/lsk_mlp.py)
+# ---------------------------------------------------------------------------
+
+# (H, W, C, hidden) at each stage's widths, on sides that are no multiple
+# of the 16-column tile, stage 4's 32 x 32 at batch 8 of 1024^2, and a
+# hidden width whose last 64-channel slice is partial
+LSK_MLP_SHAPES = {'s1': (37, 45, 64, 512), 's2': (33, 20, 128, 1024),
+                  's3': (17, 31, 320, 1280), 's4': (32, 32, 512, 2048),
+                  'partial': (9, 14, 40, 160)}
+
+
+def lsk_mlp_inputs(dev, c, hidden, seed):
+    """A seeded block of ``c`` channels and ``hidden`` hidden ones on the
+    card (every bias and BN drawn wide, ``test_torch_lsk_mlp.seeded_block``)
+    and its bf16 MLP pack."""
+    from test_torch_lsk_mlp import seeded_block
+    block = seeded_block(c, hidden // c, seed).to(dev)
+    with torch.no_grad():
+        return block, block.mlp_pack(torch.bfloat16)
+
+
+def dw_magnitude(h, p):
+    """(B, H, W, C): what ``lsk_dw_gelu`` sums at each output, in magnitude:
+    its taps times |h| + |b1| over the map, |b1| times the taps' sum and
+    |bd|."""
+    F = torch.nn.functional
+    c = h.shape[-1]
+    wa, b1 = p.taps.abs(), p.b1.float().abs()
+    mag = F.conv2d((h.float().abs() + b1).permute(0, 3, 1, 2),
+                   wa.t().reshape(c, 1, 3, 3), b1 * wa.sum(0) + p.bd.abs(),
+                   padding=1, groups=c)
+    return mag.permute(0, 2, 3, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('stage', list(LSK_MLP_SHAPES))
+def test_lsk_dw_gelu_kernel_matches_plain(cuda, stage):
+    """bf16 against the plain form on the card (cuDNN in float32, TF32
+    off). Both take fc1's bias, the taps, their bias and GELU in float32
+    and round once; the kernel sums the taps in another order with fc1's
+    bias split off (b1 times the taps' sum), ~2^-24 of what it sums apart,
+    so a value may land on the neighbouring bf16: within one bf16 ulp of
+    the plain value plus 2^-16 of that magnitude."""
+    h, w, c, hidden = LSK_MLP_SHAPES[stage]
+    _, p = lsk_mlp_inputs(cuda, c, hidden, 1)
+    hm = lsk_randn(cuda, (2, h, w, hidden), 2)
+    _ext.reset_launches()
+    with torch.no_grad():
+        got = M.dw_gelu_cuda(hm, p.b1, p.taps, p.bd)
+        want = M.dw_gelu_reference(hm, p.b1, p.taps, p.bd)
+    assert _ext.LAUNCHES['lsk_dw_gelu'] == 1
+    assert got.shape == want.shape == (2, h, w, hidden)
+    assert within_ulp(got, want, 2 ** -16 * dw_magnitude(hm, p))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('rows', M.DW_ROWS)
+def test_lsk_dw_gelu_pads_after_fc1_bias(cuda, rows, monkeypatch):
+    """Each tile height (forced through ``dw_tile``) on 6 x 9 maps with
+    fc1's bias at 4, where the pad reaches most outputs: the kernel
+    matches the plain form (h + b1 zero outside the map, as dwconv pads
+    fc1's output), and fc1's bias on the padding too misses that
+    tolerance."""
+    F = torch.nn.functional
+    c, hidden = 64, 256
+    _, p = lsk_mlp_inputs(cuda, c, hidden, 3)
+    b1 = torch.full_like(p.b1, 4.0)
+    hm = lsk_randn(cuda, (2, 6, 9, hidden), 4)
+    monkeypatch.setattr(M, 'dw_tile', lambda *args: rows)
+    with torch.no_grad():
+        got = M.dw_gelu_cuda(hm, b1, p.taps, p.bd)
+        want = M.dw_gelu_reference(hm, b1, p.taps, p.bd)
+        hb = F.pad(hm.permute(0, 3, 1, 2).float(), (1, 1, 1, 1)) + 4.0
+        wrong = F.gelu(F.conv2d(hb, p.taps.t().reshape(hidden, 1, 3, 3),
+                                p.bd, groups=hidden)).permute(0, 2, 3, 1)
+        tol = 2 ** -16 * dw_magnitude(hm, types.SimpleNamespace(
+            taps=p.taps, b1=b1, bd=p.bd))
+    assert within_ulp(got, want, tol)
+    assert not within_ulp(wrong, want, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('stage', ['s1', 's2', 's3', 's4'])
+def test_lsk_mlp_sub_block_kernel_route_near_the_plain_route(cuda, stage):
+    """A seeded block at each stage's widths, on the kernels' route and on
+    the eager bf16 route (kernels off), each against the same block in
+    float32 (eager, TF32 off): the route folds norm2 into fc1 and rounds
+    fc1's output, the taps, their bias and GELU once, so it rounds
+    elsewhere than the eager route; its error stays within 1.25 times the
+    eager route's and under 1% of the sub-block's contribution."""
+    h, w, c, hidden = LSK_MLP_SHAPES[stage]
+    block, _ = lsk_mlp_inputs(cuda, c, hidden, 10)
+    g = torch.Generator(cuda).manual_seed(11)
+    x = torch.randn(2, c, h, w, generator=g, device=cuda).contiguous(
+        memory_format=torch.channels_last)
+    xb = x.bfloat16()
+
+    def sub_block(t):
+        return torch.addcmul(t, block.layer_scale_2.to(t.dtype).view(
+            1, -1, 1, 1), block.mlp(block.norm2(t)))
+    with torch.no_grad():
+        want = sub_block(x)
+        assert M.refusal(xb, hidden) is None
+        _ext.reset_launches()
+        route = M.mlp(xb, block.mlp_pack(torch.bfloat16))
+        launched = dict(_ext.LAUNCHES)
+        with kernels(False):
+            eager = sub_block(xb)
+    assert route.is_contiguous(memory_format=torch.channels_last)
+    assert [launched[k] for k in ('lsk_dw_gelu', 'lsk_bias_scale')] == [1, 1]
+    ref = (want - x).norm()
+    kern = float((route.float() - want).norm() / ref)
+    eag = float((eager.float() - want).norm() / ref)
+    assert kern <= 1.25 * eag and kern < 0.01, (kern, eag)
+
+
+@pytest.mark.gpu
+def test_lsk_mlp_wrappers_raise(cuda):
+    _, p = lsk_mlp_inputs(cuda, 64, 256, 13)
+    hm = torch.zeros(1, 8, 8, 256, dtype=torch.bfloat16, device=cuda)
+    bad_dw = [(hm.float(), p.b1, p.taps, p.bd),
+              (hm.transpose(1, 2), p.b1, p.taps, p.bd),
+              (hm, p.b1.float(), p.taps, p.bd),
+              (hm, p.b1, p.taps[:8], p.bd),
+              (hm, p.b1, p.taps, p.bd.bfloat16()),
+              (hm[..., :36].contiguous(), p.b1[:36], p.taps[:, :36],
+               p.bd[:36])]
+    for args in bad_dw:
+        with pytest.raises(ValueError), torch.no_grad():
+            M.dw_gelu_cuda(*args)
+    a = torch.zeros(1, 8, 8, 64, dtype=torch.bfloat16, device=cuda)
+    for args in [(a, p.b2.float(), a.clone(), p.ls), (a.float(), p.b2, a,
+                                                      p.ls),
+                 (a, p.b2, a[..., :32].contiguous(), p.ls),
+                 (a, p.b2, a.clone(), p.ls[:32])]:
+        with pytest.raises(ValueError), torch.no_grad():
+            M.bias_scale_cuda(*args)
+
+# ---------------------------------------------------------------------------
 # Where each route launches: one predict step a route
 # ---------------------------------------------------------------------------
 
@@ -2337,7 +2481,8 @@ STEP_LAUNCHES = {
     'rretinanet_lsknet_s_bf16': {'rotated_iou': 1, 'nms_sweep': 1,
                                  'lsk_taps': 10, 'lsk_select': 10,
                                  'lsk_bias_gelu': 10, 'lsk_bias_gate': 10,
-                                 'lsk_bias_residual': 10},
+                                 'lsk_bias_residual': 10, 'lsk_dw_gelu': 10,
+                                 'lsk_bias_scale': 10},
     'rretinanet_vitdet_b_bf16': {'rotated_iou': 1, 'nms_sweep': 1},
     'r3det_r50_int8_static': {'rotated_iou': 1, 'nms_sweep': 1,
                               'frm_sample': 1, 'stem_conv_pool_q8': 1,

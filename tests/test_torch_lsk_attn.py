@@ -250,11 +250,13 @@ def test_route_forced_through_a_whole_backbone_in_its_spans(monkeypatch):
 
 
 def test_block_takes_the_eager_path_on_the_cpu(monkeypatch):
-    """Without a forced route a block runs the eager sub-block (the
-    parent's ops, bit for bit) and never calls the route."""
+    """Without a forced route a block runs the eager sub-blocks (the
+    parent's ops, bit for bit) and never calls either route."""
+    from r3det_tpu_torch.ops import lsk_mlp
     block = seeded_block(32, seed=11)
     x = block_map(2, 32, 9, 9, seed=12)
     monkeypatch.setattr(L, 'attention', None)
+    monkeypatch.setattr(lsk_mlp, 'mlp', None)
     with torch.no_grad():
         got = block(x)
         want = eager(block, x)

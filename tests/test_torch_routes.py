@@ -26,6 +26,7 @@ from r3det_tpu_torch.ops import int8_conv as Q
 from r3det_tpu_torch.ops import rotated_iou as K1
 from r3det_tpu_torch.ops import stem_pool as K3
 from r3det_tpu_torch.ops import lsk_attn as L
+from r3det_tpu_torch.ops import lsk_mlp as M
 from r3det_tpu_torch.ops import swin_attn as A
 from r3det_tpu_torch.ops.int8_conv import (int8_conv_nhwc, quantize_act,
                                            quantize_weights)
@@ -71,6 +72,9 @@ CONTRACTS = {
     'lsk_epilogue': (BF16, False, (2, 8, 8, 64), L.epilogue_refusal),
     'lsk_sub_block': (BF16, False, (2, 64, 8, 8),
                       lambda x: L.refusal(channels_last(x))),
+    'lsk_dw_gelu': (BF16, False, (2, 8, 8, 256), M.dw_gelu_refusal),
+    'lsk_mlp_sub_block': (BF16, False, (2, 64, 8, 8),
+                          lambda x: M.refusal(channels_last(x), 256)),
 }
 
 
@@ -121,6 +125,7 @@ SHAPE_REFUSALS = {
     'swin_norm_pad_width': ('swin_norm_pad', (2, 7, 7, 1024), 'up to'),
     'swin_window_attn_head_dim': ('swin_window_attn', (2, 7, 7, 576),
                                   'head_dim'),
+    'lsk_dw_gelu_channels': ('lsk_dw_gelu', (2, 8, 8, 260), 'C % 8'),
 }
 
 
