@@ -14,7 +14,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from ..utils.tracing import span
+from ..utils.tracing import count_h2d, span
 
 PI = math.pi
 DEFAULT_MEANS = (0., 0., 0., 0., 0.)
@@ -25,6 +25,7 @@ def _normalize(deltas, means, stds):
     with span('copy.coder'):
         means = deltas.new_tensor(means)
         stds = deltas.new_tensor(stds)
+        count_h2d(means, stds)
     return (deltas - means) / stds
 
 
@@ -32,6 +33,7 @@ def _denormalize(deltas, means, stds):
     with span('copy.coder'):
         means = deltas.new_tensor(means)
         stds = deltas.new_tensor(stds)
+        count_h2d(means, stds)
     return deltas * stds + means
 
 

@@ -47,7 +47,7 @@ from ..core.targets import TargetConfig, anchor_targets, num_total_samples
 from ..ops import route
 from ..ops.nms import multiclass_nms_rotated_batched
 from ..parallel import dist
-from ..utils.tracing import span
+from ..utils.tracing import count_h2d, span
 from .fpn import FPN
 from .frm import FeatureRefineModule
 from .lsknet import LSKNet
@@ -232,7 +232,8 @@ class _Base(nn.Module):
 
 class RRetinaNet(_Base):
     """Backbone + FPN + rotated retina head. forward(images NHWC) ->
-    {'s0': (cls_scores, bbox_preds)}."""
+    {'s0': (cls_scores, bbox_preds)}. Spans (``utils/tracing.py``):
+    ``backbone``, ``neck``, ``head.s0``."""
 
     def __init__(self, cfg: DetectorConfig, dtype=torch.bfloat16,
                  kernels=True, stem_fused_kernel=True, stem_pool_kernel=False,
@@ -241,15 +242,21 @@ class RRetinaNet(_Base):
                          stem_pool_kernel, fused_blocks, int8_act)
 
     def detect(self, images):
-        feats = self.neck(self.backbone(images))
-        return {'s0': self.bbox_head(feats)}
+        with span('backbone'):
+            feats = self.backbone(images)
+        with span('neck'):
+            feats = self.neck(feats)
+        with span('head.s0'):
+            return {'s0': self.bbox_head(feats)}
 
 
 class R3Det(_Base):
     """RRetinaNet base + N x (FRM + refine head).
 
     forward(images NHWC) -> {'s0': (cls, reg), 'sr': [(cls, reg), ...],
-    'rois': [per-level (B, H*W, 5), ...]}.
+    'rois': [per-level (B, H*W, 5), ...]}. Spans (``utils/tracing.py``):
+    ``backbone``, ``neck``, ``head.s0``, then each stage's ``frm.<i>`` and
+    ``head.sr<i>``.
     """
 
     def __init__(self, cfg: DetectorConfig, dtype=torch.bfloat16,
@@ -273,8 +280,12 @@ class R3Det(_Base):
 
     def detect(self, images):
         cfg = self.cfg
-        feats = self.neck(self.backbone(images))
-        cls0, reg0 = self.bbox_head(feats)
+        with span('backbone'):
+            feats = self.backbone(images)
+        with span('neck'):
+            feats = self.neck(feats)
+        with span('head.s0'):
+            cls0, reg0 = self.bbox_head(feats)
         anchors = level_anchors(cfg, [tuple(f.shape[1:3]) for f in cls0],
                                 images.device)
         coder = cfg.coder()
@@ -284,8 +295,10 @@ class R3Det(_Base):
         rois = filter_bboxes(cls0, reg0, anchors, coder, cfg)
         out = {'s0': (cls0, reg0), 'sr': [], 'rois': []}
         for stage in range(cfg.num_refine_stages):
-            feats = getattr(self, f'frm_{stage}')(feats, rois)
-            cls_i, reg_i = getattr(self, f'refine_head_{stage}')(feats)
+            with span(f'frm.{stage}'):
+                feats = getattr(self, f'frm_{stage}')(feats, rois)
+            with span(f'head.sr{stage}'):
+                cls_i, reg_i = getattr(self, f'refine_head_{stage}')(feats)
             out['sr'].append((cls_i, reg_i))
             out['rois'].append(rois)
             if stage + 1 < cfg.num_refine_stages:
@@ -325,11 +338,14 @@ def _grid_anchors(cfg: DetectorConfig, featmap_sizes):
 
 
 def level_anchors(cfg: DetectorConfig, featmap_sizes, device=None):
-    """Per-level (H*W*A, 5) f32 anchors on ``device``."""
+    """Per-level (H*W*A, 5) f32 anchors on ``device``, copied in the span
+    ``copy.anchors``, which counts their bytes."""
     sizes = tuple(tuple(int(v) for v in s) for s in featmap_sizes)
     with span('copy.anchors'):
-        return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                for a in _grid_anchors(cfg, sizes)]
+        out = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+               for a in _grid_anchors(cfg, sizes)]
+        count_h2d(*out)
+    return out
 
 
 def filter_bboxes(cls_scores, bbox_preds, anchors, coder, cfg):

@@ -46,7 +46,6 @@ from ..ops.stem_pool import (pack_stem, stem_conv_pool_cuda,
                              stem_conv_pool_q8_reference,
                              stem_conv_pool_reference, stem_conv_pool_unfused,
                              stem_refusal)
-from ..utils.tracing import span
 from .quant import act_absmax, conv_factory
 
 STAGE_BLOCKS = {10: (1, 1, 1, 1), 14: (2, 1, 1, 1), 50: (3, 4, 6, 3),
@@ -163,11 +162,10 @@ class Bottleneck(nn.Module):
 
     def epilogue_forward(self, x):
         """The bf16 block with what follows each conv in one pass
-        (``ops/conv_epilogue.py``, span ``backbone.epilogue``): bn1 and
-        ReLU, bn2 and ReLU, then bn3, the residual and ReLU, where a
-        downsample block's residual is its conv's raw output with
-        ``downsample_bn``'s affine. The same ops, in the same order and
-        roundings, as :meth:`forward`'s unfused route."""
+        (``ops/conv_epilogue.py``): bn1 and ReLU, bn2 and ReLU, then bn3,
+        the residual and ReLU, where a downsample block's residual is its
+        conv's raw output with ``downsample_bn``'s affine. The same ops, in
+        the same order and roundings, as :meth:`forward`'s unfused route."""
         y = self._epilogue(self.conv1(x), self.bn1)
         y = self._epilogue(self.conv2(y), self.bn2)
         y = self.conv3(y)
@@ -178,9 +176,8 @@ class Bottleneck(nn.Module):
 
     @staticmethod
     def _epilogue(a, bn, residual=None):
-        with span('backbone.epilogue'):
-            return conv_epilogue.conv_epilogue(a, *bn.affine(torch.bfloat16),
-                                               residual)
+        return conv_epilogue.conv_epilogue(a, *bn.affine(torch.bfloat16),
+                                           residual)
 
     def _block_codes(self, x):
         """``int8_act``: the block input's NHWC int8 codes and scale (the

@@ -169,14 +169,21 @@ def test_block_route_equals_unfused(inplanes, features, stride, monkeypatch):
 
 
 def test_resnet50_route_equals_unfused_and_counts_spans(monkeypatch):
+    """Forced onto the route, a ResNet-50 call makes one epilogue call a
+    conv epilogue, 48, equal to the unfused route bit for bit; the
+    backbone records no span of its own (the detector's ``backbone`` span
+    is around it)."""
     net = seeded(ResNet(depth=50, dtype=BF16), 7)
     images = torch.randn(1, 64, 64, 3,
                          generator=torch.Generator().manual_seed(1))
+    calls = []
+    real = E.conv_epilogue
     with torch.no_grad():
         want, spans_off = traced(lambda: net(images))
+        monkeypatch.setattr(E, 'conv_epilogue',
+                            lambda *a: calls.append(1) or real(*a))
         got, spans = traced(lambda: forced(lambda: net(images), monkeypatch))
     for g, w in zip(got, want):
         same_bits(g, w)
-    names = [n for n, _, _ in spans]
-    assert names.count('r3det.backbone.epilogue') == 48 == len(names)
-    assert not spans_off
+    assert len(calls) == 48
+    assert not spans and not spans_off

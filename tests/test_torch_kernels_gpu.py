@@ -31,6 +31,7 @@ from r3det_tpu_torch.ops import stem_pool as K3
 from r3det_tpu_torch.ops import swin_attn as A
 from r3det_tpu_torch.ops.route import kernels
 from r3det_tpu_torch.parallel.predict import make_predict_step
+from r3det_tpu_torch.utils import tracing
 from r3det_tpu_torch.utils.convert import seeded_state_dict
 
 from program_spans import sweep_branch, traced
@@ -1548,28 +1549,75 @@ def test_resnet50_epilogue_route_equals_unfused(cuda, monkeypatch):
     assert _ext.LAUNCHES['conv_epilogue'] == 3 * STAGE_BLOCKS[50][0]
 
 
-@pytest.mark.gpu
-def test_predict_step_epilogue_spans(cuda):
-    """A bf16 R3Det R50 predict step records 48 ``r3det.backbone.epilogue``
-    ranges with the spans on, and none with kernels off."""
+def r50_predict_step(cuda, size=256):
+    """A bf16 R3Det R50 predict step on seeded weights at ``size``^2, and
+    its model."""
     cfg = R3DET_R50_V1
     model = build_detector(cfg, dtype=torch.bfloat16, device=cuda)
     model.load_state_dict(seeded_state_dict(model, 0))
-    size = 256
     sizes = tuple((size // s, size // s) for s in cfg.strides)
-    step = make_predict_step(model, cfg, sizes, img_shape=(size, size))
-    images = r50_images(cuda, 1, size)
+    return make_predict_step(model, cfg, sizes,
+                             img_shape=(size, size)), model
+
+
+@pytest.mark.gpu
+def test_predict_step_epilogue_spans(cuda):
+    """A bf16 R3Det R50 predict step launches the conv epilogue 48 times,
+    once a conv epilogue, and not once with kernels off."""
+    step, model = r50_predict_step(cuda)
+    images = r50_images(cuda, 1, 256)
 
     def count():
-        _, spans = traced(lambda: step(images))
+        _ext.reset_launches()
+        with torch.no_grad():
+            step(images)
         torch.cuda.synchronize()
-        return sum(n == 'r3det.backbone.epilogue' for n, _, _ in spans)
+        return _ext.LAUNCHES['conv_epilogue']
     assert count() == 48
     use_kernels(model, False)
     try:
         assert count() == 0
     finally:
         use_kernels(model, True)
+
+
+@pytest.mark.gpu
+def test_predict_step_ops_have_launching_spans(cuda):
+    """A bf16 R3Det R50 predict step, the recorder on under a profiler of
+    device activity alone (the benchmark's lean sub-window): every device
+    op has a runtime call inside a span, no span enters a
+    ``record_function`` range, and each op starts no earlier than the
+    begin of the span that launched it. (An op can start a few us before
+    its runtime call's record: CUPTI maps the device's clock onto the
+    host's.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    from portbench.bench.program_timeline import Timeline, kineto_ops
+    step, _ = r50_predict_step(cuda)
+    images = r50_images(cuda, 2, 256)
+    step(images)
+    torch.cuda.synchronize()
+    tracing.enable(True)
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(images)
+            torch.cuda.synchronize()
+            assert not tracing._cpu_ops_profiled()
+    finally:
+        tracing.enable(False)
+    recs = tracing.records()
+    ops, launches = kineto_ops(prof)
+    assert ops and all(c in launches for _, _, c in ops)
+    tl = Timeline(recs, ops, launches)
+    assert tl.unlaunched_ns == 0 and tl.outside['device'] == 0
+    assert tl.busy_ns == sum(tl.device_ns)
+    for a, _, c in ops:
+        k = tl.owner_at(launches[c])
+        assert k is not None
+        assert recs[k].begin_ns <= a
+    names = {r.name for r in recs}
+    assert {'predict', 'forward', 'backbone', 'neck', 'head.s0', 'frm.0',
+            'head.sr0', 'decode', 'nms'} <= names
 
 
 @pytest.mark.gpu

@@ -1,7 +1,11 @@
 """The port's spans (``r3det_tpu_torch/utils/tracing.py``) on the CPU, in
 the tiny detectors of tests/test_torch_detector.py: off they record
-nothing, on they nest as the serving path's layers do, and they change no
-detection."""
+nothing, on they nest as the serving path's layers do, the recorder's
+records match the profiler's ranges on its clock, the ``copy.*`` sites
+count their bytes, and the spans change no detection."""
+import gc
+import statistics
+
 import numpy as np
 import pytest
 import torch
@@ -11,7 +15,7 @@ from r3det_tpu_torch.ops import nms
 from r3det_tpu_torch.parallel.predict import make_predict_step
 from r3det_tpu_torch.utils import tracing
 
-from program_spans import sweep_branch, traced
+from program_spans import sweep_branch, traced, traced_ns
 
 torch.set_num_threads(2)
 
@@ -98,6 +102,86 @@ def test_on_spans_nest_as_the_layers(case, monkeypatch):
     assert len(calls) == STEPS
     assert names.count('r3det.copy.anchors') == len(calls)
     assert not tracing.enabled()
+
+
+def test_off_makes_no_record(case, monkeypatch):
+    """Off, the span sites and the byte counter make no record: the
+    recorder's list stays empty."""
+    def made(*a, **k):
+        raise AssertionError('a record was made with tracing off')
+
+    tracing.records()                      # what an earlier test left
+    monkeypatch.setattr(tracing.Record, '__init__', made)
+    run_steps(case)
+    assert tracing.records() == []
+
+
+def test_records_match_the_profiler_ranges(case):
+    """On, under a CPU profiler: one record a ``record_function`` range,
+    in name, order and nesting (each record's parent is the innermost range
+    over its range), each begin within 50 us of its range's on the
+    profiler's clock; a predict span's records share its step. The
+    process can lose the CPU between the range's stamp and the record's,
+    so the clocks must agree within 50 us at the median of every call and
+    at every span of one call in three, with the collector off."""
+    worst = []
+    gc.disable()
+    try:
+        for _ in range(3):
+            _, spans, recs = traced_ns(lambda: run_steps(case))
+            gaps = [abs(r.begin_ns - a) for (_, a, _), r in zip(spans, recs)]
+            assert statistics.median(gaps) <= 50_000
+            worst.append(max(gaps))
+            if worst[-1] <= 50_000:
+                break
+    finally:
+        gc.enable()
+    assert min(worst) <= 50_000
+    assert [n for n, _, _ in spans] == ['r3det.' + r.name for r in recs]
+    for i, (_, a, b) in enumerate(spans):
+        over = [j for j, (_, c, d) in enumerate(spans)
+                if j != i and c <= a and b <= d]
+        inner = min(over, key=lambda j: spans[j][2] - spans[j][1],
+                    default=None)
+        assert recs[i].parent == inner
+        assert recs[i].begin_ns <= recs[i].end_ns
+    steps = [r for r in recs if r.name == 'predict']
+    assert [r.step for r in steps] == list(range(STEPS))
+    for r in recs:
+        assert r.step == (r.step if r.parent is None
+                          else recs[r.parent].step)
+
+
+def test_stage_spans_nest_under_forward(case):
+    """The detector's stages are spans under ``forward``, in the order the
+    work runs: ``backbone``, ``neck``, ``head.s0`` and, for R3Det, each
+    refine stage's ``frm.<i>`` and ``head.sr<i>``."""
+    _, _, recs = traced_ns(lambda: run_steps(case))
+    stages = ['backbone', 'neck', 'head.s0'] + [
+        n for i in range(case['cfg'].num_refine_stages)
+        for n in (f'frm.{i}', f'head.sr{i}')]
+    forwards = [r for r in recs if r.name == 'forward']
+    assert len(forwards) == STEPS
+    for f in forwards:
+        assert [r.name for r in recs
+                if r.parent == f.index and r.name in stages] == stages
+    assert not any(r.name in stages for r in recs
+                   if r.parent is None or recs[r.parent].name != 'forward')
+
+
+def test_copy_sites_count_their_bytes(case):
+    """``copy.anchors`` counts the anchors' bytes and ``copy.coder`` the
+    coder's means and stds (five f32 each): a step holds no other bytes."""
+    _, _, recs = traced_ns(lambda: run_steps(case))
+    anchors = sum(a.nbytes for a in T.level_anchors(case['cfg'],
+                                                    FEATMAP_SIZES, 'cpu'))
+    copies = [r for r in recs if r.name.startswith('copy.')]
+    assert copies
+    for r in copies:
+        assert r.h2d_bytes == (anchors if r.name == 'copy.anchors'
+                               else 2 * 5 * 4)
+    assert sum(r.h2d_bytes for r in recs) == sum(r.h2d_bytes
+                                                 for r in copies)
 
 
 def test_on_changes_no_detection(case):
